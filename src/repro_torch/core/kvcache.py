@@ -1,0 +1,161 @@
+"""Paged MLA KV pool (port of the paged half of ``repro/core/kvcache.py``).
+
+The pool layout is the reference's: content ``[n_pages, page, d_c]`` in the
+storage format (fp8 / int8, or bf16 when ``fmt == "none"``), rope
+``[n_pages, page, d_r]`` bf16 pre-divided by the per-token content scale,
+scale ``[n_pages, page]`` f32, page table ``[B, P]`` int32 and ``seq_lens``
+``[B]`` int32. The contiguous ``MLACache`` and the sink guard are not ported
+yet.
+
+Unlike the functional JAX pool, writes land IN PLACE in the pool tensors
+(``index_put_``) — a decode step does not copy the whole pool; the returned
+pool carries the same storage and the new ``seq_lens``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import quant
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheConfig:
+    fmt: str = "fp8_e4m3"        # "fp8_e4m3" | "int8" | "none" (bf16 baseline)
+    page_size: int = 128          # kernel KV-block granularity (§3.3.2: 128)
+
+    @property
+    def quantized(self) -> bool:
+        return self.fmt != "none"
+
+    def storage_dtype(self) -> torch.dtype:
+        return quant.qdtype_for(self.fmt) if self.quantized else torch.bfloat16
+
+
+def _round_up(n: int, m: int) -> int:
+    return (n + m - 1) // m * m
+
+
+def page_aligned_capacity(n_tokens: int, page_size: int) -> int:
+    """Cache capacity for ``n_tokens`` tokens: rounded up to the page size."""
+    return _round_up(max(int(n_tokens), 1), page_size)
+
+
+class PagedMLAPool(NamedTuple):
+    """Global page pool addressed through a per-slot page table."""
+
+    content: torch.Tensor     # [n_pages, page_size, d_c]
+    rope: torch.Tensor        # [n_pages, page_size, d_r] bf16
+    scale: torch.Tensor       # [n_pages, page_size] f32
+    page_table: torch.Tensor  # [B, max_pages] int32
+    seq_lens: torch.Tensor    # [B] int32
+
+    @property
+    def page_size(self) -> int:
+        return self.content.shape[1]
+
+    @property
+    def capacity(self) -> int:
+        """Per-sequence token capacity (the page-table span)."""
+        return self.page_table.shape[1] * self.page_size
+
+
+def init_paged_mla_pool(cfg: CacheConfig, n_pages: int, max_pages_per_seq: int,
+                        batch: int, d_c: int, d_r: int, device=None) -> PagedMLAPool:
+    return PagedMLAPool(
+        content=torch.zeros((n_pages, cfg.page_size, d_c), dtype=cfg.storage_dtype(),
+                            device=device),
+        rope=torch.zeros((n_pages, cfg.page_size, d_r), dtype=torch.bfloat16,
+                         device=device),
+        scale=torch.ones((n_pages, cfg.page_size), dtype=torch.float32, device=device),
+        page_table=torch.zeros((batch, max_pages_per_seq), dtype=torch.int32,
+                               device=device),
+        seq_lens=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def init_paged_mla_cache(cfg: CacheConfig, batch: int, max_len: int, d_c: int,
+                         d_r: int, device=None) -> PagedMLAPool:
+    """Batch-owned layout: row b owns pages [b*P, (b+1)*P). (The reference's
+    shared multi-tenant layout belongs to the serving engine, not ported.)"""
+    n = page_aligned_capacity(max_len, cfg.page_size)
+    pages_per_seq = n // cfg.page_size
+    pool = init_paged_mla_pool(cfg, batch * pages_per_seq, pages_per_seq, batch,
+                               d_c, d_r, device)
+    table = torch.arange(batch * pages_per_seq, dtype=torch.int32,
+                         device=device).reshape(batch, pages_per_seq)
+    return pool._replace(page_table=table)
+
+
+def mla_quantize_entry(cfg: CacheConfig, c_kv: torch.Tensor, k_r: torch.Tensor):
+    """c_kv [..., d_c], k_r [..., d_r] -> (content_store, rope_store, scale[...])."""
+    if not cfg.quantized:
+        ones = torch.ones(c_kv.shape[:-1], dtype=torch.float32, device=c_kv.device)
+        return c_kv.to(torch.bfloat16), k_r.to(torch.bfloat16), ones
+    raq = quant.quantize_rope_aware(c_kv, k_r, cfg.fmt)
+    return raq.q_content, raq.rope_scaled, raq.scale[..., 0]
+
+
+def paged_gather(pool: PagedMLAPool):
+    """Contiguous view [B, max_pages*page, ...] (reference only)."""
+    c = pool.content[pool.page_table.long()]
+    r = pool.rope[pool.page_table.long()]
+    s = pool.scale[pool.page_table.long()]
+    B, P, page, d_c = c.shape
+    return c.reshape(B, P * page, d_c), r.reshape(B, P * page, -1), s.reshape(B, P * page)
+
+
+def _write(pool: PagedMLAPool, pids, offs, content, rope, scale) -> None:
+    pool.content.index_put_((pids, offs), content.to(pool.content.dtype))
+    pool.rope.index_put_((pids, offs), rope.to(torch.bfloat16))
+    pool.scale.index_put_((pids, offs), scale.float())
+
+
+def paged_mla_prefill(pool: PagedMLAPool, cfg: CacheConfig, c_kv: torch.Tensor,
+                      k_r: torch.Tensor) -> PagedMLAPool:
+    """Bulk-write a prefix through the page table: c_kv [B, S, d_c],
+    k_r [B, S, d_r] land in page ``page_table[b, t // page]`` at slot
+    ``t % page`` (in place)."""
+    B, S = c_kv.shape[:2]
+    page = pool.page_size
+    content, rope, scale = mla_quantize_entry(cfg, c_kv, k_r)
+    t = torch.arange(S, device=c_kv.device)
+    pids = pool.page_table[:, t // page].long()                # [B, S]
+    offs = (t % page).expand(B, S)
+    _write(pool, pids, offs, content, rope, scale)
+    return pool._replace(seq_lens=torch.full_like(pool.seq_lens, S))
+
+
+def paged_mla_append(pool: PagedMLAPool, cfg: CacheConfig, c_kv: torch.Tensor,
+                     k_r: torch.Tensor, active: torch.Tensor | None = None
+                     ) -> PagedMLAPool:
+    """Append one token per sequence into its current page (in place).
+
+    Writes past capacity are clamped to the FINAL slot (kvcache.py:479-491).
+    ``active`` [B] bool gates the append per row: inactive rows rewrite their
+    current slot with its old value and keep ``seq_lens`` frozen."""
+    B = c_kv.shape[0]
+    page = pool.page_size
+    content, rope, scale = mla_quantize_entry(cfg, c_kv, k_r)
+    t = torch.clamp(pool.seq_lens, max=pool.capacity - 1).long()
+    rows = torch.arange(B, device=c_kv.device)
+    pid = pool.page_table[rows, t // page].long()             # [B]
+    off = t % page
+    if active is not None:
+        content = _where_rows(active, content, pool.content[pid, off])
+        rope = _where_rows(active, rope.to(torch.bfloat16), pool.rope[pid, off])
+        scale = torch.where(active, scale, pool.scale[pid, off])
+    _write(pool, pid, off, content, rope, scale)
+    step = 1 if active is None else active.to(pool.seq_lens.dtype)
+    return pool._replace(seq_lens=pool.seq_lens + step)
+
+
+def _where_rows(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """Row select that also works for fp8 tensors (``torch.where`` has no
+    float8 kernel): pick on the raw bytes."""
+    if new.dtype == torch.float8_e4m3fn:
+        picked = torch.where(active[:, None], new.view(torch.uint8), old.view(torch.uint8))
+        return picked.view(torch.float8_e4m3fn)
+    return torch.where(active[:, None], new.to(old.dtype), old)

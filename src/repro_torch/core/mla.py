@@ -1,0 +1,131 @@
+"""Multi-head Latent Attention (port of ``repro/core/mla.py``).
+
+DeepSeek-V2/V3 MLA math (paper §2): low-rank joint KV compression
+``c_kv = W_DKV h`` (Eq. 1), decoupled RoPE key ``k_r = RoPE(W_KR h)`` shared
+across heads (Eq. 2), V from the latent only (Eq. 4), and the absorbed
+decode form (Eq. 5) ``q~_i = W_UK_i^T q_c_i``. Weights keep the JAX layouts.
+Only the direct-W_Q form (``q_lora_rank == 0``, as in mla-7b) is ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.models.layers import _normal, apply_rope, rms_norm, rope_freqs
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    d_head: int          # per-head content dim (d_h)
+    d_rope: int          # decoupled rope dim (d_r), shared K across heads
+    d_c: int             # KV compression dim (latent)
+    q_lora_rank: int = 0
+    rope_theta: float = 10000.0
+
+    @property
+    def qk_dim(self) -> int:
+        return self.d_head + self.d_rope
+
+    @property
+    def softmax_scale(self) -> float:
+        return 1.0 / (self.qk_dim ** 0.5)
+
+
+class MLAParams(NamedTuple):
+    """Weights for one MLA attention layer (absorbed-compatible layout)."""
+
+    w_dq: torch.Tensor | None    # [d, q_lora] or None
+    q_norm: torch.Tensor | None  # [q_lora]
+    w_uq: torch.Tensor           # [q_lora or d, H, d_h + d_r]
+    w_dkv: torch.Tensor          # [d, d_c]
+    kv_norm: torch.Tensor        # [d_c]
+    w_kr: torch.Tensor           # [d, d_r]
+    w_uk: torch.Tensor           # [d_c, H, d_h]
+    w_uv: torch.Tensor           # [d_c, H, d_h]
+    w_o: torch.Tensor            # [H, d_h, d]
+
+
+def init_mla_params(gen: torch.Generator, cfg: MLAConfig, dtype=torch.float32,
+                    device=None) -> MLAParams:
+    if cfg.q_lora_rank:
+        raise NotImplementedError("q-LoRA MLA (deepseek-v3-mla) is not ported yet")
+    d, H, dh, dr, dc = cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_rope, cfg.d_c
+
+    def init(shape, fan_in):
+        return _normal(gen, shape, fan_in ** -0.5, dtype, device)
+
+    return MLAParams(
+        w_dq=None, q_norm=None,
+        w_uq=init((d, H, dh + dr), d),
+        w_dkv=init((d, dc), d),
+        kv_norm=torch.ones((dc,), dtype=dtype, device=device),
+        w_kr=init((d, dr), d),
+        w_uk=init((dc, H, dh), dc),
+        w_uv=init((dc, H, dh), dc),
+        w_o=init((H, dh, d), H * dh),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Projections
+# ---------------------------------------------------------------------------
+
+def project_q(params: MLAParams, cfg: MLAConfig, h: torch.Tensor,
+              positions: torch.Tensor):
+    """h [..., S, d] -> (q_c [..., S, H, d_h], q_r [..., S, H, d_r] RoPE'd)."""
+    if params.w_dq is not None:
+        ql = rms_norm(h @ params.w_dq, params.q_norm)
+        q = torch.einsum("...sk,khd->...shd", ql, params.w_uq)
+    else:
+        q = torch.einsum("...sk,khd->...shd", h, params.w_uq)
+    q_c, q_r = q[..., : cfg.d_head], q[..., cfg.d_head:]
+    sin, cos = rope_freqs(positions, cfg.d_rope, cfg.rope_theta)
+    q_r = apply_rope(q_r, sin[..., None, :], cos[..., None, :])
+    return q_c, q_r
+
+
+def project_kv(params: MLAParams, cfg: MLAConfig, h: torch.Tensor,
+               positions: torch.Tensor):
+    """h [..., S, d] -> (c_kv [..., S, d_c] normed, k_r [..., S, d_r] RoPE'd)."""
+    c_kv = rms_norm(h @ params.w_dkv, params.kv_norm)
+    k_r = h @ params.w_kr
+    sin, cos = rope_freqs(positions, cfg.d_rope, cfg.rope_theta)
+    return c_kv, apply_rope(k_r, sin, cos)
+
+
+def absorb_q(params: MLAParams, q_c: torch.Tensor) -> torch.Tensor:
+    """q_c [..., H, d_h] -> latent-space query q~ [..., H, d_c] (Eq. 5)."""
+    return torch.einsum("...hd,chd->...hc", q_c, params.w_uk)
+
+
+def output_proj(params: MLAParams, o_latent: torch.Tensor) -> torch.Tensor:
+    """o_latent [..., H, d_c] -> [..., d] via W_UV then W_O (absorbed pair)."""
+    o_head = torch.einsum("...hc,chd->...hd", o_latent, params.w_uv)
+    return torch.einsum("...hd,hdk->...k", o_head, params.w_o)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence (prefill) attention — the unabsorbed causal form
+# ---------------------------------------------------------------------------
+
+def mla_attention(params: MLAParams, cfg: MLAConfig, h: torch.Tensor,
+                  positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """h [B, S, d], positions [S] or [B, S] -> [B, S, d]. Written with einsum
+    and softmax as the reference is (mla.py:129)."""
+    q_c, q_r = project_q(params, cfg, h, positions)        # [B,S,H,dh],[B,S,H,dr]
+    c_kv, k_r = project_kv(params, cfg, h, positions)      # [B,S,dc],[B,S,dr]
+    k_c = torch.einsum("...sc,chd->...shd", c_kv, params.w_uk)
+    v = torch.einsum("...sc,chd->...shd", c_kv, params.w_uv)
+    logits = (torch.einsum("...qhd,...khd->...hqk", q_c, k_c)
+              + torch.einsum("...qhd,...kd->...hqk", q_r, k_r)) * cfg.softmax_scale
+    S = h.shape[-2]
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=h.device))
+        logits = torch.where(mask, logits, float("-inf"))
+    p = torch.softmax(logits.float(), dim=-1).to(h.dtype)
+    o = torch.einsum("...hqk,...khd->...qhd", p, v)
+    return torch.einsum("...qhd,hdk->...qk", o, params.w_o)

@@ -1,0 +1,77 @@
+// Shared helpers of the SnapMLA Hopper kernels: storage formats, the exact
+// casts of repro_torch/core/quant.py, and warp reductions.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, never
+// --use_fast_math: expf/logf and IEEE division keep every kernel bit-equal
+// to its plain PyTorch version.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace snap {
+
+constexpr float kEps = 1e-12f;     // quant.EPS
+constexpr float kNegInf = -1e30f;  // finite -inf sentinel of the reference kernel
+
+// Storage formats, as the Python wrappers pass them.
+enum Fmt : int { kFp8 = 0, kInt8 = 1, kNone = 2 };
+
+template <int F> struct Format;
+
+template <> struct Format<kFp8> {
+  using T = uint8_t;                         // torch.float8_e4m3fn bytes
+  static constexpr float kQmax = 448.0f;
+  static __device__ __forceinline__ float widen(T v) {
+    __half_raw h = __nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(v), __NV_E4M3);
+    return __half2float(__half(h));
+  }
+  // clip to +-448, then round to nearest even (torch's and ml_dtypes' cast)
+  static __device__ __forceinline__ T cast(float x) {
+    x = x < -kQmax ? -kQmax : (x > kQmax ? kQmax : x);
+    return static_cast<T>(__nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3));
+  }
+};
+
+template <> struct Format<kInt8> {
+  using T = int8_t;
+  static constexpr float kQmax = 127.0f;
+  static __device__ __forceinline__ float widen(T v) { return static_cast<float>(v); }
+  // round half to even (jnp.round / torch.round), then clip to +-127
+  static __device__ __forceinline__ T cast(float x) {
+    float r = rintf(x);
+    r = r < -kQmax ? -kQmax : (r > kQmax ? kQmax : r);
+    return static_cast<T>(r);
+  }
+};
+
+template <> struct Format<kNone> {
+  using T = __nv_bfloat16;                   // unquantized bf16 latent
+  static constexpr float kQmax = 1.0f;
+  static __device__ __forceinline__ float widen(T v) { return __bfloat162float(v); }
+};
+
+// max(amax, EPS) / qmax exactly as the reference's compiled form computes it:
+// a product with the float32 reciprocal of the constant qmax.
+template <int F>
+__device__ __forceinline__ float dynamic_scale(float amax) {
+  constexpr float inv = 1.0f / Format<F>::kQmax;
+  return fmaxf(amax, kEps) * inv;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+}  // namespace snap

@@ -1,0 +1,40 @@
+"""The port imports neither JAX nor the JAX package: every ``repro_torch``
+module imports in a fresh interpreter where ``import jax`` fails, leaves no
+``repro.`` module loaded, and no source line imports either."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+
+_SCRIPT = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
+assert not leaked, leaked
+assert sys.modules["jax"] is None
+print(len(names))
+"""
+
+
+def test_import_every_module_without_jax():
+    out = subprocess.run([sys.executable, "-c", _SCRIPT], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20      # every module of the slice was imported
+
+
+def test_no_jax_or_repro_import_in_sources():
+    pat = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))", re.M)
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [str(f) for f in files if pat.search(f.read_text())]
+    assert not bad, bad
