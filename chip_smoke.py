@@ -4,27 +4,33 @@ NVIDIA H100.
 
     python3 chip_smoke.py
 
-Phases (each prints one JSON line; any failure raises and exits non-zero):
+Phases (each prints JSON lines; any failure raises and exits non-zero):
 
   1. build   — compile the hand-written kernels from ``src/repro_torch/csrc``
                (one nvcc per source, in parallel) and print the card's name and
                power limit as nvidia-smi gives them;
-  2. kernels — every kernel of the serving path against its plain PyTorch
-               version on the card: at the shapes the serving run gives it
-               (mla-7b, batch 4, 5 pages) and at full MLA width over a ragged
-               ~32k-token shuffled pool (fp8), plus int8 and none at a smaller
-               shape; kernel median ms, plain ms and the bound ms;
+  2. kernels — every kernel of the serving paths against its plain PyTorch
+               version on the card, on one random cache held both contiguous
+               ([B, N, .]) and as a shuffled page pool: the serving shape
+               (mla-7b, batch 4, 512-527 tokens, 5 blocks of 128), a ragged
+               ~32k-token case, a sink-guarded cache (S_k = 4), int8 and none
+               at a smaller shape; FMA and AMLA at 1/4/8 splits; contiguous
+               against paged bit for bit at block_n == page; Fused-Q-Quant and
+               Fused-K-Append bytes. Kernel median ms, plain ms and bound ms;
   3. layer   — ``core.snapmla.decode_step``, one full-width layer over a
-               ~32k-token pool: kernels vs the reference backend;
+               ~32k-token cache, paged and contiguous (Fused-K-Append): kernels
+               vs the reference backend, cache bytes vs the plain append;
   4. serve   — ``launch.serve.generate`` on full mla-7b (30 layers, float32
-               weights from a seeded generator), paged pool, batch 4, prompt
-               512, gen 16: kernel backend with kv_splits 0 (single-pass kernel)
-               and 4 (split-KV + combine) against the reference backend; the
-               launch counters are reset just before and read just after the
-               two kernel runs (the main path);
-  5. counts  — every kernel of the path launched at least once;
-  6. profile — one decode step of the serving run under torch.profiler: host
-               wall, device kernel time, the device's idle share, top kernels.
+               weights from a seeded generator), batch 4, prompt 512, gen 16,
+               contiguous and paged caches, FMA and AMLA, kv_splits 0 and 4, a
+               sink-guarded run: kernel backend against the reference backend,
+               and contiguous against paged greedy tokens;
+  5. counts  — the launch counters, set to 0 just before and read just after
+               each main path (phase 3's kernel steps, phase 4's kernel runs):
+               every kernel of the paths launched at least once;
+  6. profile — one decode step of the serving run under torch.profiler (paged
+               at kv_splits 0 and 4, contiguous at 0): host wall, device kernel
+               time, the device's idle share, top kernels.
 
 The line before the last holds the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, without
@@ -47,15 +53,40 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK = {"fp8_e4m3": 1979e12, "int8": 1979e12, "none": 989e12, "f32": 67e12}
 PAGE, H, D_C, D_R = 128, 32, 512, 64
 TOL = dict(rtol=1e-5, atol=1e-5)
+# the reference's AMLA kernel-vs-oracle gate (tests/test_parity.py:148-163)
+AMLA_O, AMLA_LSE = dict(rtol=0.0, atol=1e-4), dict(rtol=0.0, atol=1e-5)
 
 SRC_DECODE = "src/repro_torch/csrc/mla_decode.cu"
 SRC_QQUANT = "src/repro_torch/csrc/q_quant.cu"
-KERNELS = {  # launch-counter name -> (source, the TPU kernel it replaces)
-    "paged_splitkv_decode": (SRC_DECODE, "src/repro/kernels/mla_decode/kernel.py:794"),
-    "paged_single_pass_decode": (SRC_DECODE, "src/repro/kernels/mla_decode/kernel.py:694"),
-    "lse_combine": (SRC_DECODE, "src/repro/kernels/mla_decode/kernel.py:614"),
-    "fused_q_quant": (SRC_QQUANT, "src/repro/kernels/quantize/kernel.py:50"),
+SRC_KAPPEND = "src/repro_torch/csrc/k_append.cu"
+TPU_DECODE = "src/repro/kernels/mla_decode/kernel.py"
+TPU_QUANT = "src/repro/kernels/quantize/kernel.py"
+KERNELS = {  # launch-counter name -> (source, the TPU kernel it replaces, mode)
+    "paged_splitkv_decode": (SRC_DECODE, f"{TPU_DECODE}:794", "fma"),
+    "paged_single_pass_decode": (SRC_DECODE, f"{TPU_DECODE}:694", "fma"),
+    "lse_combine": (SRC_DECODE, f"{TPU_DECODE}:614", "fma"),
+    "fused_q_quant": (SRC_QQUANT, f"{TPU_QUANT}:50", None),
+    "splitkv_decode": (SRC_DECODE, f"{TPU_DECODE}:516", "fma"),
+    "single_pass_decode": (SRC_DECODE, f"{TPU_DECODE}:268", "fma"),
+    "amla_combine": (SRC_DECODE, f"{TPU_DECODE}:665", "amla"),
+    "fused_k_append": (SRC_KAPPEND, f"{TPU_QUANT}:112", None),
+    # the AMLA mode of each decode kernel: the rescale == "amla" branch of
+    # _block_pipeline (kernel.py:152) inside the same entry point
+    "paged_splitkv_decode_amla": (SRC_DECODE, f"{TPU_DECODE}:794", "amla"),
+    "paged_single_pass_decode_amla": (SRC_DECODE, f"{TPU_DECODE}:694", "amla"),
+    "splitkv_decode_amla": (SRC_DECODE, f"{TPU_DECODE}:516", "amla"),
+    "single_pass_decode_amla": (SRC_DECODE, f"{TPU_DECODE}:268", "amla"),
 }
+# the split count each kernel's summary row reports: serving shape, long case
+SUMMARY_SPLITS = {"split": (4, 8), "single": (1, 1), "other": (1, 1)}
+
+
+def _kind(name: str) -> str:
+    if "single_pass" in name:
+        return "single"
+    if "splitkv" in name or "combine" in name:
+        return "split"
+    return "other"
 
 
 def emit(**fields) -> None:
@@ -132,20 +163,27 @@ def kernel_ms(fn, inner: int = 20, reps: int = 5) -> float:
     return statistics.median(out)
 
 
-def decode_bound(lens, fmt, splits, n_pages_table, heads=H, d_c=D_C, d_r=D_R):
-    """Least time for one paged decode call: bytes the call must move (the
-    live tokens' content, rope and scale, the query, the page table, the
-    outputs) over HBM bandwidth vs its QK + PV operations at the format's
-    tensor-core peak."""
+def decode_bound(lens, fmt, splits, table_entries, heads=H, d_c=D_C, d_r=D_R):
+    """Least time for one decode call: bytes the call must move (the live
+    tokens' content, rope and scale, the query, the page-table entries (0 for
+    a contiguous cache), the outputs) over HBM bandwidth vs its QK + PV
+    operations at the format's tensor-core peak."""
     B = len(lens)
     esize = 2 if fmt == "none" else 1
     tokens = sum(lens)
     nbytes = (tokens * (d_c * esize + d_r * 2 + 4)
               + B * heads * (d_c * esize + d_r * 4 + 4)
-              + B * (n_pages_table + 1) * 4
+              + B * (table_entries + 1) * 4
               + B * splits * heads * (d_c * 4 + 4 + (4 if splits > 1 else 0)))
     flops = tokens * heads * (2 * (d_c + d_r) + 2 * d_c)
     return _bound(nbytes, flops, PEAK[fmt])
+
+
+def combine_bound(B, S, amla: bool):
+    """C reads o and lse partials, #4 also g; both write o and lse."""
+    per_split = D_C + (2 if amla else 1)
+    return _bound(B * S * H * per_split * 4 + B * H * (D_C + 1) * 4,
+                  2 * B * S * H * D_C, PEAK["f32"])
 
 
 def _bound(nbytes, flops, peak):
@@ -153,151 +191,290 @@ def _bound(nbytes, flops, peak):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def make_case(gen, fmt, lens, P, *, extra=3, heads=H, d_c=D_C, d_r=D_R):
-    """A random quantized shuffled page pool and a prepared query (on the card)."""
+def make_case(gen, fmt, lens, P, *, sink_tokens=0, extra=3):
+    """One random quantized cache held twice on the card: contiguous
+    ([B, P*PAGE, .], with the sink guard's shadow when ``sink_tokens``) and as
+    a shuffled page pool; plus a prepared query. Returns (query, MLACache,
+    PagedMLAPool)."""
     import torch
-    from repro_torch.core.kvcache import CacheConfig, PagedMLAPool, mla_quantize_entry
+    from repro_torch.core.kvcache import (CacheConfig, MLACache, PagedMLAPool,
+                                          mla_quantize_entry)
     from repro_torch.kernels.mla_decode.ref import prepare_q
     dev = "cuda"
-    B = len(lens)
-    n_pool = B * P + extra
-    c = torch.randn(n_pool * PAGE, d_c, generator=gen, device=dev)
-    r = torch.randn(n_pool * PAGE, d_r, generator=gen, device=dev) * 2
+    B, N = len(lens), P * PAGE
+    c = torch.randn(B, N, D_C, generator=gen, device=dev)
+    r = torch.randn(B, N, D_R, generator=gen, device=dev) * 2
     content, rope, scale = mla_quantize_entry(CacheConfig(fmt=fmt, page_size=PAGE), c, r)
-    table = torch.randperm(n_pool, generator=gen, device=dev)[: B * P]
-    pool = PagedMLAPool(content.reshape(n_pool, PAGE, d_c).contiguous(),
-                        rope.reshape(n_pool, PAGE, d_r).contiguous(),
-                        scale.reshape(n_pool, PAGE).contiguous(),
-                        table.reshape(B, P).to(torch.int32).contiguous(),
-                        torch.tensor(lens, dtype=torch.int32, device=dev))
-    q = prepare_q(torch.randn(B, heads, d_c, generator=gen, device=dev),
-                  torch.randn(B, heads, d_r, generator=gen, device=dev), fmt)
-    return tuple(t.contiguous() for t in q) + tuple(pool)
+    seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cache = MLACache(content.contiguous(), rope.contiguous(), scale.contiguous(), seq_lens,
+                     c[:, :sink_tokens].contiguous() if sink_tokens else None)
+    n_pool = B * P + extra
+    table = torch.randperm(n_pool, generator=gen, device=dev)[: B * P].reshape(B, P)
+    pool = []
+    for x in (content, rope, scale):
+        dst = torch.zeros((n_pool, PAGE) + x.shape[2:], dtype=x.dtype, device=dev)
+        dst[table.reshape(-1)] = x.reshape((B * P, PAGE) + x.shape[2:])
+        pool.append(dst)
+    q = prepare_q(torch.randn(B, H, D_C, generator=gen, device=dev),
+                  torch.randn(B, H, D_R, generator=gen, device=dev), fmt)
+    q = tuple(t.contiguous() for t in q)
+    return q, cache, PagedMLAPool(*pool, table.to(torch.int32).contiguous(), seq_lens)
 
 
-def kernel_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records):
-    """A (each split count), B, C and (quantized formats) D against their
-    plain versions on one case; with ``timing``, their times go to
-    ``records[tag]``."""
+def _record(records, name, tag, S, err, fn=None, plain=None, bound=None):
+    rec = records.setdefault((name, tag, S), {"max_abs_err": 0.0})
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    if fn is not None:
+        rec.update(ms=kernel_ms(fn), plain_ms=time_ms(plain), bound_ms=bound[0],
+                   bound_by=bound[1])
+
+
+def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records,
+                  layouts=("paged", "contiguous"), rescales=("fma", "amla"), sink_tokens=0):
+    """Every decode kernel (A, B, #2, #1 in each rescale mode) and both
+    combines (C, #4) against their plain versions on one case; contiguous
+    against paged bit for bit; single pass against one split bit for bit
+    when every block is live; with ``timing``, ms / plain ms / bound ms."""
     import torch
+    from repro_torch.core.kvcache import sink_patched_content
     from repro_torch.kernels.mla_decode import kernel as K
     from repro_torch.kernels.mla_decode import ref as R
-    from repro_torch.kernels.quantize import kernel as QK
-    from repro_torch.kernels.quantize import ref as QR
-    args = make_case(gen, fmt, lens, P)
-    kw = dict(softmax_scale=scale, fmt=fmt)
-    for S in splits_list:
-        o, lse, (op, lp, sp) = K.mla_decode_paged_splitkv_cuda(*args, num_splits=S,
-                                                               return_partials=True, **kw)
-        o_r, lse_r, (op_r, lp_r, sp_r) = R.snapmla_decode_paged_splitkv_ref(
-            *args, num_splits=S, return_partials=True, **kw)
-        err = max(check_close(f"{tag} A S={S} o", o, o_r, **TOL),
-                  check_close(f"{tag} A S={S} lse", lse, lse_r, **TOL),
-                  check_close(f"{tag} A S={S} o_partial", op, op_r, **TOL),
-                  check_close(f"{tag} A S={S} lse_partial", lp, lp_r, **TOL))
-        check_close(f"{tag} A S={S} sigma_p", sp, sp_r, rtol=1e-6, atol=0.0)
-        # C on these partials against its plain version
-        oc, lc = K.lse_combine_cuda(op, lp)
-        oc_r, lc_r = R.lse_combine_ref(op, lp)
-        err_c = max(check_close(f"{tag} C S={S} o", oc, oc_r, **TOL),
-                    check_close(f"{tag} C S={S} lse", lc, lc_r, **TOL))
-        line = dict(phase="kernels", case=tag, fmt=fmt, kernel="A+C", splits=S,
-                    max_abs_err_A=err, max_abs_err_C=err_c)
-        if timing:
-            ms_a = kernel_ms(lambda: K.paged_decode_partials_cuda(
-                *args, num_splits=S, single_pass=False, **kw))
-            plain_a = time_ms(lambda: R.snapmla_decode_paged_splitkv_ref(
-                *args, num_splits=S, return_partials=True, **kw))
-            bound_a = decode_bound(lens, fmt, S, P)
-            ms_c = kernel_ms(lambda: K.lse_combine_cuda(op, lp))
-            plain_c = time_ms(lambda: R.lse_combine_ref(op, lp))
-            B = len(lens)
-            bound_c = _bound(B * S * H * (D_C + 1) * 4 + B * H * (D_C + 1) * 4,
-                             2 * B * S * H * D_C, PEAK["f32"])
-            line.update(ms_A=ms_a, plain_ms_A=plain_a, bound_ms_A=bound_a[0],
-                        ms_C=ms_c, plain_ms_C=plain_c, bound_ms_C=bound_c[0])
-            records.setdefault(tag, {"tokens": sum(lens)})[("A", S)] = (
-                err, ms_a, plain_a, bound_a)
-            records[tag][("C", S)] = (err_c, ms_c, plain_c, bound_c)
-        emit(**line)
-    # B against the plain single-pass version (the empty row is NaN / -inf in both)
-    o_b, lse_b = K.mla_decode_paged_cuda(*args, **kw)
-    o_br, lse_br = R.snapmla_decode_paged_ref(*args, **kw)
-    err_b = max(check_close(f"{tag} B o", o_b, o_br, equal_nan=True, **TOL),
-                check_close(f"{tag} B lse", lse_b, lse_br, equal_nan=True, **TOL))
-    # B against A at one split with every page live: bitwise
-    P_ = args[6].shape[1]
-    live = torch.full_like(args[7], P_ * PAGE)
-    live[1:] -= torch.arange(1, len(lens), device="cuda", dtype=torch.int32) * 37 % PAGE
-    args_live = args[:7] + (live,)
-    o_l, lse_l = K.mla_decode_paged_cuda(*args_live, **kw)
-    o_a1, lse_a1 = K.mla_decode_paged_splitkv_cuda(*args_live, num_splits=1, **kw)
-    check_bitwise(f"{tag} B vs A(S=1) o", o_l, o_a1)
-    check_bitwise(f"{tag} B vs A(S=1) lse", lse_l, lse_a1)
-    line = dict(phase="kernels", case=tag, fmt=fmt, kernel="B", max_abs_err=err_b,
-                bitwise_vs_A_one_split=True)
-    if timing:
-        ms_b = kernel_ms(lambda: K.mla_decode_paged_cuda(*args, **kw))
-        plain_b = time_ms(lambda: R.snapmla_decode_paged_ref(*args, **kw))
-        bound_b = decode_bound(lens, fmt, 1, P)
-        line.update(ms=ms_b, plain_ms=plain_b, bound_ms=bound_b[0])
-        records[tag][("B", 1)] = (err_b, ms_b, plain_b, bound_b)
-    emit(**line)
+    q, cache, pool = make_case(gen, fmt, lens, P, sink_tokens=sink_tokens)
+    pgd = q + tuple(pool)
+    ctg = q + (cache.content, cache.rope, cache.scale, cache.seq_lens)
+    ctg_ref = q + (sink_patched_content(cache), cache.rope.float(), cache.scale,
+                   cache.seq_lens)
+    B = len(lens)
+    for rescale in rescales:
+        amla = rescale == "amla"
+        o_tol, lse_tol = (AMLA_O, AMLA_LSE) if amla else (TOL, TOL)
+        sfx = "_amla" if amla else ""
+        kw = dict(softmax_scale=scale, fmt=fmt, rescale=rescale)
+        ckw = dict(kw, block_n=PAGE, sink=cache.sink)
+        for S in splits_list:
+            outs = {}
+            for layout in layouts:
+                if layout == "paged":
+                    name = "paged_splitkv_decode" + sfx
+                    got = K.mla_decode_paged_splitkv_cuda(*pgd, num_splits=S,
+                                                          return_partials=True, **kw)
+                    want = R.snapmla_decode_paged_splitkv_ref(*pgd, num_splits=S,
+                                                              return_partials=True, **kw)
+
+                    def partials(S=S):
+                        return K.paged_decode_partials_cuda(*pgd, num_splits=S,
+                                                            single_pass=False, **kw)
+
+                    def plain(S=S):
+                        return R.snapmla_decode_paged_splitkv_ref(
+                            *pgd, num_splits=S, return_partials=True, **kw)
+                    table = P
+                else:
+                    name = "splitkv_decode" + sfx
+                    got = K.mla_decode_splitkv_cuda(*ctg, num_splits=S, return_partials=True,
+                                                    **ckw)
+                    want = R.snapmla_decode_splitkv_ref(*ctg_ref, num_splits=S, block_n=PAGE,
+                                                        return_partials=True, **kw)
+
+                    def partials(S=S):
+                        return K.decode_partials_cuda(*ctg, num_splits=S, single_pass=False,
+                                                      **ckw)
+
+                    def plain(S=S):
+                        return R.snapmla_decode_splitkv_ref(*ctg_ref, num_splits=S,
+                                                            block_n=PAGE,
+                                                            return_partials=True, **kw)
+                    table = 0
+                (o, lse, parts), (o_r, lse_r, parts_r) = got, want
+                lbl = f"{tag} {name} S={S}"
+                err = max(check_close(f"{lbl} o", o, o_r, equal_nan=True, **o_tol),
+                          check_close(f"{lbl} lse", lse, lse_r, equal_nan=True, **lse_tol))
+                if amla:   # g: integer grid exponents, exact
+                    check_bitwise(f"{lbl} g", parts[2], parts_r[2])
+                    check_close(f"{lbl} l", parts[1], parts_r[1], rtol=1e-5, atol=0.0)
+                else:
+                    err = max(err, check_close(f"{lbl} o_partial", parts[0], parts_r[0], **TOL),
+                              check_close(f"{lbl} lse_partial", parts[1], parts_r[1], **TOL))
+                    check_close(f"{lbl} sigma_p", parts[2], parts_r[2], rtol=1e-6, atol=0.0)
+                timed = timing and S in splits_list[:1] + splits_list[-1:]
+                _record(records, name, tag, S, err, partials if timed else None, plain,
+                        decode_bound(lens, fmt, S, table) if timed else None)
+                outs[layout] = (o, lse) + tuple(parts)
+                # the combine on these partials against its plain version
+                cname = "amla_combine" if amla else "lse_combine"
+                if amla:
+                    oc, lc = K.amla_combine_cuda(*parts)
+                    oc_r, lc_r = R.amla_combine_ref(*parts)
+                else:
+                    oc, lc = K.lse_combine_cuda(*parts[:2])
+                    oc_r, lc_r = R.lse_combine_ref(*parts[:2])
+                err_c = max(check_close(f"{lbl} {cname} o", oc, oc_r, equal_nan=True, **TOL),
+                            check_close(f"{lbl} {cname} lse", lc, lc_r, equal_nan=True, **TOL))
+                cfn = ((lambda p=parts: K.amla_combine_cuda(*p)) if amla
+                       else (lambda p=parts: K.lse_combine_cuda(*p[:2])))
+                cplain = ((lambda p=parts: R.amla_combine_ref(*p)) if amla
+                          else (lambda p=parts: R.lse_combine_ref(*p[:2])))
+                _record(records, cname, tag, S, err_c, cfn if timed else None, cplain,
+                        combine_bound(B, S, amla) if timed else None)
+            if len(outs) == 2:   # contiguous == paged at block_n == page
+                for a, b in zip(outs["contiguous"], outs["paged"]):
+                    check_bitwise(f"{tag} {rescale} S={S} contiguous vs paged", a, b)
+            emit(phase="kernels", case=tag, fmt=fmt, rescale=rescale, splits=S,
+                 layouts=list(outs), bitwise_contiguous_vs_paged=len(outs) == 2,
+                 max_abs_err={k[0]: v["max_abs_err"] for k, v in records.items()
+                              if k[1] == tag and k[2] == S})
+        # single pass (B / #1), against its plain version (the empty row is
+        # NaN / -inf in both) and against one split with every block live
+        live = torch.full_like(cache.seq_lens, P * PAGE)
+        live[1:] -= torch.arange(1, B, device="cuda", dtype=torch.int32) * 37 % PAGE
+        outs = {}
+        for layout in layouts:
+            if layout == "paged":
+                name = "paged_single_pass_decode" + sfx
+                fn = lambda a=pgd: K.mla_decode_paged_cuda(*a, **kw)  # noqa: E731
+                plain = lambda: R.snapmla_decode_paged_ref(*pgd, **kw)  # noqa: E731
+                one = K.mla_decode_paged_splitkv_cuda(*pgd[:7], live, num_splits=1, **kw)
+                single_live = K.mla_decode_paged_cuda(*pgd[:7], live, **kw)
+                table = P
+            else:
+                name = "single_pass_decode" + sfx
+                fn = lambda a=ctg: K.mla_decode_cuda(*a, **ckw)  # noqa: E731
+                plain = lambda: R.snapmla_decode_pipeline_ref(  # noqa: E731
+                    *ctg_ref, block_n=PAGE, **kw)
+                one = K.mla_decode_splitkv_cuda(*ctg[:6], live, num_splits=1, **ckw)
+                single_live = K.mla_decode_cuda(*ctg[:6], live, **ckw)
+                table = 0
+            o, lse = fn()
+            o_r, lse_r = plain()
+            err = max(check_close(f"{tag} {name} o", o, o_r, equal_nan=True, **o_tol),
+                      check_close(f"{tag} {name} lse", lse, lse_r, equal_nan=True, **lse_tol))
+            for a, b in zip(single_live, one):
+                check_bitwise(f"{tag} {name} vs one split", a, b)
+            _record(records, name, tag, 1, err, fn if timing else None, plain,
+                    decode_bound(lens, fmt, 1, table) if timing else None)
+            outs[layout] = (o, lse)
+        if len(outs) == 2:
+            for a, b in zip(outs["contiguous"], outs["paged"]):
+                check_bitwise(f"{tag} {rescale} single pass contiguous vs paged", a, b)
+        emit(phase="kernels", case=tag, fmt=fmt, rescale=rescale, kernel="single pass",
+             layouts=list(outs), bitwise_vs_one_split=True,
+             bitwise_contiguous_vs_paged=len(outs) == 2)
     if fmt != "none":   # D: bit-identical to its plain version
-        q = torch.randn(len(lens), H, D_C + D_R, generator=gen, device="cuda") * 3
-        got, want = QK.fused_q_quant_cuda(q, D_C, fmt=fmt), QR.fused_q_quant_ref(q, D_C, fmt)
+        from repro_torch.kernels.quantize import kernel as QK
+        from repro_torch.kernels.quantize import ref as QR
+        qin = torch.randn(B, H, D_C + D_R, generator=gen, device="cuda") * 3
+        got, want = QK.fused_q_quant_cuda(qin, D_C, fmt=fmt), QR.fused_q_quant_ref(qin, D_C, fmt)
         for nm, g, w in zip(("q_c8", "q_r", "sigma_q"), got, want):
             check_bitwise(f"{tag} D {nm}", g, w)
-        line = dict(phase="kernels", case=tag, fmt=fmt, kernel="D", bitwise=True)
-        if timing:
-            ms_d = kernel_ms(lambda: QK.fused_q_quant_cuda(q, D_C, fmt=fmt))
-            plain_d = time_ms(lambda: QR.fused_q_quant_ref(q, D_C, fmt))
-            B = len(lens)
-            bound_d = _bound(B * H * ((D_C + D_R) * 4 + D_C + D_R * 4 + 4),
-                             3 * B * H * (D_C + D_R), PEAK["f32"])
-            line.update(ms=ms_d, plain_ms=plain_d, bound_ms=bound_d[0])
-            records[tag][("D", 1)] = (0.0, ms_d, plain_d, bound_d)
-        emit(**line)
+        bound = _bound(B * H * ((D_C + D_R) * 4 + D_C + D_R * 4 + 4),
+                       3 * B * H * (D_C + D_R), PEAK["f32"])
+        _record(records, "fused_q_quant", tag, 1, 0.0,
+                (lambda: QK.fused_q_quant_cuda(qin, D_C, fmt=fmt)) if timing else None,
+                lambda: QR.fused_q_quant_ref(qin, D_C, fmt), bound)
+
+
+def k_append_checks(gen, fmt, B, N, *, tag, timing, records):
+    """#9: cache bytes bitwise equal to the plain Fused-K-Append (ragged
+    write rows, one past capacity, the EPS floor), and 64 sequential appends
+    equal to a prefill (sink shadow included)."""
+    import torch
+    from repro_torch.core.kvcache import CacheConfig, MLACache, init_mla_cache, mla_prefill
+    from repro_torch.kernels.quantize import kernel as QK
+    from repro_torch.kernels.quantize import ref as QR
+    from repro_torch.kernels.quantize.ops import fused_k_append
+    cfg = CacheConfig(fmt=fmt, page_size=PAGE)
+    cache = mla_prefill(init_mla_cache(cfg, B, N, D_C, D_R, device="cuda"), cfg,
+                        torch.randn(B, N, D_C, generator=gen, device="cuda"),
+                        torch.randn(B, N, D_R, generator=gen, device="cuda") * 2)
+    lens = torch.randint(0, N, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    lens[-1] = N + 1                                  # clamped to the last row
+    c = torch.randn(B, D_C, generator=gen, device="cuda") * 3
+    r = torch.randn(B, D_R, generator=gen, device="cuda") * 10
+    c[0] = 0.0                                        # the EPS floor
+    plain_cache = MLACache(*(t.clone() for t in cache[:4]))
+    QK.fused_k_append_cuda(cache.content, cache.rope, cache.scale, c, r, lens, fmt=fmt)
+    QR.fused_k_append_ref(plain_cache.content, plain_cache.rope, plain_cache.scale, c, r,
+                          lens, fmt=fmt)
+    for nm, a, b in zip(("content", "rope", "scale"), cache, plain_cache):
+        check_bitwise(f"{tag} #9 {nm}", a, b)
+    S = 64
+    scfg = CacheConfig(fmt=fmt, page_size=PAGE, sink_tokens=4)
+    cs = torch.randn(B, S, D_C, generator=gen, device="cuda") * 2
+    rs = torch.randn(B, S, D_R, generator=gen, device="cuda") * 20
+    bulk = mla_prefill(init_mla_cache(scfg, B, S, D_C, D_R, device="cuda"), scfg, cs, rs)
+    inc = init_mla_cache(scfg, B, S, D_C, D_R, device="cuda")
+    for t in range(S):
+        inc = fused_k_append(inc, cs[:, t], rs[:, t], fmt=fmt)
+    for nm, a, b in zip(bulk._fields, inc, bulk):
+        check_bitwise(f"{tag} #9 appends vs prefill {nm}", a, b)
+    bound = _bound(B * ((D_C + D_R) * 4 + 4 + D_C + 2 * D_R + 4), B * (3 * D_C + D_R),
+                   PEAK["f32"])
+    _record(records, "fused_k_append", tag, 1, 0.0,
+            (lambda: QK.fused_k_append_cuda(cache.content, cache.rope, cache.scale, c, r,
+                                            lens, fmt=fmt)) if timing else None,
+            lambda: QR.fused_k_append_ref(plain_cache.content, plain_cache.rope,
+                                          plain_cache.scale, c, r, lens, fmt=fmt), bound)
+    emit(phase="kernels", case=tag, fmt=fmt, kernel="#9 fused_k_append", bitwise=True,
+         appends_equal_prefill=True)
 
 
 def phase_layer(gen):
-    """One full-width SnapMLA layer, decode_step over a ~32k-token pool."""
+    """One full-width SnapMLA layer, decode_step over a ~32k-token cache,
+    paged and contiguous: the kernel steps are this path's counted run."""
     import torch
     from repro_torch.core import mla as mla_lib
     from repro_torch.core import snapmla
-    from repro_torch.core.kvcache import PagedMLAPool, paged_mla_prefill
+    from repro_torch.core.kvcache import mla_prefill, paged_mla_prefill
     from repro_torch.kernels import _lib
     B, ctx = 4, 32760
     mcfg = mla_lib.MLAConfig(d_model=4096, n_heads=H, d_head=128, d_rope=D_R, d_c=D_C)
-    cfg = snapmla.SnapMLAConfig(mla=mcfg)
     params = mla_lib.init_mla_params(gen, mcfg, device="cuda")
-    pool = snapmla.init_cache(cfg, B, ctx + 8, device="cuda")
-    pool = paged_mla_prefill(pool, cfg.cache,
-                             torch.randn(B, ctx, D_C, generator=gen, device="cuda"),
-                             torch.randn(B, ctx, D_R, generator=gen, device="cuda") * 2)
+    c = torch.randn(B, ctx, D_C, generator=gen, device="cuda")
+    r = torch.randn(B, ctx, D_R, generator=gen, device="cuda") * 2
     h_t = torch.randn(B, 4096, generator=gen, device="cuda")
-    ref_pool = PagedMLAPool(*(t.clone() for t in pool))
-    before = dict(_lib.LAUNCHES)
-    y, pool = snapmla.decode_step(params, cfg, h_t, pool)
-    launched = {k: v - before.get(k, 0) for k, v in _lib.LAUNCHES.items()
-                if v != before.get(k, 0)}
-    y_ref, _ = snapmla.decode_step(params, dataclasses.replace(cfg, use_kernel=False),
-                                   h_t, ref_pool)
-    rel = float((y - y_ref).abs().max() / y_ref.abs().max())
-    if not (torch.isfinite(y).all() and rel <= 1e-4):
-        raise AssertionError(f"layer decode_step: relative error {rel} > 1e-4")
-    emit(phase="layer", batch=B, context=ctx + 1, capacity=pool.capacity,
-         rel_err_vs_ref=rel, kernels_launched=launched)
+    launches = {}
+    for paged in (True, False):
+        cfg = snapmla.SnapMLAConfig(mla=mcfg, paged=paged)
+        fill = paged_mla_prefill if paged else mla_prefill
+        cache = fill(snapmla.init_cache(cfg, B, ctx + 8, device="cuda"), cfg.cache, c, r)
+        ref_cache = type(cache)(*(None if t is None else t.clone() for t in cache))
+        torch.cuda.synchronize()
+        _lib.reset_launches()                       # the layer path starts here
+        y, cache = snapmla.decode_step(params, cfg, h_t, cache)
+        torch.cuda.synchronize()
+        for k, v in _lib.LAUNCHES.items():          # ... and ends here
+            launches[k] = launches.get(k, 0) + v
+        step_launches = dict(_lib.LAUNCHES)
+        y_ref, ref_cache = snapmla.decode_step(params, dataclasses.replace(cfg, use_kernel=False),
+                                               h_t, ref_cache)
+        rel = float((y - y_ref).abs().max() / y_ref.abs().max())
+        if not (torch.isfinite(y).all() and rel <= 1e-4):
+            raise AssertionError(f"layer decode_step (paged={paged}): relative error {rel} > 1e-4")
+        if not paged:   # Fused-K-Append wrote what the plain append wrote
+            for nm, a, b in zip(cache._fields[:4], cache, ref_cache):
+                check_bitwise(f"layer contiguous cache {nm}", a, b)
+        emit(phase="layer", layout="paged" if paged else "contiguous", batch=B,
+             context=ctx + 1, capacity=cache.capacity, rel_err_vs_ref=rel,
+             cache_bytes_equal_plain_append=not paged, kernels_launched=step_launches)
+        del cache, ref_cache
+    return launches
+
+
+SERVE_RUNS = [  # (paged, kv_splits, rescale, sink_tokens)
+    (False, 0, "fma", 0), (False, 4, "fma", 0), (False, 4, "amla", 0), (False, 0, "fma", 4),
+    (False, 0, "amla", 0), (True, 0, "fma", 0), (True, 4, "fma", 0), (True, 0, "amla", 0),
+    (True, 4, "amla", 0)]
 
 
 def phase_serve():
-    """Full mla-7b through serve.generate: kernel backend vs reference."""
+    """Full mla-7b through serve.generate: kernel backend vs reference, both
+    cache layouts; the kernel runs are this path's counted run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
-    base = dataclasses.replace(get_config("mla-7b"), kv_paged=True)
+    base = get_config("mla-7b")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t0 = time.time()
@@ -308,21 +485,27 @@ def phase_serve():
          gib=torch.cuda.memory_allocated() / 2**30)
     prompts = torch.randint(0, base.vocab_size, (4, 512), generator=gen, device="cuda")
 
-    def run(backend, splits):
-        cfg = dataclasses.replace(base, kv_splits=splits, decode_backend=backend,
-                                  use_kernels=backend == "kernel")
-        return serve.generate(cfg, params, prompts, 16, return_logits=True)
+    def cfg_of(run, backend):
+        paged, splits, rescale, sink = run
+        return dataclasses.replace(base, kv_paged=paged, kv_splits=splits, kv_rescale=rescale,
+                                   kv_sink_tokens=sink, decode_backend=backend,
+                                   use_kernels=backend == "kernel")
 
-    refs = {s: run("ref", s) for s in (0, 4)}
-    _lib.reset_launches()                     # the main path starts here
-    kern = {s: run("kernel", s) for s in (0, 4)}
+    refs = {run: serve.generate(cfg_of(run, "ref"), params, prompts, 16, return_logits=True)
+            for run in SERVE_RUNS}
+    torch.cuda.synchronize()
+    _lib.reset_launches()                     # the serve path starts here
+    kern = {run: serve.generate(cfg_of(run, "kernel"), params, prompts, 16,
+                                return_logits=True) for run in SERVE_RUNS}
     torch.cuda.synchronize()
     launches = dict(_lib.LAUNCHES)            # ... and ends here
-    for s in (0, 4):
-        toks, tps, logits = kern[s]
-        r_toks, r_tps, r_logits = refs[s]
+    for run in SERVE_RUNS:
+        toks, tps, logits = kern[run]
+        r_toks, r_tps, r_logits = refs[run]
+        paged, splits, rescale, sink = run
+        lbl = f"serve paged={paged} kv_splits={splits} rescale={rescale} sink={sink}"
         if not (torch.isfinite(logits).all() and torch.isfinite(r_logits).all()):
-            raise AssertionError(f"serve kv_splits={s}: non-finite logits")
+            raise AssertionError(f"{lbl}: non-finite logits")
         # first decode step: the prefill is identical and each layer's
         # attention agrees to ~1e-6 (phase 3), but the next layer re-quantizes
         # its query and its new latent to fp8, where a one-ulp difference moves
@@ -331,13 +514,23 @@ def phase_serve():
         first = float((logits[:, 1] - r_logits[:, 1]).abs().max()
                       / r_logits[:, 1].abs().max())
         if first > 1e-2:
-            raise AssertionError(f"serve kv_splits={s}: first-step logits rel err {first}")
+            raise AssertionError(f"{lbl}: first-step logits rel err {first}")
         if not torch.equal(toks[:, 0], r_toks[:, 0]):
-            raise AssertionError(f"serve kv_splits={s}: prefill tokens differ")
-        emit(phase="serve", arch="mla-7b", layers=base.n_layers, batch=4, prompt=512,
-             gen=16, kv_splits=s, tok_per_s=tps, ref_tok_per_s=r_tps,
+            raise AssertionError(f"{lbl}: prefill tokens differ")
+        emit(phase="serve", arch="mla-7b", layers=base.n_layers, batch=4, prompt=512, gen=16,
+             layout="paged" if paged else "contiguous", kv_splits=splits, rescale=rescale,
+             sink_tokens=sink, tok_per_s=tps, ref_tok_per_s=r_tps,
              greedy_agreement_vs_ref=float((toks == r_toks).float().mean()),
              first_step_logits_rel_err=first)
+    for splits in (0, 4):   # the two layouts: identical greedy tokens
+        for rescale in ("fma", "amla"):
+            a, b = kern[(False, splits, rescale, 0)], kern[(True, splits, rescale, 0)]
+            if not torch.equal(a[0], b[0]):
+                raise AssertionError(f"serve kv_splits={splits} {rescale}: contiguous and "
+                                     "paged greedy tokens differ")
+            emit(phase="serve", check="contiguous vs paged", kv_splits=splits, rescale=rescale,
+                 identical_tokens=True,
+                 max_logit_diff=float((a[2] - b[2]).abs().max()))
     return launches, base, params, prompts
 
 
@@ -348,9 +541,9 @@ def phase_profile(base, params, prompts):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as T
-    for splits in (0, 4):
-        cfg = dataclasses.replace(base, kv_splits=splits, decode_backend="kernel",
-                                  use_kernels=True)
+    for paged, splits in ((True, 0), (True, 4), (False, 0)):
+        cfg = dataclasses.replace(base, kv_paged=paged, kv_splits=splits,
+                                  decode_backend="kernel", use_kernels=True)
         state = T.init_decode_state(cfg, 4, 640, device="cuda")
         logits, state = T.prefill(params, cfg, prompts, state)
         tok = logits.argmax(-1).to(torch.int32)
@@ -375,8 +568,9 @@ def phase_profile(base, params, prompts):
                       if r.self_device_time_total > 0 and not r.key.startswith("aten::")),
                      key=lambda x: -x[1])
         busy = sum(ms for _, ms, _ in dev)
-        emit(phase="profile", kv_splits=splits, wall_ms_per_step=wall,
-             device_ms_per_step=busy, device_idle_share=1.0 - busy / wall,
+        emit(phase="profile", layout="paged" if paged else "contiguous", kv_splits=splits,
+             wall_ms_per_step=wall, device_ms_per_step=busy,
+             device_idle_share=1.0 - busy / wall,
              aten_ops_per_step=sum(r.count for r in rows if r.key.startswith("aten::")) / 3,
              top=[(k[:80], round(ms, 4), n) for k, ms, n in dev[:8]])
 
@@ -390,6 +584,26 @@ def _leaves(tree):
             yield from _leaves(v)
     elif tree is not None:
         yield tree
+
+
+def summary_line(records, launches, long_tokens):
+    """One entry per kernel (and AMLA mode): the serving-shape measurement,
+    the long case beside it, launches on the main paths."""
+    rows = []
+    for name, (source, replaces, mode) in KERNELS.items():
+        s_serve, s_long = SUMMARY_SPLITS[_kind(name)]
+        short = records[(name, "serve_shape", s_serve)]
+        longc = records[(name, "long_32k", s_long)]
+        err = max(v["max_abs_err"] for k, v in records.items() if k[0] == name)
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, mode=mode,
+            launches=launches.get(name, 0), max_abs_err=err, ms=short["ms"],
+            plain_ms=short["plain_ms"], bound_ms=short["bound_ms"],
+            bound_by=short["bound_by"], library_ms=None, splits=s_serve,
+            long_ctx=dict(tokens=long_tokens, splits=s_long, ms=longc["ms"],
+                          plain_ms=longc["plain_ms"], bound_ms=longc["bound_ms"],
+                          bound_by=longc["bound_by"])))
+    return json.dumps({"kernels": rows})
 
 
 def main() -> int:
@@ -419,46 +633,45 @@ def main() -> int:
     gen.manual_seed(1234)
     scale = 1.0 / (128 + D_R) ** 0.5             # mla-7b softmax scale
     records: dict = {}
-    kernel_checks(gen, "fp8_e4m3", [527, 512, 520, 513], 5, [4, 1], scale,
+    t0 = time.time()
+    decode_checks(gen, "fp8_e4m3", [527, 512, 520, 513], 5, [4, 1], scale,
                   tag="serve_shape", timing=True, records=records)
-    kernel_checks(gen, "fp8_e4m3", [0, PAGE, 32768, 20000], 256, [1, 4, 8], scale,
-                  tag="long_32k", timing=True, records=records)
+    long_lens = [0, PAGE, 32768, 20000]
+    decode_checks(gen, "fp8_e4m3", long_lens, 256, [1, 4, 8], scale, tag="long_32k",
+                  timing=True, records=records)
+    decode_checks(gen, "fp8_e4m3", [527, 512, 520, 513], 5, [4, 1], scale, tag="sink",
+                  timing=True, records=records, layouts=("contiguous",), sink_tokens=4)
+    emit(phase="kernels", case="sink", sink_tokens=4,
+         ms={f"{k[0]} S={k[2]}": v["ms"] for k, v in records.items()
+             if k[1] == "sink" and "ms" in v},
+         ms_unguarded={f"{k[0]} S={k[2]}": records[(k[0], "serve_shape", k[2])]["ms"]
+                       for k, v in records.items() if k[1] == "sink" and "ms" in v})
     for fmt in ("int8", "none"):
-        kernel_checks(gen, fmt, [0, PAGE, 4000], 32, [1, 4], scale, tag=f"small_{fmt}",
+        decode_checks(gen, fmt, [0, PAGE, 4000], 32, [1, 4], scale, tag=f"small_{fmt}",
                       timing=False, records=records)
+    k_append_checks(gen, "fp8_e4m3", 4, 640, tag="serve_shape", timing=True, records=records)
+    k_append_checks(gen, "fp8_e4m3", 4, 32768, tag="long_32k", timing=True, records=records)
+    k_append_checks(gen, "int8", 3, 256, tag="small_int8", timing=False, records=records)
+    emit(phase="kernels_done", seconds=time.time() - t0)
 
-    # 3. one full-width layer
-    phase_layer(gen)
+    # 3. one full-width layer, paged and contiguous (a counted main path)
+    layer_launches = phase_layer(gen)
 
-    # 4. the main path: serve.generate on full mla-7b
-    launches, base, params, prompts = phase_serve()
+    # 4. the main path: serve.generate on full mla-7b (a counted main path)
+    serve_launches, base, params, prompts = phase_serve()
 
-    # 5. every kernel of the path launched in the main path
-    emit(phase="counts", launches=launches)
+    # 5. every kernel of the paths launched in the main paths
+    launches = {k: layer_launches.get(k, 0) + serve_launches.get(k, 0)
+                for k in set(layer_launches) | set(serve_launches)}
+    emit(phase="counts", layer=layer_launches, serve=serve_launches)
     missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on the main paths: {missing}")
 
-    # 6. where a decode step's time goes (after the counted main path)
+    # 6. where a decode step's time goes (after the counted main paths)
     phase_profile(base, params, prompts)
 
-    shape = records["serve_shape"]
-    longc = records["long_32k"]
-    picks = {"paged_splitkv_decode": ("A", 4), "paged_single_pass_decode": ("B", 1),
-             "lse_combine": ("C", 4), "fused_q_quant": ("D", 1)}
-    long_picks = {"paged_splitkv_decode": ("A", 8), "paged_single_pass_decode": ("B", 1),
-                  "lse_combine": ("C", 8), "fused_q_quant": ("D", 1)}
-    summary = []
-    for name, key in picks.items():
-        err, ms, plain, (bound, by) = shape[key]
-        l_err, l_ms, l_plain, (l_bound, l_by) = longc[long_picks[name]]
-        summary.append(dict(
-            name=name, route="cuda", source=KERNELS[name][0], replaces=KERNELS[name][1],
-            launches=launches.get(name, 0), max_abs_err=max(err, l_err), ms=ms, plain_ms=plain,
-            bound_ms=bound, bound_by=by, library_ms=None,
-            long_ctx=dict(tokens=longc["tokens"], ms=l_ms, plain_ms=l_plain, bound_ms=l_bound,
-                          bound_by=l_by)))
-    print(json.dumps({"kernels": summary}), flush=True)
+    print(summary_line(records, launches, sum(long_lens)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

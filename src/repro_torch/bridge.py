@@ -1,5 +1,5 @@
-"""Carry the JAX package's parameters and paged pools, handed over as numpy,
-into the port's structures.
+"""Carry the JAX package's parameters and MLA caches (contiguous and paged),
+handed over as numpy, into the port's structures.
 
 Input is the tree ``jax.tree.map(np.asarray, tree)`` gives: nested dicts,
 lists and NamedTuples of numpy arrays. Fields are read by name; nothing of
@@ -13,7 +13,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.kvcache import PagedMLAPool
+from repro_torch.core.kvcache import MLACache, PagedMLAPool
 from repro_torch.core.mla import MLAParams
 from repro_torch.models.layers import MLPParams
 
@@ -95,3 +95,9 @@ def pool_from_jax(np_pool: Any, device=None) -> PagedMLAPool:
     return PagedMLAPool(**{f: to_torch(_field(np_pool, f), device)
                            for f in PagedMLAPool._fields})
 
+
+def cache_from_jax(np_cache: Any, device=None) -> MLACache:
+    """A reference contiguous ``MLACache`` (as numpy), sink guard included,
+    -> the port's, byte for byte."""
+    return MLACache(**{f: to_torch(_field(np_cache, f), device)
+                       for f in MLACache._fields})

@@ -33,7 +33,15 @@ class ModelConfig:
     page_size: int = 128
     # split-KV decode: 0 = context-length heuristic, 1 = single pass, >1 fixed
     kv_splits: int = 0
-    # paged KV pool for 'mla' layers (the only cache the port has)
+    # contiguous caches' decode KV block: 0 = page_size, >0 = override (must
+    # divide the cache capacity); paged pools' block is their page
+    kv_block_n: int = 0
+    # per-block accumulator rescale of the decode kernels: "fma" | "amla"
+    kv_rescale: str = "fma"
+    # P-Cast sink guard: the first k tokens' latent rows kept in full
+    # precision (contiguous caches only; 0 = off)
+    kv_sink_tokens: int = 0
+    # paged KV pool for 'mla' layers instead of the contiguous per-slot cache
     kv_paged: bool = False
     # consulted by decode_backend == "auto": the Hopper kernels vs the plain ref
     use_kernels: bool = False

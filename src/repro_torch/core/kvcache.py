@@ -1,15 +1,20 @@
-"""Paged MLA KV pool (port of the paged half of ``repro/core/kvcache.py``).
+"""MLA KV caches (port of the MLA half of ``repro/core/kvcache.py``).
 
-The pool layout is the reference's: content ``[n_pages, page, d_c]`` in the
-storage format (fp8 / int8, or bf16 when ``fmt == "none"``), rope
-``[n_pages, page, d_r]`` bf16 pre-divided by the per-token content scale,
-scale ``[n_pages, page]`` f32, page table ``[B, P]`` int32 and ``seq_lens``
-``[B]`` int32. The contiguous ``MLACache`` and the sink guard are not ported
-yet.
+Two layouts, as in the reference:
 
-Unlike the functional JAX pool, writes land IN PLACE in the pool tensors
-(``index_put_``) — a decode step does not copy the whole pool; the returned
-pool carries the same storage and the new ``seq_lens``.
+  * ``MLACache`` — the contiguous per-slot cache (the reference's default):
+    content ``[B, N, d_c]`` in the storage format (fp8 / int8, or bf16 when
+    ``fmt == "none"``), rope ``[B, N, d_r]`` bf16 pre-divided by the
+    per-token content scale, scale ``[B, N]`` f32, ``seq_lens`` ``[B]`` int32,
+    and the optional P-Cast sink guard shadow ``sink`` ``[B, S_k, d_c]`` f32
+    (the first ``S_k`` tokens' raw latent);
+  * ``PagedMLAPool`` — content ``[n_pages, page, d_c]``, rope
+    ``[n_pages, page, d_r]``, scale ``[n_pages, page]``, page table ``[B, P]``
+    int32 and ``seq_lens``.
+
+Unlike the functional JAX caches, writes land IN PLACE in the cache tensors
+(``index_put_`` / slice assignment) — a decode step does not copy the whole
+cache; the returned cache carries the same storage and the new ``seq_lens``.
 """
 from __future__ import annotations
 
@@ -25,6 +30,10 @@ from repro_torch.core import quant
 class CacheConfig:
     fmt: str = "fp8_e4m3"        # "fp8_e4m3" | "int8" | "none" (bf16 baseline)
     page_size: int = 128          # kernel KV-block granularity (§3.3.2: 128)
+    # P-Cast sink guard: >0 keeps the first ``sink_tokens`` tokens' latent
+    # content in full precision beside the quantized rows (``MLACache.sink``),
+    # substituted at the decode boundary. Contiguous caches only.
+    sink_tokens: int = 0
 
     @property
     def quantized(self) -> bool:
@@ -41,6 +50,122 @@ def _round_up(n: int, m: int) -> int:
 def page_aligned_capacity(n_tokens: int, page_size: int) -> int:
     """Cache capacity for ``n_tokens`` tokens: rounded up to the page size."""
     return _round_up(max(int(n_tokens), 1), page_size)
+
+
+class MLACache(NamedTuple):
+    """Contiguous per-slot MLA latent cache."""
+
+    content: torch.Tensor     # [B, N, d_c] storage dtype
+    rope: torch.Tensor        # [B, N, d_r] bf16, pre-divided by ``scale``
+    scale: torch.Tensor       # [B, N] f32 per-token content scale (ones if none)
+    seq_lens: torch.Tensor    # [B] int32 valid tokens
+    sink: torch.Tensor | None = None  # [B, S_k, d_c] f32 raw latent of the first S_k tokens
+
+    @property
+    def capacity(self) -> int:
+        return self.content.shape[1]
+
+    @property
+    def sink_tokens(self) -> int:
+        return 0 if self.sink is None else self.sink.shape[1]
+
+
+def patch_sink_rows(content: torch.Tensor, scale: torch.Tensor,
+                    sink: torch.Tensor | None) -> torch.Tensor:
+    """``content`` with rows ``< S_k`` replaced by ``sink / max(scale, tiny)``
+    as float32 (the whole tensor widened to float32); ``content`` itself
+    when ``sink`` is None. Downstream the pipeline multiplies content by
+    ``scale``, so the guarded rows reconstruct the raw latent."""
+    if sink is None:
+        return content
+    S_k = sink.shape[1]
+    tiny = torch.finfo(torch.float32).tiny
+    out = content.float().clone()
+    out[:, :S_k] = sink / torch.clamp(scale[:, :S_k, None], min=tiny)
+    return out
+
+
+def sink_patched_content(cache: MLACache) -> torch.Tensor:
+    """The content the decode pipeline reads: the sink guard's rows in full
+    precision, every other row as stored (kvcache.py:94). The CUDA kernels
+    substitute the same values row by row instead of copying the cache."""
+    return patch_sink_rows(cache.content, cache.scale, cache.sink)
+
+
+def init_mla_cache(cfg: CacheConfig, batch: int, max_len: int, d_c: int, d_r: int,
+                   device=None) -> MLACache:
+    """Contiguous cache with capacity rounded up to the page size (the decode
+    kernels need a block-aligned capacity) and ``S_k = min(sink_tokens, N)``
+    sink rows."""
+    n = page_aligned_capacity(max_len, cfg.page_size)
+    S_k = min(cfg.sink_tokens, n)
+    return MLACache(
+        content=torch.zeros((batch, n, d_c), dtype=cfg.storage_dtype(), device=device),
+        rope=torch.zeros((batch, n, d_r), dtype=torch.bfloat16, device=device),
+        scale=torch.ones((batch, n), dtype=torch.float32, device=device),
+        seq_lens=torch.zeros((batch,), dtype=torch.int32, device=device),
+        sink=(torch.zeros((batch, S_k, d_c), dtype=torch.float32, device=device)
+              if S_k > 0 else None),
+    )
+
+
+def mla_append(cache: MLACache, cfg: CacheConfig, c_kv: torch.Tensor,
+               k_r: torch.Tensor, active: torch.Tensor | None = None) -> MLACache:
+    """Append one token per sequence at row ``seq_lens[b]`` (in place).
+
+    c_kv [B, d_c], k_r [B, d_r]. The row index is clamped to the last row,
+    as the reference's ``dynamic_update_slice`` clamps it. ``active`` [B]
+    bool gates the append per row: inactive rows rewrite their current row
+    with its old value and keep ``seq_lens`` frozen."""
+    B = c_kv.shape[0]
+    content, rope, scale = mla_quantize_entry(cfg, c_kv, k_r)
+    idx = cache.seq_lens.long()
+    row = torch.clamp(idx, 0, cache.capacity - 1)
+    rows = torch.arange(B, device=c_kv.device)
+    content = content.to(cache.content.dtype)
+    rope = rope.to(torch.bfloat16)
+    if active is not None:
+        content = _where_rows(active, content, cache.content[rows, row])
+        rope = _where_rows(active, rope, cache.rope[rows, row])
+        scale = torch.where(active, scale, cache.scale[rows, row])
+    cache.content[rows, row] = content
+    cache.rope[rows, row] = rope
+    cache.scale[rows, row] = scale.float()
+    step = 1 if active is None else active.to(cache.seq_lens.dtype)
+    return cache._replace(seq_lens=cache.seq_lens + step,
+                          sink=sink_append(cache, c_kv, idx, active))
+
+
+def sink_append(cache: MLACache, c_kv: torch.Tensor, idx: torch.Tensor,
+                active: torch.Tensor | None) -> torch.Tensor | None:
+    """Shadow-write the raw latent row into the sink guard (in place) where
+    the append position lands inside the guarded prefix (``idx < S_k``, and
+    ``active``); shared by ``mla_append`` and ``fused_k_append``."""
+    if cache.sink is None:
+        return None
+    S_k = cache.sink.shape[1]
+    ok = idx < S_k
+    if active is not None:
+        ok = ok & active
+    rows = torch.arange(c_kv.shape[0], device=c_kv.device)
+    i = torch.clamp(idx, max=S_k - 1)
+    cache.sink[rows, i] = torch.where(ok[:, None], c_kv.float(), cache.sink[rows, i])
+    return cache.sink
+
+
+def mla_prefill(cache: MLACache, cfg: CacheConfig, c_kv: torch.Tensor,
+                k_r: torch.Tensor) -> MLACache:
+    """Bulk-write a prefix: c_kv [B, S, d_c], k_r [B, S, d_r] at positions
+    [0, S) (in place)."""
+    content, rope, scale = mla_quantize_entry(cfg, c_kv, k_r)
+    S = c_kv.shape[1]
+    cache.content[:, :S] = content.to(cache.content.dtype)
+    cache.rope[:, :S] = rope.to(torch.bfloat16)
+    cache.scale[:, :S] = scale.float()
+    if cache.sink is not None:
+        W = min(S, cache.sink.shape[1])
+        cache.sink[:, :W] = c_kv[:, :W].float()
+    return cache._replace(seq_lens=torch.full_like(cache.seq_lens, S))
 
 
 class PagedMLAPool(NamedTuple):

@@ -62,6 +62,46 @@ __device__ __forceinline__ float dynamic_scale(float amax) {
   return fmaxf(amax, kEps) * inv;
 }
 
+// --- AMLA power-of-two grid (port of repro/kernels/mla_decode/amla.py) ---
+// f32 ln 2 and 1/ln 2 (== f32 log2 e): log2(x) is computed as the reference's
+// compiled form does it, log(x) * f32(1/ln 2).
+constexpr float kLn2 = 0x1.62e43p-1f;
+constexpr float kLog2e = 0x1.715476p+0f;
+constexpr float kTiny = 1.17549435e-38f;  // FLT_MIN, the smallest normal
+
+// Subnormal -> signed zero: the reference's compiled arithmetic flushes
+// subnormal inputs and results of the exp2_mul fallback (XLA on the CPU, and
+// the TPU), so the port does it explicitly.
+__device__ __forceinline__ float flush_subnormal(float x) {
+  return fabsf(x) < kTiny ? copysignf(0.f, x) : x;
+}
+
+// 2^k exactly, 0 below 2^-126 and +inf above 2^127 (the reference's exp2 of
+// an integer at the ends of the range).
+__device__ __forceinline__ float pow2i(int k) {
+  if (k < -126) return 0.f;
+  if (k > 127) return __int_as_float(0x7f800000);
+  return __int_as_float((k + 127) << 23);
+}
+
+// x * 2^k by an integer add on the exponent field where input and result
+// are normal; otherwise the flushed multiply by 2^k (amla.exp2_mul).
+__device__ __forceinline__ float exp2_mul(float x, int k) {
+  const int bits = __float_as_int(x);
+  const int biased = (bits >> 23) & 0xff;
+  const int shifted = biased + k;
+  if (biased > 0 && shifted > 0 && shifted < 255)
+    return __int_as_float(bits + static_cast<int>(static_cast<unsigned>(k) << 23));
+  return flush_subnormal(__fmul_rn(flush_subnormal(x), pow2i(k)));
+}
+
+// The power-of-two P scale's exponent, ceil(log2(max(amax, EPS) / qmax))
+// (amla.quantize_block_pow2), as a float holding an integer.
+template <int F>
+__device__ __forceinline__ float pow2_scale_exponent(float amax) {
+  return ceilf(__fmul_rn(logf(dynamic_scale<F>(amax)), kLog2e));
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));

@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("mla_decode.cu", "q_quant.cu")
+SOURCES = ("mla_decode.cu", "q_quant.cu", "k_append.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -38,14 +38,18 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # fmt, single_pass, q_c8, q_r, sigma_q, content, rope, scale, page_table,
-    # seq_lens, o_part, lse_part, sp_part, B, H, d_c, d_r, page, P,
-    # num_splits, pages_per_split, softmax_scale, stream
-    "snapmla_paged_decode": [_I, _I] + [_P] * 11 + [_I] * 8 + [_F, _P],
+    # fmt, single_pass, amla, q_c8, q_r, sigma_q, content, rope, scale,
+    # page_table, seq_lens, sink, S_k, o_part, lse_part, sp_part, B, H, d_c,
+    # d_r, block, P, num_splits, blocks_per_split, softmax_scale, stream
+    "snapmla_decode": [_I] * 3 + [_P] * 9 + [_I] + [_P] * 3 + [_I] * 8 + [_F, _P],
     # o_part, lse_part, o, lse, B, S, H, d_c, stream
     "snapmla_lse_combine": [_P] * 4 + [_I] * 4 + [_P],
+    # acc_part, l_part, g_part, o, lse, B, S, H, d_c, stream
+    "snapmla_amla_combine": [_P] * 5 + [_I] * 4 + [_P],
     # fmt, q, q_c8, q_r, sigma_q, B, H, d_c, d_r, stream
     "snapmla_fused_q_quant": [_I] + [_P] * 4 + [_I] * 4 + [_P],
+    # fmt, c_kv, k_r, content, rope, scale, seq_lens, B, N, d_c, d_r, stream
+    "snapmla_fused_k_append": [_I] + [_P] * 6 + [_I] * 4 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,15 +1,16 @@
 """Plain PyTorch versions of the SnapMLA FP8 decode pipeline (port of the
-FMA, q_len = 1 half of ``repro/kernels/mla_decode/ref.py``).
+q_len = 1 half of ``repro/kernels/mla_decode/ref.py``).
 
 These are the oracles of the CUDA kernels in ``kernel.py`` and the arithmetic
-of the ``torch_paged_ref`` backend:
+of the reference backends (``torch_ref``, ``torch_paged_ref``):
 
   * ``snapmla_decode_pipeline_ref`` — online softmax, per-token V-scale
     fusion, block-wise dynamic P quantization and implicit dequantization
-    (paper §3.2.3, Eqs. 12-13), one KV block at a time;
+    (paper §3.2.3, Eqs. 12-13), one KV block at a time, with the FMA or the
+    AMLA (power-of-two, ``amla.py``) rescale;
   * ``snapmla_decode_splitkv_ref`` / ``snapmla_decode_paged_splitkv_ref`` —
     the split-KV form: the pipeline per split with the dead-block early exit,
-    merged by ``lse_combine_ref``;
+    merged by ``lse_combine_ref`` (FMA) or ``amla_combine_ref`` (AMLA);
   * ``snapmla_decode_paged_ref`` — the single pass over the page table
     without early exit (the plain version of the single-pass kernel).
 
@@ -21,7 +22,8 @@ Two choices make kernel and plain version agree bit for bit on the card:
     does not depend on summation order; the reference's float32 dot differs
     from it by a few ulp at most. This keeps P's fp8 rounding decisions —
     which a one-ulp change in a logit can flip — identical between the CUDA
-    kernel and this version;
+    kernel and this version. Sink-guard rows (float32 content) are the
+    exception: their float64 sum is no longer exact in every order;
   * masking uses the kernel's finite ``NEG_INF`` sentinel
     (kernel.py:86) rather than the JAX ref's ``-inf``. Wherever the JAX ref
     is finite the two agree exactly; on an empty row without early exit
@@ -34,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quant
+from repro_torch.kernels.mla_decode import amla
 
 NEG_INF = -1e30
 
@@ -69,7 +72,7 @@ def snapmla_decode_pipeline_ref(
     q_c8: torch.Tensor,     # [B, H, d_c] quantized content query (storage dtype)
     q_r: torch.Tensor,      # [B, H, d_r] rope query, PRE-DIVIDED by sigma_q
     sigma_q: torch.Tensor,  # [B, H]
-    content: torch.Tensor,  # [B, N, d_c] quantized latent cache
+    content: torch.Tensor,  # [B, N, d_c] quantized latent cache (or f32, sink rows patched)
     rope: torch.Tensor,     # [B, N, d_r] rope keys, PRE-DIVIDED by sigma_k
     sigma_k: torch.Tensor,  # [B, N]
     seq_lens: torch.Tensor,  # [B]
@@ -79,15 +82,25 @@ def snapmla_decode_pipeline_ref(
     fmt: str = "fp8_e4m3",
     return_sigma_p: bool = False,
     skip_dead_blocks: bool = False,
+    rescale: str = "fma",
+    return_raw: bool = False,
 ):
     """Returns (o [B, H, d_c] f32, lse [B, H] f32) — plus the final sigma_p
     [B, H] when ``return_sigma_p``. ``skip_dead_blocks`` freezes the carried
-    state on blocks with no valid token (the split-KV kernel's early exit)."""
+    state on blocks with no valid token (the split-KV kernel's early exit).
+
+    ``rescale="amla"`` carries the max as the integer ``i`` (m = i*ln2) and
+    sigma_p as the integer exponent ``e`` (sigma_p = 2^e); every rescale is
+    an exact ``2^k`` applied by ``amla.exp2_mul``. ``return_raw`` (AMLA only)
+    returns the unnormalized (acc, l, g = i + e) a split publishes."""
+    if rescale not in ("fma", "amla"):
+        raise ValueError(f"rescale must be 'fma' or 'amla', not {rescale!r}")
     B, H, d_c = q_c8.shape
     N = content.shape[1]
     if N % block_n:
         raise ValueError(f"cache length {N} is not a multiple of block_n={block_n}")
     dev = q_c8.device
+    qmax = quant.qmax_for(fmt) if fmt != "none" else 1.0
     s_all = _qk_logits(q_c8, q_r, content, rope)
     s_all = s_all * (sigma_q.float()[:, :, None] * sigma_k.float()[:, None, :]) \
         * softmax_scale
@@ -104,13 +117,23 @@ def snapmla_decode_pipeline_ref(
     for j in range(N // block_n):
         blk = slice(j * block_n, (j + 1) * block_n)
         s, valid = s_all[..., blk], valid_all[..., blk]
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        e = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
-        # Key Step 2: fuse the per-token V scale, block-wise dynamic quantization
-        p8, sp_new = _quantize_p(e * sk_all[..., blk], fmt)
-        corr = torch.exp(m - m_new) * (sp / sp_new)                  # Eq. 12/13
-        l_new = l * corr + torch.sum(e, dim=-1) / sp_new
-        acc_new = acc * corr[..., None] + torch.matmul(p8, cf[:, blk])
+        if rescale == "amla":
+            # m carries i, sp carries e (kernel.py:152-177)
+            m_new = torch.maximum(m, torch.ceil(torch.amax(s, dim=-1) * amla.LOG2E_F32))
+            e = torch.where(valid, torch.exp(s - (m_new * amla.LN2_F32)[..., None]), 0.0)
+            p8, sp_new = amla.quantize_block_pow2(e * sk_all[..., blk], fmt, qmax)
+            k = torch.where(l > 0.0, (m - m_new) + (sp - sp_new), 0.0).to(torch.int32)
+            l_new = (amla.exp2_mul(l, k)
+                     + amla.exp2_mul(torch.sum(e, dim=-1), -sp_new.to(torch.int32)))
+            acc_new = amla.exp2_mul(acc, k[..., None]) + torch.matmul(p8, cf[:, blk])
+        else:
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            e = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+            # Key Step 2: fuse the per-token V scale, block-wise dynamic quantization
+            p8, sp_new = _quantize_p(e * sk_all[..., blk], fmt)
+            corr = torch.exp(m - m_new) * (sp / sp_new)                  # Eq. 12/13
+            l_new = l * corr + torch.sum(e, dim=-1) / sp_new
+            acc_new = acc * corr[..., None] + torch.matmul(p8, cf[:, blk])
         if skip_dead_blocks:
             live = (j * block_n < seq_lens.to(dev).long())[:, None]  # [B, 1]
             m_new = torch.where(live, m_new, m)
@@ -118,8 +141,15 @@ def snapmla_decode_pipeline_ref(
             sp_new = torch.where(live, sp_new, sp)
             acc_new = torch.where(live[..., None], acc_new, acc)
         m, l, sp, acc = m_new, l_new, sp_new, acc_new
-    o = acc / l[..., None]                                          # sigma_p cancels
-    lse = m + torch.log(sp * l)
+    if rescale == "amla":
+        g = m + sp                                                  # integer grid exponent
+        if return_raw:
+            return acc, l, g
+        o = acc / l[..., None]                                      # sigma_p cancels
+        lse = g * amla.LN2_F32 + torch.log(l)
+    else:
+        o = acc / l[..., None]                                      # sigma_p cancels
+        lse = m + torch.log(sp * l)
     if return_sigma_p:
         return o, lse, sp
     return o, lse
@@ -135,12 +165,29 @@ def lse_combine_ref(o_partial: torch.Tensor, lse_partial: torch.Tensor):
     return num / den[..., None], m_star + torch.log(den)
 
 
+def amla_combine_ref(acc_partial: torch.Tensor, l_partial: torch.Tensor,
+                     g_partial: torch.Tensor):
+    """Combine-free AMLA merge of raw split partials: acc [B, S, H, d_c], l
+    [B, S, H] (0 if the split is empty), g [B, S, H] integer grid exponents.
+    Shift every split with data onto K* = max g by ``exp2_mul``, sum, then
+    one division and one log -> (o [B, H, d_c], lse [B, H])."""
+    has = l_partial > 0.0
+    k_star = torch.amax(torch.where(has, g_partial, NEG_INF), dim=1)      # [B, H]
+    k = torch.where(has, g_partial - k_star[:, None, :], 0.0).to(torch.int32)
+    den = torch.sum(amla.exp2_mul(l_partial, k), dim=1)
+    num = torch.sum(amla.exp2_mul(acc_partial, k[..., None]), dim=1)
+    return num / den[..., None], k_star * amla.LN2_F32 + torch.log(den)
+
+
 def _split_partials(decode_one_split, content, rope, sigma_k, seq_lens,
-                    num_splits: int, block_n: int):
+                    num_splits: int, block_n: int, neutral=(0.0, NEG_INF, 1.0)):
     """Cut the KV axis into ``num_splits`` slices of whole blocks (padding the
     tail slice), run ``decode_one_split`` per slice and neutralize empty
-    slices with (o = 0, lse = NEG_INF, sigma_p = 1)."""
+    slices with ``neutral`` — (o = 0, lse = NEG_INF, sigma_p = 1) for FMA,
+    all zeros for the raw AMLA (acc, l, g)."""
     N = content.shape[1]
+    if N % block_n:
+        raise ValueError(f"cache length {N} is not a multiple of block_n={block_n}")
     nblocks = N // block_n
     if not 1 <= num_splits <= nblocks:
         raise ValueError(f"num_splits={num_splits} outside [1, {nblocks}]")
@@ -166,10 +213,11 @@ def _split_partials(decode_one_split, content, rope, sigma_k, seq_lens,
             content[:, lo:lo + split_tokens], rope[:, lo:lo + split_tokens],
             sigma_k[:, lo:lo + split_tokens], local_len)
         empty = local_len <= 0
-        lse_s = torch.nan_to_num(lse_s, nan=0.0, neginf=NEG_INF)
-        o_parts.append(torch.where(empty[:, None, None], 0.0, o_s))
-        lse_parts.append(torch.where(empty[:, None], NEG_INF, lse_s))
-        sp_parts.append(torch.where(empty[:, None], 1.0, sp_s))
+        if neutral[1] == NEG_INF:
+            lse_s = torch.nan_to_num(lse_s, nan=0.0, neginf=NEG_INF)
+        o_parts.append(torch.where(empty[:, None, None], neutral[0], o_s))
+        lse_parts.append(torch.where(empty[:, None], neutral[1], lse_s))
+        sp_parts.append(torch.where(empty[:, None], neutral[2], sp_s))
     return (torch.stack(o_parts, dim=1), torch.stack(lse_parts, dim=1),
             torch.stack(sp_parts, dim=1))
 
@@ -177,20 +225,25 @@ def _split_partials(decode_one_split, content, rope, sigma_k, seq_lens,
 def snapmla_decode_splitkv_ref(q_c8, q_r, sigma_q, content, rope, sigma_k,
                                seq_lens, *, softmax_scale: float, num_splits: int,
                                block_n: int = 128, fmt: str = "fp8_e4m3",
-                               return_partials: bool = False):
+                               return_partials: bool = False, rescale: str = "fma"):
     """Split-KV oracle: each slice runs the pipeline with its local ragged
     length and the dead-block early exit, then ``lse_combine_ref`` merges
-    the (o, lse, sigma_p) partials."""
+    the (o, lse, sigma_p) partials — or, under ``rescale="amla"``,
+    ``amla_combine_ref`` merges the raw (acc, l, g) partials."""
+    amla_mode = rescale == "amla"
+
     def one_split(c, r, sk, local_len):
         return snapmla_decode_pipeline_ref(
             q_c8, q_r, sigma_q, c, r, sk, local_len, softmax_scale=softmax_scale,
-            block_n=block_n, fmt=fmt, return_sigma_p=True, skip_dead_blocks=True)
+            block_n=block_n, fmt=fmt, return_sigma_p=not amla_mode,
+            skip_dead_blocks=True, rescale=rescale, return_raw=amla_mode)
 
-    o_p, lse_p, sp_p = _split_partials(one_split, content, rope, sigma_k,
-                                       seq_lens, num_splits, block_n)
-    o, lse = lse_combine_ref(o_p, lse_p)
+    parts = _split_partials(one_split, content, rope, sigma_k, seq_lens,
+                            num_splits, block_n,
+                            neutral=(0.0, 0.0, 0.0) if amla_mode else (0.0, NEG_INF, 1.0))
+    o, lse = amla_combine_ref(*parts) if amla_mode else lse_combine_ref(*parts[:2])
     if return_partials:
-        return o, lse, (o_p, lse_p, sp_p)
+        return o, lse, parts
     return o, lse
 
 
@@ -207,7 +260,8 @@ def snapmla_decode_paged_splitkv_ref(q_c8, q_r, sigma_q, content_pool, rope_pool
                                      scale_pool, page_table, seq_lens, *,
                                      softmax_scale: float, num_splits: int,
                                      fmt: str = "fp8_e4m3",
-                                     return_partials: bool = False):
+                                     return_partials: bool = False,
+                                     rescale: str = "fma"):
     """Paged split-KV oracle: page-table gather + the split-KV oracle at
     block_n == page (plain version of the paged split-KV kernel + combine)."""
     page = content_pool.shape[1]
@@ -215,12 +269,13 @@ def snapmla_decode_paged_splitkv_ref(q_c8, q_r, sigma_q, content_pool, rope_pool
     return snapmla_decode_splitkv_ref(
         q_c8, q_r, sigma_q, c, r.float(), s, seq_lens, softmax_scale=softmax_scale,
         num_splits=num_splits, block_n=page, fmt=fmt,
-        return_partials=return_partials)
+        return_partials=return_partials, rescale=rescale)
 
 
 def snapmla_decode_paged_ref(q_c8, q_r, sigma_q, content_pool, rope_pool,
                              scale_pool, page_table, seq_lens, *,
-                             softmax_scale: float, fmt: str = "fp8_e4m3"):
+                             softmax_scale: float, fmt: str = "fp8_e4m3",
+                             rescale: str = "fma"):
     """Single pass over the whole page table with no early exit (plain version
     of the single-pass paged kernel, kernel.py:694): dead pages still run the
     sigma_p update with an all-masked block."""
@@ -228,7 +283,7 @@ def snapmla_decode_paged_ref(q_c8, q_r, sigma_q, content_pool, rope_pool,
     c, r, s = gather_paged_view(content_pool, rope_pool, scale_pool, page_table)
     return snapmla_decode_pipeline_ref(
         q_c8, q_r, sigma_q, c, r.float(), s, seq_lens, softmax_scale=softmax_scale,
-        block_n=page, fmt=fmt)
+        block_n=page, fmt=fmt, rescale=rescale)
 
 
 def prepare_q(q_c: torch.Tensor, q_r: torch.Tensor, fmt: str = "fp8_e4m3"):

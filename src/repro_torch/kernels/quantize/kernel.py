@@ -1,7 +1,11 @@
-"""Wrapper of the Fused-Q-Quant kernel (CUDA source in
-``repro_torch/csrc/q_quant.cu``); replaces
-``repro/kernels/quantize/kernel.py::fused_q_quant_pallas``. On CPU tensors it
-runs its plain version, ``ref.fused_q_quant_ref``."""
+"""Wrappers of the fused token-preparation kernels (CUDA sources in
+``repro_torch/csrc/q_quant.cu`` and ``k_append.cu``):
+
+  * ``fused_q_quant_cuda`` — kernel D; replaces
+    ``repro/kernels/quantize/kernel.py::fused_q_quant_pallas``;
+  * ``fused_k_append_cuda`` — #9; replaces ``fused_k_append_pallas``.
+
+On CPU tensors each runs its plain version (``ref.py``)."""
 from __future__ import annotations
 
 import torch
@@ -13,13 +17,17 @@ from repro_torch.kernels.quantize import ref as R
 FMT_CODES = {"fp8_e4m3": 0, "int8": 1}
 
 
+def _check_fmt(name: str, fmt: str) -> None:
+    if fmt not in FMT_CODES:
+        raise ValueError(f"{name} takes fp8_e4m3 or int8, not {fmt!r}")
+
+
 def fused_q_quant_cuda(q: torch.Tensor, d_c: int, *, fmt: str = "fp8_e4m3"):
     """q [B, H, d_c + d_r] f32 -> (q_c8 [B, H, d_c], q_r_scaled [B, H, d_r] f32,
     sigma_q [B, H] f32)."""
     if q.device.type == "cpu":
         return R.fused_q_quant_ref(q, d_c, fmt=fmt)
-    if fmt not in FMT_CODES:
-        raise ValueError(f"fused_q_quant takes fp8_e4m3 or int8, not {fmt!r}")
+    _check_fmt("fused_q_quant", fmt)
     B, H, d = q.shape
     d_r = d - d_c
     _lib.check(q, "q", torch.float32, (B, H, d), q.device)
@@ -29,3 +37,30 @@ def fused_q_quant_cuda(q: torch.Tensor, d_c: int, *, fmt: str = "fp8_e4m3"):
     _lib.launch("fused_q_quant", "snapmla_fused_q_quant", FMT_CODES[fmt], q.data_ptr(),
                 q_c8.data_ptr(), q_r.data_ptr(), sigma_q.data_ptr(), B, H, d_c, d_r)
     return q_c8, q_r, sigma_q
+
+
+def fused_k_append_cuda(content: torch.Tensor, rope: torch.Tensor, scale: torch.Tensor,
+                        c_kv: torch.Tensor, k_r: torch.Tensor, seq_lens: torch.Tensor, *,
+                        fmt: str = "fp8_e4m3"):
+    """Quantize c_kv [B, d_c] / k_r [B, d_r] (f32) per token and write them
+    in place at row ``seq_lens[b]`` of content [B, N, d_c], rope [B, N, d_r]
+    bf16 and scale [B, N] f32. Returns (content, rope, scale)."""
+    devices = {t.device for t in (content, rope, scale, c_kv, k_r, seq_lens)}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    if content.device.type == "cpu":
+        return R.fused_k_append_ref(content, rope, scale, c_kv, k_r, seq_lens, fmt=fmt)
+    _check_fmt("fused_k_append", fmt)
+    B, N, d_c = content.shape
+    d_r = rope.shape[-1]
+    dev = content.device
+    _lib.check(content, "content", quant.qdtype_for(fmt), (B, N, d_c), dev)
+    _lib.check(rope, "rope", torch.bfloat16, (B, N, d_r), dev)
+    _lib.check(scale, "scale", torch.float32, (B, N), dev)
+    _lib.check(c_kv, "c_kv", torch.float32, (B, d_c), dev)
+    _lib.check(k_r, "k_r", torch.float32, (B, d_r), dev)
+    _lib.check(seq_lens, "seq_lens", torch.int32, (B,), dev)
+    _lib.launch("fused_k_append", "snapmla_fused_k_append", FMT_CODES[fmt], c_kv.data_ptr(),
+                k_r.data_ptr(), content.data_ptr(), rope.data_ptr(), scale.data_ptr(),
+                seq_lens.data_ptr(), B, N, d_c, d_r)
+    return content, rope, scale

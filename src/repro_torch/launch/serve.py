@@ -1,15 +1,17 @@
 """Serving launcher of the port: batched prefill + per-step decode against the
-paged FP8 pool (port of the step-loop path of ``repro/launch/serve.py``).
+FP8 latent cache — the contiguous per-slot cache by default, the paged pool
+with ``--paged`` (port of the step-loop path of ``repro/launch/serve.py``).
 
 On the card, with the hand-written kernels:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch mla-7b --paged --backend kernel --batch 4 --prompt-len 512 --gen 16
+        --arch mla-7b --backend kernel --batch 4 --prompt-len 512 --gen 16
 
-On the CPU (plain PyTorch versions of every kernel):
+(add ``--paged``, ``--kv-splits N``, ``--rescale amla``, ``--sink-tokens K`` or
+``--block-n N``). On the CPU (plain PyTorch versions of every kernel):
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch mla-7b --smoke --paged --backend kernel --device cpu
+        --arch mla-7b --smoke --backend kernel --device cpu
 """
 from __future__ import annotations
 
@@ -119,15 +121,28 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--fmt", default="fp8_e4m3", choices=["fp8_e4m3", "int8", "none"])
     ap.add_argument("--paged", action="store_true",
-                    help="paged KV pool for the MLA layers (required: the "
-                         "contiguous cache is not ported yet)")
+                    help="paged KV pool for the MLA layers (latent entries in a "
+                         "page pool addressed through per-sequence page tables) "
+                         "instead of the contiguous per-slot cache")
     ap.add_argument("--backend", default="auto", choices=["auto", "ref", "kernel"],
                     help="decode attention: 'ref' = plain PyTorch, 'kernel' = the "
                          "hand-written Hopper kernels (plain versions on CPU), "
                          "'auto' = ref")
     ap.add_argument("--kv-splits", type=int, default=0,
-                    help="split-KV splits (0 = context-length heuristic, "
-                         "1 = single pass)")
+                    help="split-KV splits, contiguous and paged caches "
+                         "(0 = context-length heuristic, 1 = single pass)")
+    ap.add_argument("--block-n", type=int, default=0,
+                    help="decode KV block size (0 = page size). Contiguous caches "
+                         "take any divisor of the capacity the kernels support; "
+                         "with --paged the block is the page, so this sets the "
+                         "page size itself")
+    ap.add_argument("--sink-tokens", type=int, default=0,
+                    help="P-Cast sink guard: keep the first k tokens' latent rows "
+                         "in full precision (contiguous caches only; 0 = off)")
+    ap.add_argument("--rescale", default="fma", choices=["fma", "amla"],
+                    help="per-block accumulator rescale of the decode kernels: "
+                         "fma = exact max-shift FMA, amla = exponent-add on the "
+                         "power-of-two grid with combine-free split partials")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=0.0)
@@ -141,14 +156,19 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.engine or args.fused:
         ap.error("--engine / --fused are not ported yet")
-    if not args.paged:
-        ap.error("the contiguous MLA cache is not ported yet; pass --paged")
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, kv_fmt=args.fmt, kv_splits=args.kv_splits,
-                              kv_paged=True, decode_backend=args.backend,
+                              kv_paged=args.paged, kv_rescale=args.rescale,
+                              kv_sink_tokens=args.sink_tokens,
+                              decode_backend=args.backend,
                               use_kernels=args.backend == "kernel")
+    if args.block_n:
+        # a paged pool's decode block IS its page, so --block-n repages it;
+        # a contiguous cache keeps its page size and overrides the block
+        cfg = dataclasses.replace(cfg, page_size=args.block_n) if args.paged \
+            else dataclasses.replace(cfg, kv_block_n=args.block_n)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = T.init_model(gen, cfg, device=device)
@@ -157,9 +177,10 @@ def main(argv=None):
     sample_kw = dict(temperature=args.temperature, top_k=args.top_k,
                      top_p=args.top_p, eos_id=args.eos_id, seed=args.seed)
     toks, tps = generate(cfg, params, prompts, args.gen, **sample_kw)
+    cache_kind = "paged" if args.paged else "contiguous"
     print(f"[serve] {cfg.name} fmt={args.fmt} backend={args.backend} "
-          f"(step-loop, paged cache, {device}): generated {tuple(toks.shape)} at "
-          f"{tps:.1f} tok/s (decode)")
+          f"rescale={args.rescale} (step-loop, {cache_kind} cache, {device}): "
+          f"generated {tuple(toks.shape)} at {tps:.1f} tok/s (decode)")
     if args.fmt != "none":
         cfg_b = dataclasses.replace(cfg, kv_fmt="none")
         toks_b, _ = generate(cfg_b, params, prompts, args.gen, **sample_kw)

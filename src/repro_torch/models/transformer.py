@@ -1,11 +1,12 @@
 """Decoder stack of the port — the MLA path of ``repro/models/transformer.py``:
-``init_model``, ``init_decode_state`` (paged), ``prefill``, ``decode_step``
-and ``_mla_decode``.
+``init_model``, ``init_decode_state``, ``prefill``, ``decode_step`` and
+``_mla_decode``, over the contiguous ``MLACache`` (the default) or the paged
+pool (``kv_paged``).
 
 The reference stacks its layers along a leading ``scanned`` axis; the port
 keeps a list: ``params["layers"][i]`` is one layer's
 ``{"ln1", "mixer": MLAParams, "ln2", "mlp": MLPParams}`` and
-``state["layers"][i]`` its ``PagedMLAPool``.
+``state["layers"][i]`` its ``MLACache`` or ``PagedMLAPool``.
 """
 from __future__ import annotations
 
@@ -15,8 +16,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mla as mla_lib
-from repro_torch.core.kvcache import (CacheConfig, init_paged_mla_cache,
-                                      paged_mla_append, paged_mla_prefill)
+from repro_torch.core.kvcache import (CacheConfig, init_mla_cache, init_paged_mla_cache,
+                                      mla_append, mla_prefill, paged_mla_append,
+                                      paged_mla_prefill)
 from repro_torch.kernels.mla_decode import backends as BK
 from repro_torch.kernels.mla_decode import ref as mla_kref
 from repro_torch.kernels.quantize.ops import fused_q_quant
@@ -37,7 +39,9 @@ def _mla_cfg(cfg: ModelConfig) -> mla_lib.MLAConfig:
 
 
 def _cache_cfg(cfg: ModelConfig) -> CacheConfig:
-    return CacheConfig(fmt=cfg.kv_fmt, page_size=cfg.page_size)
+    # the sink guard arms only on contiguous MLA caches (transformer.py:64-70)
+    return CacheConfig(fmt=cfg.kv_fmt, page_size=cfg.page_size,
+                       sink_tokens=0 if cfg.kv_paged else cfg.kv_sink_tokens)
 
 
 def init_model(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
@@ -62,11 +66,9 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device=None) -> dict[str, Any]:
     _check_mla(cfg)
-    if not cfg.kv_paged:
-        raise NotImplementedError("the contiguous MLACache is not ported yet; "
-                                  "set kv_paged=True")
-    layers = [init_paged_mla_cache(_cache_cfg(cfg), batch, max_len, cfg.mla.d_c,
-                                   cfg.mla.d_rope, device=device)
+    init = init_paged_mla_cache if cfg.kv_paged else init_mla_cache
+    layers = [init(_cache_cfg(cfg), batch, max_len, cfg.mla.d_c, cfg.mla.d_rope,
+                   device=device)
               for _ in range(cfg.n_layers)]
     return {"layers": layers}
 
@@ -83,7 +85,7 @@ def _logits(params, x: torch.Tensor) -> torch.Tensor:
 
 def _mla_decode(p: mla_lib.MLAParams, cfg: ModelConfig, x_t: torch.Tensor, cache,
                 pos: torch.Tensor, active: torch.Tensor | None = None):
-    """SnapMLA decode: paged append + Fused-Q-Quant + backend attention.
+    """SnapMLA decode: cache append + Fused-Q-Quant + backend attention.
 
     The reference runs ``prepare_q`` here (transformer.py:421); on a kernel
     backend the port sends the query through ``fused_q_quant`` instead,
@@ -94,7 +96,8 @@ def _mla_decode(p: mla_lib.MLAParams, cfg: ModelConfig, x_t: torch.Tensor, cache
     backend = BK.resolve_backend(cfg.decode_backend, paged=cfg.kv_paged,
                                  use_kernels=cfg.use_kernels)
     c_kv, k_r = mla_lib.project_kv(p, mcfg, x_t[:, None, :], pos[:, None])
-    cache = paged_mla_append(cache, ccfg, c_kv[:, 0], k_r[:, 0], active=active)
+    append = paged_mla_append if cfg.kv_paged else mla_append
+    cache = append(cache, ccfg, c_kv[:, 0], k_r[:, 0], active=active)
     q_c, q_r = mla_lib.project_q(p, mcfg, x_t[:, None, :], pos[:, None])
     if active is not None:
         # finished rows: zero the query (EPS keeps the scale finite)
@@ -107,8 +110,9 @@ def _mla_decode(p: mla_lib.MLAParams, cfg: ModelConfig, x_t: torch.Tensor, cache
         q_c8, q_r_s, sigma_q = fused_q_quant(q_cat, mcfg.d_c, fmt=fmt)
     else:
         q_c8, q_r_s, sigma_q = mla_kref.prepare_q(q_lat, q_r[:, 0], fmt)
-    bcfg = BK.BackendConfig(softmax_scale=mcfg.softmax_scale, fmt=fmt,
-                            num_splits=cfg.kv_splits)
+    bcfg = BK.BackendConfig(softmax_scale=mcfg.softmax_scale,
+                            block_n=cfg.kv_block_n or ccfg.page_size, fmt=fmt,
+                            num_splits=cfg.kv_splits, rescale=cfg.kv_rescale)
     o_lat = backend.decode(BK.DecodeQuery(q_c8, q_r_s, sigma_q), cache, bcfg)
     return mla_lib.output_proj(p, o_lat.to(x_t.dtype)), cache
 
@@ -122,11 +126,11 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state,
     _check_mla(cfg)
     x_t = L.embed(params["embed"], token)
     new_layers = []
-    for p, pool in zip(params["layers"], state["layers"]):
+    for p, cache in zip(params["layers"], state["layers"]):
         h = L.rms_norm(x_t, p["ln1"])
-        y, pool = _mla_decode(p["mixer"], cfg, h, pool, pos, active)
+        y, cache = _mla_decode(p["mixer"], cfg, h, cache, pos, active)
         x_t = _apply_mlp(p, cfg, x_t + y)
-        new_layers.append(pool)
+        new_layers.append(cache)
     return _logits(params, x_t), {**state, "layers": new_layers}
 
 
@@ -136,11 +140,12 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state):
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     mcfg = _mla_cfg(cfg)
+    fill = paged_mla_prefill if cfg.kv_paged else mla_prefill
     new_layers = []
-    for p, pool in zip(params["layers"], state["layers"]):
+    for p, cache in zip(params["layers"], state["layers"]):
         h = L.rms_norm(x, p["ln1"])
         x = x + mla_lib.mla_attention(p["mixer"], mcfg, h, positions)
         c_kv, k_r = mla_lib.project_kv(p["mixer"], mcfg, h, positions)
-        new_layers.append(paged_mla_prefill(pool, _cache_cfg(cfg), c_kv, k_r))
+        new_layers.append(fill(cache, _cache_cfg(cfg), c_kv, k_r))
         x = _apply_mlp(p, cfg, x)
     return _logits(params, x[:, -1]), {**state, "layers": new_layers}

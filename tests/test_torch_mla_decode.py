@@ -183,11 +183,13 @@ def _jax_pool(pool: PagedMLAPool):
 
 
 def test_backend_registry_vocabulary():
-    assert TB.backend_names() == ["cuda_paged_splitkv", "torch_paged_ref"]
+    assert TB.backend_names() == ["cuda_paged_splitkv", "cuda_splitkv", "torch_paged_ref",
+                                  "torch_ref"]
     assert TB.resolve_backend("auto", paged=True).name == "torch_paged_ref"
     assert TB.resolve_backend("auto", paged=True, use_kernels=True).kind == "kernel"
-    with pytest.raises(ValueError, match="not ported"):
-        TB.resolve_backend("kernel", paged=False)
+    assert TB.resolve_backend("kernel", paged=False).name == "cuda_splitkv"
+    with pytest.raises(ValueError, match="consumes a paged pool"):
+        TB.resolve_backend("cuda_paged_splitkv", paged=False)
     with pytest.raises(ValueError, match="unknown decode backend"):
         TB.get_backend("pallas_paged_splitkv")
 

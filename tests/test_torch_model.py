@@ -16,6 +16,7 @@ from repro.launch import steps as jsteps
 from repro.models import transformer as JT
 from repro_torch import bridge
 from repro_torch.configs import get_config, get_smoke_config as t_smoke
+from repro_torch.core import kvcache as tkv
 from repro_torch.kernels import _lib
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
@@ -136,18 +137,77 @@ def test_config_copy_and_unported_paths():
     assert jc.tie_embeddings                      # the port's unembedding is tied
     for f in ("name", "n_layers", "d_model", "n_heads", "d_head", "d_ff", "vocab_size",
               "layer_pattern", "rope_theta", "act", "page_size", "kv_fmt", "kv_splits",
-              "kv_paged", "use_kernels", "decode_backend"):
+              "kv_block_n", "kv_rescale", "kv_sink_tokens", "kv_paged", "use_kernels",
+              "decode_backend"):
         assert getattr(tc, f) == getattr(jc, f), f
     assert (tc.mla.d_c, tc.mla.d_rope, tc.mla.q_lora_rank) == (
         jc.mla.d_c, jc.mla.d_rope, jc.mla.q_lora_rank)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TT.init_decode_state(t_smoke("mla-7b"), 1, 16)
+    # the contiguous cache is the default layout, with the sink guard armed
+    # only there (transformer.py:64-70)
+    state = TT.init_decode_state(dataclasses.replace(t_smoke("mla-7b"), kv_sink_tokens=3),
+                                 1, 16, device="cpu")
+    assert isinstance(state["layers"][0], tkv.MLACache)
+    assert state["layers"][0].sink_tokens == 3
+    paged = TT.init_decode_state(dataclasses.replace(t_smoke("mla-7b"), kv_paged=True,
+                                                     kv_sink_tokens=3), 1, 16, device="cpu")
+    assert isinstance(paged["layers"][0], tkv.PagedMLAPool)
     with pytest.raises(ValueError, match="not ported"):
         get_config("deepseek-v3-mla")
     with pytest.raises(SystemExit):
         tserve.main(["--smoke", "--paged", "--engine", "--device", "cpu"])
     with pytest.raises(SystemExit):
-        tserve.main(["--smoke", "--device", "cpu"])        # no --paged
+        tserve.main(["--smoke", "--fused", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("kv_splits,sink_tokens,rescale", [
+    (1, 0, "fma"), (2, 0, "fma"), (1, 4, "fma"), (2, 4, "fma"), (1, 0, "amla"),
+    (2, 0, "amla")])
+def test_contiguous_generate_matches_jax(setup, kv_splits, sink_tokens, rescale):
+    """The reference's default serving path: the contiguous cache, with and
+    without the sink guard, FMA and AMLA. JAX runs its reference backend for
+    FMA and its Pallas kernels (interpret mode) for AMLA, whose reference
+    backend is the einsum form without AMLA."""
+    jcfg, jparams, tparams, prompts = setup
+    jcfg = dataclasses.replace(jcfg, kv_paged=False, kv_splits=kv_splits,
+                               kv_sink_tokens=sink_tokens, kv_rescale=rescale)
+    if rescale == "amla":
+        jcfg = dataclasses.replace(jcfg, decode_backend="kernel", use_kernels=True)
+    j_toks, _ = jserve.generate(jcfg, jparams, jnp.asarray(prompts), GEN)
+    tcfg = dataclasses.replace(t_smoke("mla-7b"), kv_splits=kv_splits,
+                               kv_sink_tokens=sink_tokens, kv_rescale=rescale,
+                               decode_backend="kernel", use_kernels=True)
+    t_toks, _, t_logits = tserve.generate(tcfg, tparams, torch.from_numpy(prompts), GEN,
+                                          return_logits=True)
+    np.testing.assert_array_equal(t_toks.numpy(), np.asarray(j_toks))
+    l0, l1 = _jax_logits(jcfg, jparams, prompts, jnp.asarray(np.asarray(j_toks)[:, 0]))
+    np.testing.assert_allclose(t_logits[:, 0].numpy(), l0, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(t_logits[:, 1].numpy(), l1, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kv_splits,rescale", [(1, "fma"), (2, "fma"), (2, "amla")])
+def test_contiguous_and_paged_give_identical_tokens(setup, kv_splits, rescale):
+    """At block_n == page the contiguous and paged kernels run the same
+    per-block arithmetic: identical logits and greedy tokens (the reference
+    asserts the tokens in tests/test_paged_splitkv.py)."""
+    _, _, tparams, prompts = setup
+    base = dataclasses.replace(t_smoke("mla-7b"), kv_splits=kv_splits, kv_rescale=rescale,
+                               decode_backend="kernel", use_kernels=True)
+    outs = [tserve.generate(dataclasses.replace(base, kv_paged=paged), tparams,
+                            torch.from_numpy(prompts), GEN, return_logits=True)
+            for paged in (False, True)]
+    np.testing.assert_array_equal(outs[0][0].numpy(), outs[1][0].numpy())
+    np.testing.assert_array_equal(outs[0][2].numpy(), outs[1][2].numpy())
+
+
+@pytest.mark.parametrize("flags", [[], ["--kv-splits", "2", "--rescale", "amla"],
+                                   ["--sink-tokens", "3", "--block-n", "16"],
+                                   ["--paged", "--block-n", "16", "--rescale", "amla"]])
+def test_serve_main_cpu_default_contiguous(capsys, flags):
+    tserve.main(["--smoke", "--backend", "kernel", "--device", "cpu", "--batch", "2",
+                 "--prompt-len", "10", "--gen", "3", *flags])
+    out = capsys.readouterr().out
+    kind = "paged" if "--paged" in flags else "contiguous"
+    assert f"{kind} cache" in out and "generated (2, 3)" in out
 
 
 def test_serve_main_cpu(capsys):
