@@ -25,12 +25,30 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                contiguous and paged caches, FMA and AMLA, kv_splits 0 and 4, a
                sink-guarded run: kernel backend against the reference backend,
                and contiguous against paged greedy tokens;
-  5. counts  — the launch counters, set to 0 just before and read just after
-               each main path (phase 3's kernel steps, phase 4's kernel runs):
-               every kernel of the paths launched at least once;
-  6. profile — one decode step of the serving run under torch.profiler (paged
-               at kv_splits 0 and 4, contiguous at 0): host wall, device kernel
-               time, the device's idle share, top kernels.
+  5. engine  — ``repro_torch.serving.ServingEngine`` on full mla-7b, kernel
+               backend, over the shared paged pool: E1 monolithic admission
+               with staggered arrivals and a shared prefix through
+               ``serve.run_engine`` (its exact greedy oracle gate); E2 chunked
+               prefill (the fused fetch-dequant kernel) against the same engine
+               on the plain backend, with the oracle's agreement reported; E3
+               speculative decoding (the q_len > 1 split-KV kernel) against the
+               non-speculative engine and the plain backend, and its AMLA mode.
+               Every run: fault counters 0, no leaked page;
+  6. counts  — the launch counters, set to 0 just before and read just after
+               each main path (phase 3's kernel steps, phase 4's and phase 5's
+               kernel runs): every kernel of the paths launched at least once;
+  7. profile — one decode step of the serving run under torch.profiler (paged
+               at kv_splits 0 and 4, contiguous at 0), one chunked-prefill step
+               and one verify step: host wall, device kernel time, the device's
+               idle share, top kernels.
+
+Phase 2 also holds the fused fetch-dequant kernel (#11 paged, #10 its
+contiguous mode) bitwise against its plain version at ~32k tokens and at the
+engine's shape, and the q_len > 1 verify mode of the split-KV kernels (#6,
+#2) at a verify shape and at ~32k: against the plain version, each row
+bitwise against the q_len = 1 kernel at its limit, and the q_len = 1
+launches bitwise against a build without the verify code
+(``-DSNAPMLA_NO_VERIFY``), whose q_len = 1 register counts must match.
 
 The line before the last holds the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, without
@@ -40,9 +58,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -59,8 +79,10 @@ AMLA_O, AMLA_LSE = dict(rtol=0.0, atol=1e-4), dict(rtol=0.0, atol=1e-5)
 SRC_DECODE = "src/repro_torch/csrc/mla_decode.cu"
 SRC_QQUANT = "src/repro_torch/csrc/q_quant.cu"
 SRC_KAPPEND = "src/repro_torch/csrc/k_append.cu"
+SRC_FETCH = "src/repro_torch/csrc/fetch_dequant.cu"
 TPU_DECODE = "src/repro/kernels/mla_decode/kernel.py"
 TPU_QUANT = "src/repro/kernels/quantize/kernel.py"
+TPU_FETCH = "src/repro/kernels/quantize/fetch_dequant.py"
 KERNELS = {  # launch-counter name -> (source, the TPU kernel it replaces, mode)
     "paged_splitkv_decode": (SRC_DECODE, f"{TPU_DECODE}:794", "fma"),
     "paged_single_pass_decode": (SRC_DECODE, f"{TPU_DECODE}:694", "fma"),
@@ -76,9 +98,36 @@ KERNELS = {  # launch-counter name -> (source, the TPU kernel it replaces, mode)
     "paged_single_pass_decode_amla": (SRC_DECODE, f"{TPU_DECODE}:694", "amla"),
     "splitkv_decode_amla": (SRC_DECODE, f"{TPU_DECODE}:516", "amla"),
     "single_pass_decode_amla": (SRC_DECODE, f"{TPU_DECODE}:268", "amla"),
+    # the fused fetch-dequant kernel: paged (#11), and its contiguous mode (#10)
+    "paged_fetch_dequant": (SRC_FETCH, f"{TPU_FETCH}:95", None),
+    "fetch_dequant": (SRC_FETCH, f"{TPU_FETCH}:67", None),
+    # the q_len > 1 verify mode of the split-KV kernels (kernel.py:381-399)
+    "paged_splitkv_decode_verify": (SRC_DECODE, f"{TPU_DECODE}:794", "fma"),
+    "paged_splitkv_decode_verify_amla": (SRC_DECODE, f"{TPU_DECODE}:794", "amla"),
+    "splitkv_decode_verify": (SRC_DECODE, f"{TPU_DECODE}:516", "fma"),
+    "splitkv_decode_verify_amla": (SRC_DECODE, f"{TPU_DECODE}:516", "amla"),
 }
+# kernels no model path calls (the reference's callers are not on a model
+# path either): held against their plain versions in phase 2 only
+OFF_PATH = {"fetch_dequant": "its caller chunked_prefill_attention has no model path",
+            "splitkv_decode_verify": "the verify step runs on the paged pool only",
+            "splitkv_decode_verify_amla": "the verify step runs on the paged pool only"}
 # the split count each kernel's summary row reports: serving shape, long case
 SUMMARY_SPLITS = {"split": (4, 8), "single": (1, 1), "other": (1, 1)}
+# the (case, splits) of each summary row: main shape, long case
+SUMMARY_CASES = {
+    "paged_fetch_dequant": (("engine_shape", 0), ("long_32k", 0)),
+    "fetch_dequant": (("engine_shape", 0), ("long_32k", 0)),
+    **{k: (("verify_shape", 1), ("long_32k_verify", 8)) for k in KERNELS if "verify" in k},
+}
+# E1-E3 (phase 5): serve's engine flags
+E1 = ["--batch", "6", "--max-batch", "3", "--prompt-lens", "640,200,384",
+      "--shared-prefix", "256", "--gen", "16", "--arrival-gap", "2"]
+E2 = ["--batch", "4", "--max-batch", "2", "--prompt-lens", "1000,130,513,256",
+      "--prefill-chunk", "256", "--prefill-budget", "512", "--gen", "16"]
+E3 = ["--batch", "4", "--max-batch", "4", "--prompt-len", "512", "--gen", "24",
+      "--spec-draft", "4"]
+NO_VERIFY = ("SNAPMLA_NO_VERIFY",)
 
 
 def _kind(name: str) -> str:
@@ -418,6 +467,195 @@ def k_append_checks(gen, fmt, B, N, *, tag, timing, records):
          appends_equal_prefill=True)
 
 
+def fetch_bound(B, P, live_pages, paged: bool):
+    """K1 reads each live page once (content, rope, scale; plus the table and
+    chunk_start when paged) and writes the whole bf16 output once; one
+    multiply per live value at the float32 rate."""
+    nbytes = (live_pages * PAGE * (D_C + 2 * D_R + 4)
+              + B * P * PAGE * (D_C + D_R) * 2 + ((B * P + B) * 4 if paged else 0))
+    return _bound(nbytes, live_pages * PAGE * (D_C + D_R), PEAK["f32"])
+
+
+def fetch_checks(gen, records, engine_pages):
+    """K1 bitwise against its plain version: paged in full and bounded mode
+    (dead pages all zero, live pages equal to the full fetch) and its
+    contiguous mode, at ~32k tokens (B = 4, 256 pages of 128, shuffled pool)
+    and at the engine's shape (B = 1, E2's span, its last chunk's start)."""
+    import torch
+    from repro_torch.kernels.quantize import fetch_dequant as FD
+    cases = (("long_32k", [0, PAGE, 32768, 20000], 256, [0, 1000, 20000, 32768]),
+             ("engine_shape", [1000], engine_pages, [768]))
+    for tag, lens, P, starts in cases:
+        _, cache, pool = make_case(gen, "fp8_e4m3", lens, P)
+        cs = torch.tensor(starts, dtype=torch.int32, device="cuda")
+        full = FD.paged_fetch_dequant(pool)
+        check_bitwise(f"{tag} #11 full", full, FD.paged_fetch_dequant_ref(pool))
+        got = FD.paged_fetch_dequant(pool, chunk_start=cs)
+        check_bitwise(f"{tag} #11 bounded", got,
+                      FD.paged_fetch_dequant_ref(pool, chunk_start=cs))
+        for b, c0 in enumerate(starts):
+            dead = -(-c0 // PAGE) * PAGE
+            if torch.count_nonzero(got[b, dead:]):
+                raise AssertionError(f"{tag} #11: dead pages of row {b} not zero")
+            check_bitwise(f"{tag} #11 row {b} live pages", got[b, :dead], full[b, :dead])
+        check_bitwise(f"{tag} #10", FD.fetch_dequant(cache, page=PAGE),
+                      FD.fetch_dequant_ref(cache))
+        B = len(lens)
+        live = sum(-(-c0 // PAGE) for c0 in starts)
+        _record(records, "paged_fetch_dequant", tag, 0, 0.0,
+                lambda: FD.paged_fetch_dequant(pool, chunk_start=cs),
+                lambda: FD.paged_fetch_dequant_ref(pool, chunk_start=cs),
+                fetch_bound(B, P, live, True))
+        _record(records, "fetch_dequant", tag, 0, 0.0, lambda: FD.fetch_dequant(cache, page=PAGE),
+                lambda: FD.fetch_dequant_ref(cache), fetch_bound(B, P, B * P, False))
+        emit(phase="kernels", case=tag, kernel="fetch_dequant", batch=B, pages=P,
+             chunk_start=starts, live_pages=live, bitwise=True, dead_pages_zero=True,
+             ms={k[0]: records[k]["ms"] for k in records if k[1] == tag and k[2] == 0})
+
+
+def verify_bound(lens, q_len, S, table_entries):
+    """Least time for one fp8 verify call: each live token read once, the
+    R = q_len*H query rows and the partials moved once; QK + PV operations
+    for each row over its own limit."""
+    B, R = len(lens), q_len * H
+    nbytes = (sum(lens) * (D_C + D_R * 2 + 4) + B * R * (D_C + D_R * 4 + 4)
+              + B * (table_entries + 1) * 4 + B * S * R * (D_C * 4 + 8))
+    row_tokens = sum(max(0, n - (q_len - 1) + t) for n in lens for t in range(q_len))
+    return _bound(nbytes, row_tokens * H * (2 * (D_C + D_R) + 2 * D_C), PEAK["fp8_e4m3"])
+
+
+def verify_query(gen, B, q_len, fmt="fp8_e4m3"):
+    import torch
+    from repro_torch.kernels.mla_decode.ref import prepare_q
+    q = prepare_q(torch.randn(B, q_len * H, D_C, generator=gen, device="cuda"),
+                  torch.randn(B, q_len * H, D_R, generator=gen, device="cuda"), fmt)
+    return tuple(t.reshape(B, q_len, H, *t.shape[2:]).contiguous() for t in q)
+
+
+def verify_checks(gen, lens, P, q_len, splits_list, scale, *, tag, records):
+    """The q_len > 1 mode of A (#6) and #2, FMA and AMLA, against the plain
+    version within the reference's gates; contiguous bitwise equal to paged;
+    each row bitwise equal to the q_len = 1 kernel at its limit (rows with a
+    limit <= 0 excepted: the reference's oracles give NaN there); timed at
+    the first and last split count beside A at q_len = 1 on the same cache."""
+    import torch
+    from repro_torch.kernels.mla_decode import kernel as K
+    from repro_torch.kernels.mla_decode import ref as R
+    _, cache, pool = make_case(gen, "fp8_e4m3", lens, P)
+    q = verify_query(gen, len(lens), q_len)
+    pgd, ctg = q + tuple(pool), q + (cache.content, cache.rope, cache.scale, cache.seq_lens)
+    for rescale in ("fma", "amla"):
+        amla = rescale == "amla"
+        o_tol, lse_tol = (AMLA_O, AMLA_LSE) if amla else (TOL, TOL)
+        sfx = "_amla" if amla else ""
+        kw = dict(softmax_scale=scale, fmt="fp8_e4m3", rescale=rescale)
+        for S in splits_list:
+            o, lse, parts = K.mla_decode_paged_splitkv_cuda(*pgd, num_splits=S,
+                                                            return_partials=True, **kw)
+            o_r, lse_r, parts_r = R.snapmla_decode_paged_splitkv_ref(
+                *pgd, num_splits=S, return_partials=True, **kw)
+            lbl = f"{tag} verify q_len={q_len} {rescale} S={S}"
+            err = max(check_close(f"{lbl} o", o, o_r, equal_nan=True, **o_tol),
+                      check_close(f"{lbl} lse", lse, lse_r, equal_nan=True, **lse_tol))
+            if amla:
+                check_bitwise(f"{lbl} g", parts[2], parts_r[2])
+            oc, lc, parts_c = K.mla_decode_splitkv_cuda(*ctg, num_splits=S, block_n=PAGE,
+                                                        return_partials=True, **kw)
+            for a, b in zip((oc, lc) + tuple(parts_c), (o, lse) + tuple(parts)):
+                check_bitwise(f"{lbl} contiguous vs paged", a, b)
+            for t in range(q_len):
+                row_lens = torch.clamp(pool.seq_lens - (q_len - 1 - t), min=0).to(torch.int32)
+                o1, l1 = K.mla_decode_paged_splitkv_cuda(
+                    *(x[:, t].contiguous() for x in q), *tuple(pool)[:4], row_lens,
+                    num_splits=S, **kw)
+                ok = row_lens > 0
+                check_bitwise(f"{lbl} row {t} vs q_len=1", o[ok, t], o1[ok])
+                check_bitwise(f"{lbl} row {t} lse vs q_len=1", lse[ok, t], l1[ok])
+            for name in ("paged_splitkv_decode_verify" + sfx, "splitkv_decode_verify" + sfx):
+                rec = records.setdefault((name, tag, S), {"max_abs_err": 0.0})
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if S in splits_list[:1] + splits_list[-1:]:
+                qf = K._flatten_q(*q)
+                bound = verify_bound(lens, q_len, S, P)
+                _record(records, "paged_splitkv_decode_verify" + sfx, tag, S, err,
+                        lambda S=S: K.paged_decode_partials_cuda(
+                            *qf[:3], *pool, num_splits=S, single_pass=False,
+                            q_len=q_len, **kw),
+                        lambda S=S: R.snapmla_decode_paged_splitkv_ref(
+                            *pgd, num_splits=S, return_partials=True, **kw), bound)
+                _record(records, "splitkv_decode_verify" + sfx, tag, S, err,
+                        lambda S=S: K.decode_partials_cuda(
+                            *qf[:3], *ctg[3:], num_splits=S, block_n=PAGE,
+                            single_pass=False, q_len=q_len, **kw),
+                        lambda S=S: R.snapmla_decode_splitkv_ref(
+                            *q, cache.content, cache.rope.float(), cache.scale,
+                            cache.seq_lens, num_splits=S, block_n=PAGE,
+                            return_partials=True, **kw), verify_bound(lens, q_len, S, 0))
+                last = tuple(x[:, -1].contiguous() for x in q)   # A, q_len = 1, same cache
+                a_ms = kernel_ms(lambda S=S: K.paged_decode_partials_cuda(
+                    *last, *pool, num_splits=S, single_pass=False, **kw))
+                records[("paged_splitkv_decode" + sfx, tag, S)] = {
+                    "max_abs_err": 0.0, "ms": a_ms, "plain_ms": None,
+                    "bound_ms": decode_bound(lens, "fp8_e4m3", S, P)[0], "bound_by": "bytes"}
+            emit(phase="kernels", case=tag, kernel="verify", q_len=q_len, rescale=rescale,
+                 splits=S, lens=lens, rows=q_len * H, max_abs_err=err,
+                 bitwise_contiguous_vs_paged=True, bitwise_rows_vs_q_len_1=True)
+    emit(phase="kernels", case=tag, kernel="verify timing", q_len=q_len,
+         ms={f"{k[0]} S={k[2]}": v.get("ms") for k, v in records.items()
+             if k[1] == tag and v.get("ms") is not None})
+
+
+def ptxas_registers(log: str) -> dict:
+    """Entry function -> registers, from nvcc's -Xptxas -v report."""
+    regs, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            regs[cur] = int(m.group(1))
+    return regs
+
+
+def no_verify_checks(gen, variant, scale):
+    """The q_len = 1 launches (A, B, #2, #1, FMA and AMLA) bitwise equal to
+    the same launches through a build without the verify code, and their
+    register counts equal in the two builds."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.mla_decode import kernel as K
+    main_regs = ptxas_registers(_lib.BUILD_LOG)
+    var_regs = ptxas_registers(_lib.VARIANT_LOGS.get(NO_VERIFY, ""))
+    dec = {k: v for k, v in var_regs.items() if "decode_kernel" in k}
+    if not dec:
+        raise AssertionError("no ptxas report of the build without the verify code")
+    diff = {k: (v, main_regs.get(k)) for k, v in dec.items() if main_regs.get(k) != v}
+    if diff:
+        raise AssertionError(f"q_len = 1 register counts differ from the build without "
+                             f"the verify code: {diff}")
+    verify_only = sorted(set(k for k in main_regs if "decode_kernel" in k) - set(dec))
+    q, cache, pool = make_case(gen, "fp8_e4m3", [527, 512, 520, 513], 5)
+    pgd, ctg = q + tuple(pool), q + (cache.content, cache.rope, cache.scale, cache.seq_lens)
+    calls = []
+    for rescale in ("fma", "amla"):
+        kw = dict(softmax_scale=scale, rescale=rescale)
+        calls += [lambda kw=kw: K.mla_decode_paged_splitkv_cuda(*pgd, num_splits=4, **kw),
+                  lambda kw=kw: K.mla_decode_paged_cuda(*pgd, **kw),
+                  lambda kw=kw: K.mla_decode_splitkv_cuda(*ctg, num_splits=4, block_n=PAGE, **kw),
+                  lambda kw=kw: K.mla_decode_cuda(*ctg, block_n=PAGE, **kw)]
+    for i, call in enumerate(calls):
+        got = call()
+        with _lib.using(variant):
+            want = call()
+        for a, b in zip(got, want):
+            check_bitwise(f"q_len = 1 launch {i} vs the build without the verify code", a, b)
+    emit(phase="kernels", check="q_len = 1 without the verify code", launches=len(calls),
+         bitwise=True, registers_equal=True,
+         registers={k[:60]: v for k, v in sorted(dec.items())},
+         verify_instantiations={k[:60]: main_regs[k] for k in verify_only})
+
+
+
 def phase_layer(gen):
     """One full-width SnapMLA layer, decode_step over a ~32k-token cache,
     paged and contiguous: the kernel steps are this path's counted run."""
@@ -531,7 +769,7 @@ def phase_serve():
             emit(phase="serve", check="contiguous vs paged", kv_splits=splits, rescale=rescale,
                  identical_tokens=True,
                  max_logit_diff=float((a[2] - b[2]).abs().max()))
-    return launches, base, params, prompts
+    return launches, base, params, prompts, kern[(True, 0, "fma", 0)][1]
 
 
 def phase_profile(base, params, prompts):
@@ -575,6 +813,313 @@ def phase_profile(base, params, prompts):
              top=[(k[:80], round(ms, 4), n) for k, ms, n in dev[:8]])
 
 
+def phase_engine(base, params, serve_tps):
+    """E1-E3 on full mla-7b, kernel backend, over the shared paged pool. The
+    counted main path of each kernel-backend run is its ``ServingEngine.run``
+    alone: not the engine's warm-up, not E1's ``generate`` oracle, and not
+    the plain-backend runs the kernel runs are held against."""
+    import collections
+    import numpy as np
+    import torch
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.core.kvcache import page_aligned_capacity
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as ST
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.scheduler import Request
+
+    class Recording(ServingEngine):
+        """Keeps the logits row behind each emitted token: (rid, index) ->
+        row (a speculative row recomputed at a later step replaces the
+        earlier one, so the kept row is the one whose token was committed).
+        Counts the decode, verify, chunk and prefill dispatches and the kernel
+        launches of ``run``. With ``forced`` (rid -> tokens) it emits those
+        tokens in place of its own greedy picks, which it keeps in ``own``:
+        a plain-backend run forced onto a kernel run's tokens sees the same
+        history at every row, so every row of the two runs can be compared."""
+
+        def __init__(self, *a, forced=None, **kw):
+            self.step_logits, self.own, self.forced = {}, {}, forced
+            super().__init__(*a, **kw)
+            self.dispatches = collections.Counter()
+            for attr, kind in (("_decode_fn", "decode"), ("_verify_fn", "verify"),
+                               ("_chunk_fn", "chunk"), ("_prefill_fn", "prefill")):
+                fn = getattr(self, attr)
+                if fn is not None:
+                    setattr(self, attr, self._counting(fn, kind))
+
+        def _counting(self, fn, kind):
+            def call(*args):
+                self.dispatches[kind] += 1
+                return fn(*args)
+            return call
+
+        def run(self, requests):
+            torch.cuda.synchronize()
+            _lib.reset_launches()              # a counted main path starts here
+            out = super().run(requests)
+            torch.cuda.synchronize()
+            self.launches = dict(_lib.LAUNCHES)   # ... and ends here
+            return out
+
+        def _postprocess(self, rows, reqs, counts=None):
+            cs = counts if counts is not None else [len(r.out_tokens) for r in reqs]
+            toks, finite = super()._postprocess(rows, reqs, counts)
+            for i, (r, c) in enumerate(zip(reqs, cs)):
+                self.step_logits[(r.rid, c)] = rows[i].float().clone()
+                self.own[(r.rid, c)] = int(toks[i])
+                if self.forced is not None and c < len(self.forced[r.rid]):
+                    toks[i] = self.forced[r.rid][c]
+            return toks, finite
+
+    kcfg = dataclasses.replace(base, decode_backend="kernel", use_kernels=True)
+    pcfg = dataclasses.replace(base, decode_backend="ref", use_kernels=False)
+    launches: dict = {}
+
+    def parse(flags, **over):
+        args = serve.build_parser().parse_args(["--engine", *flags])
+        for k, v in over.items():
+            setattr(args, k, v)
+        return args
+
+    def run(cfg, args, forced=None):
+        prompts = serve._engine_prompts(cfg, args)
+        span = page_aligned_capacity(max(len(x) for x in prompts) + args.gen,
+                                     PAGE) // PAGE
+        ecfg = EngineConfig(max_batch=args.max_batch or len(prompts), max_pages_per_seq=span,
+                            prefill_budget=args.prefill_budget, spec_draft_len=args.spec_draft)
+        eng = Recording(dataclasses.replace(cfg, prefill_chunk=args.prefill_chunk), params,
+                        ecfg, device="cuda", forced=forced)
+        reqs = [Request(rid=i, prompt=x, max_new=args.gen, arrival=float(i * args.arrival_gap))
+                for i, x in enumerate(prompts)]
+        t0 = time.time()
+        res = eng.run(reqs)
+        return eng, {r.rid: r for r in res}, time.time() - t0, prompts
+
+    def expected_launches(eng, amla=False):
+        """One launch per layer of each kernel a dispatch runs: a decode step
+        runs Fused-Q-Quant and the single-pass decode (these spans plan one
+        split), a verify step Fused-Q-Quant, the q_len > 1 split-KV kernel
+        and its combine, a chunk step the fused fetch-dequant."""
+        L, d = base.n_layers, eng.dispatches
+        sfx = "_amla" if amla else ""
+        want = {"fused_q_quant": L * (d["decode"] + d["verify"]),
+                "paged_single_pass_decode" + sfx: L * d["decode"],
+                "paged_splitkv_decode_verify" + sfx: L * d["verify"],
+                ("amla_combine" if amla else "lse_combine"): L * d["verify"],
+                "paged_fetch_dequant": L * d["chunk"]}
+        return {k: v for k, v in want.items() if v}
+
+    def gate(lbl, eng, res, amla=False):
+        m = eng.metrics()
+        f = m["faults"]
+        bad = {k: f[k] for k in ("backend_faults", "ref_fallback_steps", "nonfinite_rows")
+               if f[k]}
+        if bad:
+            raise AssertionError(f"{lbl}: fault counters {bad}")
+        if m["pages"]["free"] + m["pages"]["cached"] != m["pages"]["capacity"]:
+            raise AssertionError(f"{lbl}: pages leaked after the drain")
+        if any(r.status != "done" for r in res.values()):
+            raise AssertionError(f"{lbl}: requests not done: "
+                                 f"{[(r.rid, r.status) for r in res.values()]}")
+        want = expected_launches(eng, amla)
+        if eng.launches != want:
+            raise AssertionError(f"{lbl}: launches {eng.launches} != {want} for "
+                                 f"dispatches {dict(eng.dispatches)}")
+        for k, v in eng.launches.items():
+            launches[k] = launches.get(k, 0) + v
+        return m
+
+    def tokens(res):
+        return {rid: r.tokens for rid, r in res.items()}
+
+    def held_to_plain(lbl, a, a_res, cfg, args):
+        """The plain backend run forced onto the kernel run's tokens: every
+        logits row within 1e-2 of its largest logit of the kernel run's row
+        (PR 12's serve gate), and where the plain run's own greedy pick
+        differs, both picks within that difference of each other in both
+        runs (a near-tie). Returns the plain engine, its wall seconds, the
+        largest relative row difference and the near-tie flips."""
+        b, b_res, wall, _ = run(cfg, args, forced=tokens(a_res))
+        if tokens(b_res) != tokens(a_res):
+            raise AssertionError(f"{lbl}: forced run emitted other tokens")
+        if set(b.step_logits) != set(a.step_logits):
+            raise AssertionError(f"{lbl}: the two runs computed different rows")
+        worst, flips = 0.0, []
+        for key in sorted(a.step_logits):
+            la, lb = a.step_logits[key], b.step_logits[key]
+            top = float(lb.abs().max())
+            diff = float((la - lb).abs().max()) / top
+            worst = max(worst, diff)
+            if diff > 1e-2:
+                raise AssertionError(f"{lbl}: logits row {key} rel err {diff} > 1e-2")
+            ta, tb = a.own[key], b.own[key]
+            if ta != tb:
+                flip = dict(rid=key[0], index=key[1], tokens=[ta, tb], rel_logit_diff=diff,
+                            rel_margin_a=float(la[ta] - la[tb]) / top,
+                            rel_margin_b=float(lb[tb] - lb[ta]) / top)
+                flips.append(flip)
+                if not (flip["rel_margin_a"] <= diff and flip["rel_margin_b"] <= diff):
+                    raise AssertionError(f"{lbl}: greedy picks differ at {key}, not at a "
+                                         f"near-tie: {flip}")
+        return b, wall, worst, flips
+
+    # E1: monolithic admission, staggered arrivals, shared prefix, through
+    # run_engine and its exact greedy oracle gate; run_engine builds the
+    # recording engine, so only its run() is counted
+    a1 = parse(E1, backend="kernel")
+    t0 = time.time()
+    engine_mod.ServingEngine = Recording
+    try:
+        out1 = serve.run_engine(kcfg, params, a1)
+    finally:
+        engine_mod.ServingEngine = ServingEngine
+    e1 = out1["engine"]
+    m1 = gate("E1", e1, {r.rid: r for r in out1["results"]})
+    if m1["pages"]["saved_by_sharing"] <= 0:
+        raise AssertionError("E1: no page saved by prefix sharing")
+    emit(phase="engine", run="E1", flags=E1, seconds=time.time() - t0, steps=m1["steps"],
+         tok_per_s=m1["wall"]["decode_tok_per_s"], saved_by_sharing=m1["pages"]["saved_by_sharing"],
+         peak_pages=m1["pages"]["peak_in_use"], oracle="exact",
+         dispatches=dict(e1.dispatches), launches=e1.launches)
+
+    # E2: chunked prefill (budget 512), against the plain backend; the
+    # reference's oracle reported, not gated
+    a2 = parse(E2)
+    e2, r2, w2, prompts2 = run(kcfg, a2)
+    m2 = gate("E2", e2, r2)
+    if not e2.dispatches["chunk"]:
+        raise AssertionError("E2: no chunked prefill dispatch")
+    n_buckets = len(ST.chunk_buckets(a2.prefill_chunk))
+    if m2["prefill"]["traces"] > n_buckets:
+        raise AssertionError(f"E2: {m2['prefill']['traces']} chunk widths > {n_buckets}")
+    p2, pw2, worst2, flips2 = held_to_plain("E2 kernel vs plain backend", e2, r2, pcfg, a2)
+    first = max(float((e2.step_logits[(i, 0)] - p2.step_logits[(i, 0)]).abs().max()
+                      / p2.step_logits[(i, 0)].abs().max()) for i in r2)
+    oracle = {}
+    for n in sorted({len(x) for x in prompts2}):
+        rids = [i for i, x in enumerate(prompts2) if len(x) == n]
+        batch = torch.from_numpy(np.stack([prompts2[i] for i in rids]))
+        toks, _, logits = serve.generate(kcfg, params, batch.long().cuda(), a2.gen,
+                                         return_logits=True)
+        for j, rid in enumerate(rids):
+            oracle[rid] = (toks[j].tolist(), logits[j])
+    agree = sum(r2[i].tokens == oracle[i][0] for i in r2)
+    diverge = []
+    for i in sorted(r2):
+        got_t, want_t = r2[i].tokens, oracle[i][0]
+        if got_t != want_t:
+            step = next(k for k, (x, y) in enumerate(zip(got_t, want_t)) if x != y)
+            top2 = torch.topk(oracle[i][1][step].float(), 2).values
+            diverge.append(dict(rid=i, prompt_len=len(prompts2[i]), step=step,
+                                engine=got_t[step], oracle=want_t[step],
+                                oracle_top2_margin=float(top2[0] - top2[1]),
+                                oracle_max_logit=float(oracle[i][1][step].abs().max())))
+    emit(phase="engine", run="E2", flags=E2, seconds=w2, plain_seconds=pw2, steps=m2["steps"],
+         tok_per_s=m2["wall"]["decode_tok_per_s"], plain_tok_per_s=p2.metrics()["wall"][
+             "decode_tok_per_s"], chunk_widths=m2["prefill"]["traces"], buckets=n_buckets,
+         prefill_tokens_series=m2["prefill"]["tokens_series"],
+         stall_tokens_total=m2["work"]["stall_tokens_total"],
+         fetch_pages_bounded=m2["fetch_work"]["pages_fetched_bounded"],
+         rows_vs_plain=len(e2.step_logits), max_row_rel_err_vs_plain=worst2,
+         near_tie_flips_vs_plain=flips2, first_token_logits_rel_err=first,
+         oracle_agreement=f"{agree}/{len(r2)}", oracle_divergence=diverge,
+         dispatches=dict(e2.dispatches), launches=e2.launches)
+
+    # E3: speculative decoding (q_len = 5 verify every step) against the
+    # non-speculative engine (exactly) and the plain backend; then its AMLA
+    # mode
+    a3 = parse(E3)
+    e3, r3, w3, _ = run(kcfg, a3)
+    m3 = gate("E3", e3, r3)
+    if not e3.dispatches["verify"]:
+        raise AssertionError("E3: no verify dispatch")
+    a3n = parse(E3, spec_draft=0)
+    e3n, r3n, w3n, _ = run(kcfg, a3n)
+    m3n = gate("E3 non-speculative", e3n, r3n)
+    if tokens(r3) != tokens(r3n):
+        rid = next(i for i in sorted(r3) if r3[i].tokens != r3n[i].tokens)
+        raise AssertionError(f"E3: speculative tokens differ from sequential for request "
+                             f"{rid}: {r3[rid].tokens} vs {r3n[rid].tokens}")
+    p3, pw3, worst3, flips3 = held_to_plain("E3 kernel vs plain backend", e3, r3, pcfg, a3)
+    sp = m3["speculative"]
+    emit(phase="engine", run="E3", flags=E3, seconds=w3, steps=m3["steps"],
+         tok_per_s=m3["wall"]["decode_tok_per_s"], verify_steps=sp["verify_steps"],
+         drafted=sp["drafted_tokens"], accepted=sp["accepted_tokens"],
+         accepted_tokens_per_step=sp["accepted_tokens_per_step"],
+         non_spec_steps=m3n["steps"], non_spec_tok_per_s=m3n["wall"]["decode_tok_per_s"],
+         non_spec_seconds=w3n, plain_spec_seconds=pw3,
+         generate_tok_per_s_serve_phase=serve_tps, tokens_equal_non_speculative=True,
+         rows_vs_plain=len(e3.step_logits), max_row_rel_err_vs_plain=worst3,
+         near_tie_flips_vs_plain=flips3, dispatches=dict(e3.dispatches),
+         launches=e3.launches, non_spec_dispatches=dict(e3n.dispatches),
+         non_spec_launches=e3n.launches)
+    acfg = dataclasses.replace(kcfg, kv_rescale="amla")
+    e3a, r3a, w3a, _ = run(acfg, a3)
+    m3a = gate("E3 amla", e3a, r3a, amla=True)
+    emit(phase="engine", run="E3 amla", seconds=w3a, steps=m3a["steps"],
+         tok_per_s=m3a["wall"]["decode_tok_per_s"],
+         drafted=m3a["speculative"]["drafted_tokens"],
+         accepted=m3a["speculative"]["accepted_tokens"],
+         token_agreement_vs_fma=sum(a == b for i in r3 for a, b in
+                                    zip(r3[i].tokens, r3a[i].tokens)) / sum(
+             len(r.tokens) for r in r3.values()),
+         dispatches=dict(e3a.dispatches), launches=e3a.launches)
+    return launches
+
+
+def _profile(fn, reps=3):
+    """Host wall per call and the device time by kernel under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    dev = sorted(((r.key, r.self_device_time_total / (reps * 1e3), r.count / reps)
+                  for r in rows if r.self_device_time_total > 0
+                  and not r.key.startswith("aten::")), key=lambda x: -x[1])
+    busy = sum(ms for _, ms, _ in dev)
+    return dict(wall_ms_per_step=wall, device_ms_per_step=busy,
+                device_idle_share=1.0 - busy / wall,
+                aten_ops_per_step=sum(r.count for r in rows
+                                      if r.key.startswith("aten::")) / reps,
+                top=[(k[:80], round(ms, 4), n) for k, ms, n in dev[:8]])
+
+
+def phase_profile_engine(gen, base, params, prompts):
+    """One chunked-prefill step (B = 1, a 256-token chunk after 768 tokens:
+    E2's last chunk) and one verify step (B = 4, q_len = 5 after 512 tokens:
+    E3's shape), kernel backend."""
+    import torch
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(base, kv_paged=True, decode_backend="kernel", use_kernels=True)
+    state = T.init_decode_state(cfg, 1, 1024, device="cuda")
+    toks = torch.randint(0, base.vocab_size, (1, 1024), generator=gen, device="cuda")
+    _, state = T.prefill(params, cfg, toks[:, :768], state)
+    chunk = toks[:, 768:]
+    cs, last = (torch.tensor([768], dtype=torch.int32, device="cuda"),
+                torch.tensor([255], dtype=torch.int32, device="cuda"))
+    emit(phase="profile", step="chunked_prefill", batch=1, chunk=256, chunk_start=768,
+         **_profile(lambda: T.chunked_prefill(params, cfg, chunk, state, cs, last)))
+    state = T.init_decode_state(cfg, 4, 640, device="cuda")
+    _, state = T.prefill(params, cfg, prompts, state)
+    toks = prompts[:, :5].to(torch.int32)
+    start = torch.full((4,), 512, dtype=torch.int32, device="cuda")
+    emit(phase="profile", step="verify", batch=4, q_len=5, context=512,
+         **_profile(lambda: T.verify_step(params, cfg, toks, state, start)))
+
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -587,20 +1132,22 @@ def _leaves(tree):
 
 
 def summary_line(records, launches, long_tokens):
-    """One entry per kernel (and AMLA mode): the serving-shape measurement,
-    the long case beside it, launches on the main paths."""
+    """One entry per kernel (and AMLA / verify mode): the main-shape
+    measurement, the long case beside it, launches on the main paths."""
     rows = []
     for name, (source, replaces, mode) in KERNELS.items():
         s_serve, s_long = SUMMARY_SPLITS[_kind(name)]
-        short = records[(name, "serve_shape", s_serve)]
-        longc = records[(name, "long_32k", s_long)]
+        (tag, S), (ltag, lS) = SUMMARY_CASES.get(
+            name, (("serve_shape", s_serve), ("long_32k", s_long)))
+        short, longc = records[(name, tag, S)], records[(name, ltag, lS)]
         err = max(v["max_abs_err"] for k, v in records.items() if k[0] == name)
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, mode=mode,
             launches=launches.get(name, 0), max_abs_err=err, ms=short["ms"],
             plain_ms=short["plain_ms"], bound_ms=short["bound_ms"],
-            bound_by=short["bound_by"], library_ms=None, splits=s_serve,
-            long_ctx=dict(tokens=long_tokens, splits=s_long, ms=longc["ms"],
+            bound_by=short["bound_by"], library_ms=None, case=tag, splits=S,
+            off_main_path=OFF_PATH.get(name),
+            long_ctx=dict(case=ltag, tokens=long_tokens, splits=lS, ms=longc["ms"],
                           plain_ms=longc["plain_ms"], bound_ms=longc["bound_ms"],
                           bound_by=longc["bound_by"])))
     return json.dumps({"kernels": rows})
@@ -615,9 +1162,24 @@ def main() -> int:
     import repro_torch  # noqa: F401  (fails without the repository beside this file)
     from repro_torch.kernels import _lib
 
-    # 1. build
+    # 1. build: the kernels, and beside them (in parallel) a build without the
+    # q_len > 1 verify code for the q_len = 1 comparison of phase 2
     t0 = time.time()
+    variant: dict = {}
+
+    def build_variant():
+        try:
+            variant["path"] = _lib.build(verbose=True, defines=NO_VERIFY)
+        except Exception as exc:   # re-raised below, in the main thread
+            variant["error"] = exc
+
+    variant_build = threading.Thread(target=build_variant)
+    variant_build.start()
     _lib.lib(verbose=True)
+    variant_build.join()
+    if "error" in variant:
+        raise variant["error"]
+    variant_lib = _lib.load(variant["path"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -652,24 +1214,36 @@ def main() -> int:
     k_append_checks(gen, "fp8_e4m3", 4, 640, tag="serve_shape", timing=True, records=records)
     k_append_checks(gen, "fp8_e4m3", 4, 32768, tag="long_32k", timing=True, records=records)
     k_append_checks(gen, "int8", 3, 256, tag="small_int8", timing=False, records=records)
+    fetch_checks(gen, records, engine_pages=8)
+    verify_checks(gen, [3, 512, 777, 1100], 9, 5, [1, 4, 8], scale, tag="verify_shape",
+                  records=records)
+    verify_checks(gen, long_lens, 256, 4, [1, 4, 8], scale, tag="long_32k_verify",
+                  records=records)
+    no_verify_checks(gen, variant_lib, scale)
     emit(phase="kernels_done", seconds=time.time() - t0)
 
     # 3. one full-width layer, paged and contiguous (a counted main path)
     layer_launches = phase_layer(gen)
 
-    # 4. the main path: serve.generate on full mla-7b (a counted main path)
-    serve_launches, base, params, prompts = phase_serve()
+    # 4. serve.generate on full mla-7b (a counted main path)
+    serve_launches, base, params, prompts, serve_tps = phase_serve()
 
-    # 5. every kernel of the paths launched in the main paths
-    launches = {k: layer_launches.get(k, 0) + serve_launches.get(k, 0)
-                for k in set(layer_launches) | set(serve_launches)}
-    emit(phase="counts", layer=layer_launches, serve=serve_launches)
-    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
+    # 5. the serving engine on full mla-7b (counted main paths)
+    t0 = time.time()
+    engine_launches = phase_engine(base, params, serve_tps)
+    emit(phase="engine_done", seconds=time.time() - t0)
+
+    # 6. every kernel of the paths launched in the main paths
+    parts = (layer_launches, serve_launches, engine_launches)
+    launches = {k: sum(x.get(k, 0) for x in parts) for k in set().union(*parts)}
+    emit(phase="counts", layer=layer_launches, serve=serve_launches, engine=engine_launches)
+    missing = [k for k in KERNELS if k not in OFF_PATH and launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main paths: {missing}")
 
-    # 6. where a decode step's time goes (after the counted main paths)
+    # 7. where a step's time goes (after the counted main paths)
     phase_profile(base, params, prompts)
+    phase_profile_engine(gen, base, params, prompts)
 
     print(summary_line(records, launches, sum(long_lens)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -43,6 +43,15 @@ class ModelConfig:
     kv_sink_tokens: int = 0
     # paged KV pool for 'mla' layers instead of the contiguous per-slot cache
     kv_paged: bool = False
+    # >0: the paged pool is the serving engine's SHARED multi-tenant pool of
+    # this many physical pages, its page table initially all on the page-0
+    # scratch page (the allocator writes the rows); 0 = batch-owned layout
+    kv_pool_pages: int = 0
+    # >0: the serving engine admits prompts in chunks of this many tokens
+    # (bucketed to powers of two), later chunks reading earlier ones back
+    # from the FP8 pool through the fused fetch-dequant kernel; 0 = one-shot
+    # prefill
+    prefill_chunk: int = 0
     # consulted by decode_backend == "auto": the Hopper kernels vs the plain ref
     use_kernels: bool = False
     # "auto" | "ref" | "kernel" | an exact backend name

@@ -10,7 +10,10 @@ Two layouts, as in the reference:
     (the first ``S_k`` tokens' raw latent);
   * ``PagedMLAPool`` — content ``[n_pages, page, d_c]``, rope
     ``[n_pages, page, d_r]``, scale ``[n_pages, page]``, page table ``[B, P]``
-    int32 and ``seq_lens``.
+    int32 and ``seq_lens``; batch-owned, or the serving engine's shared pool
+    (``init_paged_mla_cache(n_pages=...)``, ``pool_with_tables``,
+    ``paged_mla_prefill_at``). ``pool_read_page`` / ``pool_write_page``
+    (the host tier's page moves) are not ported yet.
 
 Unlike the functional JAX caches, writes land IN PLACE in the cache tensors
 (``index_put_`` / slice assignment) — a decode step does not copy the whole
@@ -202,16 +205,32 @@ def init_paged_mla_pool(cfg: CacheConfig, n_pages: int, max_pages_per_seq: int,
 
 
 def init_paged_mla_cache(cfg: CacheConfig, batch: int, max_len: int, d_c: int,
-                         d_r: int, device=None) -> PagedMLAPool:
-    """Batch-owned layout: row b owns pages [b*P, (b+1)*P). (The reference's
-    shared multi-tenant layout belongs to the serving engine, not ported.)"""
+                         d_r: int, device=None, n_pages: int = 0) -> PagedMLAPool:
+    """``n_pages == 0``: the batch-owned layout, row b owns pages
+    [b*P, (b+1)*P). ``n_pages > 0``: the serving engine's shared multi-tenant
+    pool of ``n_pages`` pages with an all-zero page table (every entry on
+    the scratch page 0) and zero ``seq_lens``; the engine's allocator writes
+    the rows (kvcache.py:379-401)."""
     n = page_aligned_capacity(max_len, cfg.page_size)
     pages_per_seq = n // cfg.page_size
+    if n_pages:
+        return init_paged_mla_pool(cfg, n_pages, pages_per_seq, batch, d_c, d_r, device)
     pool = init_paged_mla_pool(cfg, batch * pages_per_seq, pages_per_seq, batch,
                                d_c, d_r, device)
     table = torch.arange(batch * pages_per_seq, dtype=torch.int32,
                          device=device).reshape(batch, pages_per_seq)
     return pool._replace(page_table=table)
+
+
+def pool_with_tables(pool: PagedMLAPool, table, seq_lens) -> PagedMLAPool:
+    """The pool with a host-owned page table [B, P] and ``seq_lens`` [B]
+    (numpy or tensors) in place of its own — how the serving engine pushes
+    its slot assignments into the decode state each step. The page data is
+    shared, not copied."""
+    dev = pool.content.device
+    return pool._replace(
+        page_table=torch.as_tensor(table, dtype=torch.int32).to(dev),
+        seq_lens=torch.as_tensor(seq_lens, dtype=torch.int32).to(dev))
 
 
 def mla_quantize_entry(cfg: CacheConfig, c_kv: torch.Tensor, k_r: torch.Tensor):
@@ -275,6 +294,31 @@ def paged_mla_append(pool: PagedMLAPool, cfg: CacheConfig, c_kv: torch.Tensor,
     _write(pool, pid, off, content, rope, scale)
     step = 1 if active is None else active.to(pool.seq_lens.dtype)
     return pool._replace(seq_lens=pool.seq_lens + step)
+
+
+def paged_mla_prefill_at(pool: PagedMLAPool, cfg: CacheConfig, c_kv: torch.Tensor,
+                         k_r: torch.Tensor, start: torch.Tensor,
+                         valid: torch.Tensor) -> PagedMLAPool:
+    """Write a chunk through the page table at positions ``start + t`` (in
+    place): c_kv [B, C, d_c], k_r [B, C, d_r], ``start`` [B], ``valid``
+    [B, C] bool. Padded positions (``~valid``) and positions at or past the
+    table span go to the scratch page 0, which is never read back
+    (kvcache.py:508-539); ``seq_lens`` becomes ``start + sum(valid)``.
+
+    Several rows may land on page 0; which one's bytes stay there is
+    unspecified, as in the reference's scatter, and nothing reads them."""
+    B, C = c_kv.shape[:2]
+    page = pool.page_size
+    P = pool.page_table.shape[-1]
+    content, rope, scale = mla_quantize_entry(cfg, c_kv, k_r)
+    dev = c_kv.device
+    t = start.to(dev).long()[:, None] + torch.arange(C, device=dev)[None, :]   # [B, C]
+    logical = torch.clamp(t // page, 0, P - 1)
+    pids = torch.gather(pool.page_table.long(), 1, logical)
+    pids = torch.where(valid & (t // page < P), pids, 0)
+    _write(pool, pids, t % page, content, rope, scale)
+    lens = start.to(dev).to(pool.seq_lens.dtype) + valid.sum(dim=1).to(pool.seq_lens.dtype)
+    return pool._replace(seq_lens=lens)
 
 
 def _where_rows(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:

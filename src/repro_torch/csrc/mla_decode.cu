@@ -16,7 +16,8 @@
 //   C  LSE combine             kernel.py: lse_combine_pallas (_lse_combine_kernel)
 //   #4 AMLA combine            kernel.py: amla_combine_pallas (_amla_combine_kernel)
 // and every decode kernel in both rescale modes of _block_pipeline: "fma"
-// (kAmla = false) and "amla" (kAmla = true, kernel.py:152-177).
+// (kAmla = false) and "amla" (kAmla = true, kernel.py:152-177), and the
+// q_len > 1 verify mode of A and #2 (kVerify = true, kernel.py:381-399).
 //
 // Design. One block of 512 threads per (head tile of kHeads heads, split,
 // batch row); the block walks its split's KV blocks in order (the sigma_p
@@ -53,6 +54,20 @@
 // (acc, l, g = i + e). Single-pass mode has no early exit: a dead block runs
 // the sigma_p update with an all-masked block (sigma_p floors at EPS/qmax);
 // its loads are elided because masked entries contribute exact zeros.
+//
+// q_len > 1 verify mode (split mode only; A and #2 take rank-4 queries
+// [B, q_len, H, .] flattened head-major to R = q_len*H rows, row = t*H + h,
+// and the wrappers pass R as the kernel's head count). Row t attends tokens
+// < seq_len - (q_len - 1) + t, so each row of a head tile carries its own limit
+// (a tile of kHeads rows straddles positions when H < kHeads). The block-level
+// early exit still uses seq_len. A row with no valid token in a live block
+// keeps its state exactly (the reference's row_guard): its sigma_p (FMA) or
+// e (AMLA) is pinned to the carried value, so its rescale is exactly 1 or 2^0
+// and its P entries are exact zeros; a row with no valid token in a split
+// publishes the empty partial. The mask and the guard are compiled only into
+// the kVerify instantiations, so q_len = 1 launches run the kernels compiled
+// without them. Building with -DSNAPMLA_NO_VERIFY leaves the verify
+// instantiations out altogether (the q_len = 1 kernels are the same code).
 //
 // P-Cast sink guard (contiguous caches): on rows tok < S_k the content value
 // is sink[b, tok] / max(scale[b, tok], FLT_MIN), computed in float32 with
@@ -169,7 +184,7 @@ __device__ __forceinline__ float sink_value(const float* __restrict__ sink, int 
   return __fdiv_rn(sink[(static_cast<size_t>(b) * S_k + tok) * d_c + d], fmaxf(scale, kTiny));
 }
 
-template <int F, bool kSinglePass, bool kAmla, bool kSink>
+template <int F, bool kSinglePass, bool kAmla, bool kSink, bool kVerify>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
               const float* __restrict__ q_r, const float* __restrict__ sigma_q,
@@ -178,7 +193,8 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
               const int* __restrict__ page_table, const int* __restrict__ seq_lens,
               const float* __restrict__ sink, int S_k, float* __restrict__ o_part,
               float* __restrict__ lse_part, float* __restrict__ sp_part, int H, int d_c,
-              int d_r, int bn, int P, int blocks_per_split, float softmax_scale, Layout L) {
+              int d_r, int bn, int P, int blocks_per_split, float softmax_scale, int q_len,
+              Layout L) {
   using Fm = Format<F>;
   using T = typename Fm::T;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -201,6 +217,12 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
   const int b = blockIdx.z;
   const int seq_len = seq_lens[b];
   const size_t row0 = static_cast<size_t>(b) * H + h0;
+  // the token limit of row h0 + h; in verify mode it is position
+  // (h0 + h) / heads of the q_len block, heads = H / q_len
+  auto limit = [&](int h) {
+    if constexpr (kVerify) return seq_len - (q_len - 1) + (h0 + h) / (H / q_len);
+    else return seq_len;
+  };
 
   for (int i = tid; i < nh * d_c; i += kThreads) q_s[i] = Fm::widen(q_c8[row0 * d_c + i]);
   const int tpt = kThreads / bn;  // lanes per token in step 1 (power of two, <= 32)
@@ -300,7 +322,7 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
         for (int h = 0; h < kHeads; ++h) {
           if (h < nh && (h & (tpt - 1)) == j) {
             float s = kNegInf;
-            if (valid) {
+            if (kVerify ? tok < limit(h) : valid) {
               s = __fadd_rn(static_cast<float>(ac[h]), static_cast<float>(ar[h]));
               s = __fmul_rn(__fmul_rn(s, __fmul_rn(sigma_q[row0 + h], sk_s[t])), softmax_scale);
             }
@@ -316,6 +338,8 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
     // 2. online softmax + scale fusion + block-wise dynamic P quantization
     for (int h = warp; h < nh; h += kWarps) {
       float* ph = p_s + h * bn;
+      const int lim = limit(h);
+      const bool row_live = g * bn < lim;  // verify: any valid token of this row here
       const float m_prev = m_s[h], l_prev = l_s[h], sp_prev = sp_s[h];
       float mx = kAmla ? kNegInf : m_prev;
       for (int t = lane; t < bn; t += 32) mx = fmaxf(mx, ph[t]);
@@ -325,7 +349,7 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
       const float shift = kAmla ? __fmul_rn(m_new, kLn2) : m_new;
       float amax = 0.f, esum = 0.f;
       for (int t = lane; t < bn; t += 32) {
-        const bool valid = g * bn + t < seq_len;
+        const bool valid = g * bn + t < lim;
         const float e = valid ? expf(__fsub_rn(ph[t], shift)) : 0.f;
         const float pf = valid ? __fmul_rn(e, sk_s[t]) : 0.f;  // Key Step 2: fuse sigma_k into P
         esum += e;
@@ -341,6 +365,7 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
           const float inv = pow2i(-static_cast<int>(e_new));  // exact power of two
           for (int t = lane; t < bn; t += 32) ph[t] = Fm::widen(Fm::cast(__fmul_rn(ph[t], inv)));
         }
+        if (kVerify && !row_live) e_new = sp_prev;  // row guard: rescale exactly 2^0
         if (lane == 0) {
           // l_prev == 0: no state yet, k pinned to 0 (the sentinel i_prev
           // never reaches the integer conversion)
@@ -358,6 +383,7 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
           sp_new = dynamic_scale<F>(amax);
           for (int t = lane; t < bn; t += 32) ph[t] = Fm::widen(Fm::cast(ph[t] / sp_new));
         }
+        if (kVerify && !row_live) sp_new = sp_prev;  // row guard: rescale exactly 1
         if (lane == 0) {
           const float corr = __fmul_rn(expf(__fsub_rn(m_prev, m_new)), sp_prev / sp_new);  // Eq. 12/13
           l_s[h] = __fadd_rn(__fmul_rn(l_prev, corr), esum / sp_new);
@@ -459,17 +485,18 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
   }
 }
 
-template <int F, bool kSinglePass, bool kAmla, bool kSink>
+template <int F, bool kSinglePass, bool kAmla, bool kSink, bool kVerify>
 static cudaError_t launch_decode(const void* q_c8, const float* q_r, const float* sigma_q,
                                  const void* content, const void* rope, const float* scale,
                                  const int* page_table, const int* seq_lens, const float* sink,
                                  int S_k, float* o_part, float* lse_part, float* sp_part, int B,
                                  int H, int d_c, int d_r, int bn, int P, int num_splits,
-                                 int blocks_per_split, float softmax_scale, cudaStream_t stream) {
+                                 int blocks_per_split, float softmax_scale, int q_len,
+                                 cudaStream_t stream) {
   using T = typename Format<F>::T;
   const Layout L = layout<F>(d_c, d_r, bn);
   if (L.total > 227 * 1024) return cudaErrorInvalidValue;
-  auto kern = decode_kernel<F, kSinglePass, kAmla, kSink>;
+  auto kern = decode_kernel<F, kSinglePass, kAmla, kSink, kVerify>;
   // raise the kernel's dynamic shared-memory limit once (grow-only), so a
   // later call inside CUDA-graph capture makes no attribute call
   static int smem_limit = 0;
@@ -483,7 +510,7 @@ static cudaError_t launch_decode(const void* q_c8, const float* q_r, const float
   kern<<<grid, kThreads, L.total, stream>>>(
       static_cast<const T*>(q_c8), q_r, sigma_q, static_cast<const T*>(content),
       static_cast<const __nv_bfloat16*>(rope), scale, page_table, seq_lens, sink, S_k, o_part,
-      lse_part, sp_part, H, d_c, d_r, bn, P, blocks_per_split, softmax_scale, L);
+      lse_part, sp_part, H, d_c, d_r, bn, P, blocks_per_split, softmax_scale, q_len, L);
   return cudaGetLastError();
 }
 
@@ -554,18 +581,20 @@ __global__ void amla_combine_kernel(const float* __restrict__ acc_part,
 // One entry point for every decode kernel: fmt, single_pass and amla pick
 // the template; page_table == nullptr selects contiguous block addressing
 // (content [B, P*block, d_c]); sink (with S_k rows) is the contiguous
-// cache's sink guard shadow or nullptr.
+// cache's sink guard shadow or nullptr; q_len > 1 selects the verify mode
+// (split mode, no sink; H is then the row count q_len * heads).
 extern "C" int snapmla_decode(int fmt, int single_pass, int amla, const void* q_c8,
                               const void* q_r, const void* sigma_q, const void* content,
                               const void* rope, const void* scale, const void* page_table,
                               const void* seq_lens, const void* sink, int S_k, void* o_part,
                               void* lse_part, void* sp_part, int B, int H, int d_c, int d_r,
                               int block, int P, int num_splits, int blocks_per_split,
-                              float softmax_scale, void* stream) {
+                              float softmax_scale, int q_len, void* stream) {
   using namespace snap;
   if (d_c % 4 || d_r % 2 || block < kThreads / 32 || block > kThreads || kThreads % block ||
       d_c > kThreads * kMaxDcPerThread || num_splits < 1 ||
-      (single_pass && num_splits != 1) || S_k < 0 || (S_k > 0 && sink == nullptr))
+      (single_pass && num_splits != 1) || S_k < 0 || (S_k > 0 && sink == nullptr) ||
+      q_len < 1 || H % q_len || (q_len > 1 && (single_pass || S_k > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* qr = static_cast<const float*>(q_r);
   const auto* sq = static_cast<const float*>(sigma_q);
@@ -577,15 +606,22 @@ extern "C" int snapmla_decode(int fmt, int single_pass, int amla, const void* q_
   auto* lp = static_cast<float*>(lse_part);
   auto* spp = static_cast<float*>(sp_part);
   auto st = static_cast<cudaStream_t>(stream);
+#define SNAP_LAUNCH(F, SP, AM, SK, VF)                                                         \
+  launch_decode<F, SP, AM, SK, VF>(q_c8, qr, sq, content, rope, sc, pt, sl, sk, S_k, op, lp,   \
+                                   spp, B, H, d_c, d_r, block, P, num_splits, blocks_per_split, \
+                                   softmax_scale, q_len, st)
 #define SNAP_DECODE(F, SP, AM)                                                              \
-  (S_k > 0 ? SNAP_LAUNCH(F, SP, AM, true) : SNAP_LAUNCH(F, SP, AM, false))
-#define SNAP_LAUNCH(F, SP, AM, SK)                                                             \
-  launch_decode<F, SP, AM, SK>(q_c8, qr, sq, content, rope, sc, pt, sl, sk, S_k, op, lp, spp, \
-                           B, H, d_c, d_r, block, P, num_splits, blocks_per_split,        \
-                           softmax_scale, st)
-#define SNAP_MODES(F)                                                        \
-  (amla ? (single_pass ? SNAP_DECODE(F, true, true) : SNAP_DECODE(F, false, true)) \
-        : (single_pass ? SNAP_DECODE(F, true, false) : SNAP_DECODE(F, false, false)))
+  (S_k > 0 ? SNAP_LAUNCH(F, SP, AM, true, false) : SNAP_LAUNCH(F, SP, AM, false, false))
+#ifdef SNAPMLA_NO_VERIFY
+#define SNAP_VERIFY(F) cudaErrorInvalidValue
+#else
+#define SNAP_VERIFY(F) \
+  (amla ? SNAP_LAUNCH(F, false, true, false, true) : SNAP_LAUNCH(F, false, false, false, true))
+#endif
+#define SNAP_MODES(F)                                                                   \
+  (q_len > 1 ? SNAP_VERIFY(F)                                                           \
+   : amla    ? (single_pass ? SNAP_DECODE(F, true, true) : SNAP_DECODE(F, false, true)) \
+             : (single_pass ? SNAP_DECODE(F, true, false) : SNAP_DECODE(F, false, false)))
   cudaError_t err;
   switch (fmt) {
     case kFp8: err = SNAP_MODES(kFp8); break;
@@ -594,6 +630,7 @@ extern "C" int snapmla_decode(int fmt, int single_pass, int amla, const void* q_
     default: err = cudaErrorInvalidValue;
   }
 #undef SNAP_MODES
+#undef SNAP_VERIFY
 #undef SNAP_DECODE
 #undef SNAP_LAUNCH
   return static_cast<int>(err);

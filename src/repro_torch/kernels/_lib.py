@@ -16,6 +16,7 @@ the plain version do not count).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,7 +29,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("mla_decode.cu", "q_quant.cu", "k_append.cu")
+SOURCES = ("mla_decode.cu", "q_quant.cu", "k_append.cu", "fetch_dequant.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -40,8 +41,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # fmt, single_pass, amla, q_c8, q_r, sigma_q, content, rope, scale,
     # page_table, seq_lens, sink, S_k, o_part, lse_part, sp_part, B, H, d_c,
-    # d_r, block, P, num_splits, blocks_per_split, softmax_scale, stream
-    "snapmla_decode": [_I] * 3 + [_P] * 9 + [_I] + [_P] * 3 + [_I] * 8 + [_F, _P],
+    # d_r, block, P, num_splits, blocks_per_split, softmax_scale, q_len, stream
+    "snapmla_decode": [_I] * 3 + [_P] * 9 + [_I] + [_P] * 3 + [_I] * 8 + [_F, _I, _P],
     # o_part, lse_part, o, lse, B, S, H, d_c, stream
     "snapmla_lse_combine": [_P] * 4 + [_I] * 4 + [_P],
     # acc_part, l_part, g_part, o, lse, B, S, H, d_c, stream
@@ -50,11 +51,15 @@ _SIGNATURES = {
     "snapmla_fused_q_quant": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     # fmt, c_kv, k_r, content, rope, scale, seq_lens, B, N, d_c, d_r, stream
     "snapmla_fused_k_append": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    # fmt, content, rope, scale, page_table, chunk_start, out, B, P, page, d_c,
+    # d_r, stream
+    "snapmla_fetch_dequant": [_I] + [_P] * 6 + [_I] * 5 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None   # wall time of this process's build (None: reused)
 BUILD_LOG: str = ""                  # nvcc's messages (ptxas -v) of that build
+VARIANT_LOGS: dict = {}              # defines -> nvcc's messages of a variant build
 
 
 def reset_launches() -> None:
@@ -78,12 +83,14 @@ def _digest(extra: tuple[str, ...]) -> str:
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False, defines: tuple[str, ...] = ()) -> Path:
     """Compile the sources (one nvcc each, in parallel) and link the shared
     library; returns its path. ``verbose`` adds ``-Xptxas -v`` and keeps
-    nvcc's report in ``BUILD_LOG``."""
+    nvcc's report in ``BUILD_LOG``; ``defines`` (``-D`` names) build a
+    variant library, e.g. ``("SNAPMLA_NO_VERIFY",)`` without the q_len > 1
+    decode instantiations."""
     global BUILD_SECONDS, BUILD_LOG
-    extra = ("-Xptxas", "-v") if verbose else ()
+    extra = (("-Xptxas", "-v") if verbose else ()) + tuple(f"-D{d}" for d in defines)
     lib_path = BUILD_DIR / f"libsnapmla_{_digest(extra)}.so"
     if lib_path.exists():
         return lib_path
@@ -112,22 +119,42 @@ def build(verbose: bool = False) -> Path:
     os.replace(tmp, lib_path)
     for o in objs:
         o.unlink(missing_ok=True)
-    BUILD_SECONDS = time.time() - t0
-    BUILD_LOG = "\n".join(logs)
+    if defines:
+        VARIANT_LOGS[defines] = "\n".join(logs)
+    else:
+        BUILD_SECONDS = time.time() - t0
+        BUILD_LOG = "\n".join(logs)
     return lib_path
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare its entry points."""
+    handle = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return handle
 
 
 def lib(verbose: bool = False) -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build(verbose)))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = handle
+        _lib = load(build(verbose))
     return _lib
+
+
+@contextlib.contextmanager
+def using(handle: ctypes.CDLL):
+    """Launch through ``handle`` (a variant library from ``load``) inside the
+    block, e.g. to compare a launch with the same launch built otherwise."""
+    global _lib
+    saved, _lib = _lib, handle
+    try:
+        yield handle
+    finally:
+        _lib = saved
 
 
 def launch(kernel: str, fn_name: str, *args) -> None:

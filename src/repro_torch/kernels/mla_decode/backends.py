@@ -3,7 +3,8 @@
 
 Every backend computes one step of SnapMLA decode attention with one
 signature, ``backend.decode(q: DecodeQuery, cache, cfg) -> o_latent
-[B, H, d_c] f32``, and ``resolve_backend`` is the single selection rule,
+[B, (q_len,) H, d_c] f32`` (a rank-4 query is the speculative verify
+block), and ``resolve_backend`` is the single selection rule,
 with the reference's ``auto`` / ``ref`` / ``kernel`` vocabulary mapped by the
 cache layout:
 
@@ -18,6 +19,11 @@ cache layout:
 The reference's ``jnp_ref`` / ``jnp_paged_ref`` are the parallel (einsum)
 form; the port's reference backends are the pipeline form (the kernels'
 plain version) and honour ``rescale``. The shard_map region is not ported.
+
+``token_cost`` / ``dispatch_cost`` are the reference's analytic traffic
+model of one decode dispatch (backends.py:278-326), which the serving
+engine's roofline counters read; the modeled time uses the H100's data-sheet
+rates (3.35 TB/s, 989 TFLOP/s bf16) where the reference uses its TPU's.
 """
 from __future__ import annotations
 
@@ -30,11 +36,18 @@ from repro_torch.kernels.mla_decode import ops as _ops
 
 
 class DecodeQuery(NamedTuple):
-    """Prepared decode query (after Fused-Q-Quant / ``ref.prepare_q``)."""
+    """Prepared decode query (after Fused-Q-Quant / ``ref.prepare_q``):
+    rank-3 ``[B, H, .]`` is one token per slot, rank-4 ``[B, q_len, H, .]``
+    the speculative-verify block (the last q_len positions of each
+    sequence, causally masked)."""
 
-    q_c8: torch.Tensor     # [B, H, d_c] quantized content query
-    q_r: torch.Tensor      # [B, H, d_r] rope query, / sigma_q
-    sigma_q: torch.Tensor  # [B, H]
+    q_c8: torch.Tensor     # [B, (q_len,) H, d_c] quantized content query
+    q_r: torch.Tensor      # [B, (q_len,) H, d_r] rope query, / sigma_q
+    sigma_q: torch.Tensor  # [B, (q_len,) H]
+
+    @property
+    def q_len(self) -> int:
+        return self.q_c8.shape[1] if self.q_c8.dim() == 4 else 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +146,45 @@ register(DecodeBackend("cuda_paged_splitkv", "paged", "kernel", _paged_decode(Tr
                        _supports("paged")))
 
 
+# the H100's data-sheet rates (SXM, dense): the analytic model's time only
+_H100_HBM = 3.35e12       # bytes/s
+_H100_BF16 = 989e12       # FLOP/s
+
+
+def token_cost(fmt: str, d_c: int, d_r: int, heads: int) -> tuple[int, int]:
+    """(bytes streamed, FLOPs) per cached token of one decode dispatch:
+    quantized content + bf16 rope + f32 scale, QK + PV per head."""
+    if fmt == "none":
+        bytes_tok = (d_c + d_r) * 2
+    else:
+        bytes_tok = d_c * 1 + d_r * 2 + 4
+    flops_tok = (2 * (d_c + d_r) + 2 * d_c) * heads
+    return bytes_tok, flops_tok
+
+
+def dispatch_cost(backend: "DecodeBackend | str", *, tokens_visited: int,
+                  tokens_full: int, heads: int, d_c: int, d_r: int, fmt: str) -> dict:
+    """Analytic bytes / FLOPs of ONE decode dispatch: kernel backends stream
+    the visited tokens, the paged reference backend gathers the whole
+    page-table span (``tokens_full``). ``achieved_fraction`` = compulsory
+    bytes over modeled bytes."""
+    b = get_backend(backend) if isinstance(backend, str) else backend
+    bytes_tok, flops_tok = token_cost(fmt, d_c, d_r, heads)
+    streamed = tokens_full if (b.kind == "ref" and b.layout == "paged") else tokens_visited
+    streamed = max(streamed, tokens_visited)
+    model_bytes = streamed * bytes_tok
+    min_bytes = tokens_visited * bytes_tok
+    flops = tokens_visited * flops_tok
+    return {
+        "backend": b.name,
+        "bytes": model_bytes,
+        "bytes_min": min_bytes,
+        "flops": flops,
+        "achieved_fraction": min_bytes / model_bytes if model_bytes else 1.0,
+        "t_model_us": max(model_bytes / _H100_HBM, flops / _H100_BF16) * 1e6,
+    }
+
+
 def canonical_name(request: str, paged: bool) -> str:
     """Map 'ref' / 'kernel' (or an exact registry name) to a registry name
     for the cache layout."""
@@ -144,10 +196,13 @@ def canonical_name(request: str, paged: bool) -> str:
 
 
 def resolve_backend(request: str = "auto", *, paged: bool = False,
-                    use_kernels: bool = False) -> DecodeBackend:
+                    use_kernels: bool = False, q_len: int | None = None) -> DecodeBackend:
     """Pick the decode backend. "auto" takes the kernels when ``use_kernels``
     else the reference; an explicit request whose ``supports`` rejects the
-    configuration raises with the reason."""
+    configuration raises with the reason. ``q_len`` (the verify block) is
+    accepted by every registered backend: the reference's only q_len = 1
+    backend, shard_map, is not ported."""
+    del q_len
     if request in (None, "", "auto"):
         request = "kernel" if use_kernels else "ref"
     backend = get_backend(canonical_name(request, paged))

@@ -17,6 +17,14 @@
 The contiguous wrappers take the cache's ``sink`` guard shadow: the kernel
 substitutes ``sink / max(scale, tiny)`` on rows below ``S_k``.
 
+The two split-KV wrappers also take a rank-4 query block ``[B, q_len, H, .]``
+(the speculative verify, the q_len > 1 mode of #6 / #2): ``_flatten_q`` turns
+it into ``R = q_len*H`` head-major rows (row = t*H + h) that the kernel's
+verify instantiation masks per row at ``seq_len - (q_len - 1) + t``; C or #4
+merges R rows, and ``_unflatten_rows`` gives o [B, q_len, H, d_c], lse
+[B, q_len, H] back. A rank-4 query with q_len = 1 runs the ordinary kernel
+and comes back rank-4. The verify mode takes no sink guard.
+
 A wrapper runs its plain PyTorch version (``ref.py``) only when it is handed
 CPU tensors; for CUDA tensors it launches the kernel or raises.
 """
@@ -58,9 +66,33 @@ def _check_common(q_c8, q_r, sigma_q, seq_lens, fmt, B, d_r, block):
     return H, d_c
 
 
+def _flatten_q(q_c8, q_r, sigma_q):
+    """[B, q_len, H, .] -> head-major rows [B, q_len*H, .], with (q_len, H);
+    a rank-3 query passes through with q_len None (kernel.py:485-497)."""
+    if q_c8.dim() == 3:
+        return q_c8, q_r, sigma_q, None, q_c8.shape[1]
+    B, q_len, H = q_c8.shape[:3]
+    return (q_c8.reshape(B, q_len * H, -1), q_r.reshape(B, q_len * H, -1),
+            sigma_q.reshape(B, q_len * H), q_len, H)
+
+
+def _unflatten_rows(q_len, H, o, lse, partials):
+    """Undo ``_flatten_q`` on the outputs and partials (kernel.py:500-513)."""
+    if q_len is None:
+        return o, lse, partials
+    B = o.shape[0]
+    o, lse = o.reshape(B, q_len, H, -1), lse.reshape(B, q_len, H)
+    if partials is not None:
+        o_p, lse_p, sp_p = partials
+        S = o_p.shape[1]
+        partials = (o_p.reshape(B, S, q_len, H, -1), lse_p.reshape(B, S, q_len, H),
+                    sp_p.reshape(B, S, q_len, H))
+    return o, lse, partials
+
+
 def _launch_decode(kernel: str, fmt: str, single_pass: bool, rescale: str, q_c8, q_r,
                    sigma_q, content, rope, scale, page_table, seq_lens, sink, *, B, H,
-                   d_c, d_r, block, P, num_splits, softmax_scale):
+                   d_c, d_r, block, P, num_splits, softmax_scale, q_len=1):
     """Allocate the partials and launch one decode kernel: o [B, S, H, d_c],
     lse [B, S, H] and (split mode) sigma_p or, under AMLA, g [B, S, H]."""
     if rescale not in RESCALES:
@@ -72,6 +104,8 @@ def _launch_decode(kernel: str, fmt: str, single_pass: bool, rescale: str, q_c8,
     lse_p = torch.empty((B, num_splits, H), dtype=torch.float32, device=dev)
     sp_p = None if single_pass else torch.empty_like(lse_p)
     amla = rescale == "amla"
+    if q_len > 1:
+        kernel += "_verify"
     _lib.launch(
         kernel + ("_amla" if amla else ""), "snapmla_decode", FMT_CODES[fmt],
         int(single_pass), int(amla), q_c8.data_ptr(), q_r.data_ptr(), sigma_q.data_ptr(),
@@ -79,17 +113,19 @@ def _launch_decode(kernel: str, fmt: str, single_pass: bool, rescale: str, q_c8,
         None if page_table is None else page_table.data_ptr(), seq_lens.data_ptr(),
         None if sink is None else sink.data_ptr(), 0 if sink is None else sink.shape[1],
         o_p.data_ptr(), lse_p.data_ptr(), None if sp_p is None else sp_p.data_ptr(),
-        B, H, d_c, d_r, block, P, num_splits, -(-P // num_splits), float(softmax_scale))
+        B, H, d_c, d_r, block, P, num_splits, -(-P // num_splits), float(softmax_scale),
+        q_len)
     return o_p, lse_p, sp_p
 
 
 def paged_decode_partials_cuda(q_c8, q_r, sigma_q, content_pool, rope_pool,
                                scale_pool, page_table, seq_lens, *,
                                softmax_scale: float, num_splits: int, fmt: str,
-                               single_pass: bool, rescale: str = "fma"):
+                               single_pass: bool, rescale: str = "fma", q_len: int = 1):
     """Launch kernel A (``single_pass=False``) or B: per-split partials
     (o [B, S, H, d_c], lse [B, S, H], sigma_p [B, S, H] — sigma_p only for A;
-    under AMLA, A's partials are the raw (acc, l, g))."""
+    under AMLA, A's partials are the raw (acc, l, g)). ``q_len > 1``: A's
+    verify mode over flattened rows (H is then q_len * heads; CUDA only)."""
     args = (q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_table,
             seq_lens)
     if _on_cpu(*args):
@@ -113,13 +149,13 @@ def paged_decode_partials_cuda(q_c8, q_r, sigma_q, content_pool, rope_pool,
         "paged_single_pass_decode" if single_pass else "paged_splitkv_decode", fmt,
         single_pass, rescale, q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool,
         page_table, seq_lens, None, B=B, H=H, d_c=d_c, d_r=d_r, block=page, P=P,
-        num_splits=num_splits, softmax_scale=softmax_scale)
+        num_splits=num_splits, softmax_scale=softmax_scale, q_len=q_len)
 
 
 def decode_partials_cuda(q_c8, q_r, sigma_q, content, rope, scale, seq_lens, *,
                          softmax_scale: float, block_n: int, num_splits: int, fmt: str,
                          single_pass: bool, rescale: str = "fma",
-                         sink: torch.Tensor | None = None):
+                         sink: torch.Tensor | None = None, q_len: int = 1):
     """Launch #2 (``single_pass=False``) or #1 over a contiguous cache
     (content [B, N, d_c], rope [B, N, d_r] bf16, scale [B, N]) in blocks of
     ``block_n`` tokens: per-split partials as ``paged_decode_partials_cuda``."""
@@ -145,12 +181,14 @@ def decode_partials_cuda(q_c8, q_r, sigma_q, content, rope, scale, seq_lens, *,
     _lib.check(rope, "rope", torch.bfloat16, (B, N, d_r), dev)
     _lib.check(scale, "scale", torch.float32, (B, N), dev)
     if sink is not None:
+        if q_len > 1:
+            raise NotImplementedError("the verify mode (q_len > 1) takes no sink guard")
         _lib.check(sink, "sink", torch.float32, (B, sink.shape[1], d_c), dev)
     return _launch_decode(
         "single_pass_decode" if single_pass else "splitkv_decode", fmt, single_pass,
         rescale, q_c8, q_r, sigma_q, content, rope, scale, None, seq_lens, sink, B=B, H=H,
         d_c=d_c, d_r=d_r, block=block_n, P=N // block_n, num_splits=num_splits,
-        softmax_scale=softmax_scale)
+        softmax_scale=softmax_scale, q_len=q_len)
 
 
 def lse_combine_cuda(o_partial: torch.Tensor, lse_partial: torch.Tensor):
@@ -202,18 +240,20 @@ def mla_decode_paged_splitkv_cuda(q_c8, q_r, sigma_q, content_pool, rope_pool,
                                   fmt: str = "fp8_e4m3",
                                   return_partials: bool = False, rescale: str = "fma"):
     """Paged split-KV SnapMLA decode (kernel A, then kernel C or #4). Returns
-    (o [B, H, d_c] f32, lse [B, H]) — plus the partials when
-    ``return_partials``."""
+    (o [B, (q_len,) H, d_c] f32, lse [B, (q_len,) H]) — plus the partials
+    when ``return_partials``."""
     args = (q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_table,
             seq_lens)
     if _on_cpu(*args):
         return R.snapmla_decode_paged_splitkv_ref(
             *args, softmax_scale=softmax_scale, num_splits=num_splits, fmt=fmt,
             return_partials=return_partials, rescale=rescale)
+    qc, qr, sq, q_len, H = _flatten_q(q_c8, q_r, sigma_q)
     parts = paged_decode_partials_cuda(
-        *args, softmax_scale=softmax_scale, num_splits=num_splits, fmt=fmt,
-        single_pass=False, rescale=rescale)
+        qc, qr, sq, *args[3:], softmax_scale=softmax_scale, num_splits=num_splits,
+        fmt=fmt, single_pass=False, rescale=rescale, q_len=q_len or 1)
     o, lse = combine_cuda(parts, rescale)
+    o, lse, parts = _unflatten_rows(q_len, H, o, lse, parts)
     return (o, lse, parts) if return_partials else (o, lse)
 
 
@@ -238,13 +278,20 @@ def mla_decode_splitkv_cuda(q_c8, q_r, sigma_q, content, rope, scale, seq_lens, 
                             fmt: str = "fp8_e4m3", return_partials: bool = False,
                             rescale: str = "fma", sink: torch.Tensor | None = None):
     """Contiguous split-KV SnapMLA decode (#2, then kernel C or #4). Returns
-    (o [B, H, d_c] f32, lse [B, H]) — plus the partials when
-    ``return_partials``."""
+    (o [B, (q_len,) H, d_c] f32, lse [B, (q_len,) H]) — plus the partials
+    when ``return_partials``."""
+    if _on_cpu(q_c8, q_r, sigma_q, content, rope, scale, seq_lens, sink):
+        return R.snapmla_decode_splitkv_ref(
+            q_c8, q_r, sigma_q, patch_sink_rows(content, scale, sink), rope.float(), scale,
+            seq_lens, softmax_scale=softmax_scale, num_splits=num_splits, block_n=block_n,
+            fmt=fmt, return_partials=return_partials, rescale=rescale)
+    qc, qr, sq, q_len, H = _flatten_q(q_c8, q_r, sigma_q)
     parts = decode_partials_cuda(
-        q_c8, q_r, sigma_q, content, rope, scale, seq_lens, softmax_scale=softmax_scale,
+        qc, qr, sq, content, rope, scale, seq_lens, softmax_scale=softmax_scale,
         block_n=block_n, num_splits=num_splits, fmt=fmt, single_pass=False,
-        rescale=rescale, sink=sink)
+        rescale=rescale, sink=sink, q_len=q_len or 1)
     o, lse = combine_cuda(parts, rescale)
+    o, lse, parts = _unflatten_rows(q_len, H, o, lse, parts)
     return (o, lse, parts) if return_partials else (o, lse)
 
 

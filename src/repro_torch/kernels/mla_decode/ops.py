@@ -6,7 +6,9 @@ or an explicit count; the port loads no split profile (the reference's is a
 TPU timing), so ``resolve_split_config`` keeps the reference's heuristic and
 fallback rules and drops its ``tuned_*`` lookups. ``splits == 1`` takes the
 single-pass kernel, anything else the split-KV kernel plus the combine
-(ops.py:195-211, 268-283).
+(ops.py:195-211, 268-283). A rank-4 ``[B, q_len, H, .]`` query (the
+speculative verify) always takes the split-KV kernel, even at one split: it
+carries the per-row causal limit.
 """
 from __future__ import annotations
 
@@ -85,8 +87,9 @@ def snapmla_decode(q_c8: torch.Tensor, q_r: torch.Tensor, sigma_q: torch.Tensor,
                    cache: MLACache, *, softmax_scale: float, block_n: int = 128,
                    fmt: str = "fp8_e4m3", num_splits: int | None = None,
                    use_kernel: bool = True, rescale: str = "fma"):
-    """Decode one token per sequence against a contiguous cache. Returns
-    (o_latent [B, H, d_c] f32, lse [B, H]). The sink guard's rows enter as
+    """Decode one token (rank-3 query) or a verify block (rank-4) per
+    sequence against a contiguous cache. Returns (o_latent [B, (q_len,) H,
+    d_c] f32, lse [B, (q_len,) H]). The sink guard's rows enter as
     ``sink / max(scale, tiny)``: the kernels substitute them row by row, the
     plain path reads ``sink_patched_content``."""
     N = cache.capacity
@@ -96,12 +99,12 @@ def snapmla_decode(q_c8: torch.Tensor, q_r: torch.Tensor, sigma_q: torch.Tensor,
     kw = dict(softmax_scale=softmax_scale, block_n=block_n, fmt=fmt, rescale=rescale)
     if use_kernel:
         args = q + (cache.content, cache.rope, cache.scale, cache.seq_lens)
-        if splits == 1:
+        if splits == 1 and q_c8.dim() == 3:
             return _k.mla_decode_cuda(*args, sink=cache.sink, **kw)
         return _k.mla_decode_splitkv_cuda(*args, sink=cache.sink, num_splits=splits, **kw)
     args = q + (sink_patched_content(cache), cache.rope.float(), cache.scale,
                 cache.seq_lens)
-    if splits == 1:
+    if splits == 1 and q_c8.dim() == 3:
         return _ref.snapmla_decode_pipeline_ref(*args, **kw)
     return _ref.snapmla_decode_splitkv_ref(*args, num_splits=splits, **kw)
 
@@ -111,15 +114,16 @@ def snapmla_decode_paged(q_c8: torch.Tensor, q_r: torch.Tensor,
                          softmax_scale: float, fmt: str = "fp8_e4m3",
                          num_splits: int | None = None, use_kernel: bool = True,
                          rescale: str = "fma"):
-    """Decode one token per sequence against a paged pool. Returns
-    (o_latent [B, H, d_c] f32, lse [B, H])."""
+    """Decode one token (rank-3 query) or a verify block (rank-4) per
+    sequence against a paged pool. Returns (o_latent [B, (q_len,) H, d_c]
+    f32, lse [B, (q_len,) H])."""
     page = pool.page_size
     splits = resolve_num_splits(num_splits, pool.capacity, page)
     args = (q_c8.contiguous(), q_r.float().contiguous(), sigma_q.contiguous(),
             pool.content, pool.rope, pool.scale, pool.page_table, pool.seq_lens)
     kw = dict(softmax_scale=softmax_scale, fmt=fmt, rescale=rescale)
     if use_kernel:
-        if splits == 1:
+        if splits == 1 and q_c8.dim() == 3:
             return _k.mla_decode_paged_cuda(*args, **kw)
         return _k.mla_decode_paged_splitkv_cuda(*args, num_splits=splits, **kw)
     return _ref.snapmla_decode_paged_splitkv_ref(*args, num_splits=splits, **kw)

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the SnapMLA FP8 decode pipeline (port of the
-q_len = 1 half of ``repro/kernels/mla_decode/ref.py``).
+"""Plain PyTorch versions of the SnapMLA FP8 decode pipeline (port of
+``repro/kernels/mla_decode/ref.py`` without its parallel einsum forms).
 
 These are the oracles of the CUDA kernels in ``kernel.py`` and the arithmetic
 of the reference backends (``torch_ref``, ``torch_paged_ref``):
@@ -12,7 +12,16 @@ of the reference backends (``torch_ref``, ``torch_paged_ref``):
     the split-KV form: the pipeline per split with the dead-block early exit,
     merged by ``lse_combine_ref`` (FMA) or ``amla_combine_ref`` (AMLA);
   * ``snapmla_decode_paged_ref`` — the single pass over the page table
-    without early exit (the plain version of the single-pass kernel).
+    without early exit (the plain version of the single-pass kernel);
+  * a rank-4 ``[B, q_len, H, .]`` query block (the speculative verify) runs
+    through ``_verify_rows``: row t is the q_len = 1 version at its own limit
+    ``seq_lens - (q_len - 1) + t``. This is the q_len > 1 kernel's plain
+    version exactly: each row's state is independent of every other row's,
+    and a row with no valid token in a live block keeps its state (the row
+    guard), as the q_len = 1 kernel skips that block. The split forms take
+    rank-4 queries, at any number of splits (a rank-4 query always takes
+    the split-KV kernel). Rows whose limit is <= 0 give (0, NEG_INF + log S)
+    here and in the kernels, where the JAX oracles give NaN.
 
 Two choices make kernel and plain version agree bit for bit on the card:
 
@@ -39,6 +48,25 @@ from repro_torch.core import quant
 from repro_torch.kernels.mla_decode import amla
 
 NEG_INF = -1e30
+
+
+def _verify_rows(decode_row, q_c8, q_r, sigma_q, seq_lens, *,
+                 stack_axis: int = 1, partial_axis: int = 2):
+    """Run a q_len = 1 version once per query row t of a [B, q_len, H, .]
+    block, at the row's limit ``seq_lens - (q_len - 1) + t``, and stack the
+    results at ``stack_axis`` (a trailing partials tuple at
+    ``partial_axis``), as the reference's ``_verify_rows`` (ref.py:30-58)."""
+    q_len = q_c8.shape[1]
+    lens = seq_lens.long()
+    per_row = [decode_row(q_c8[:, t], q_r[:, t], sigma_q[:, t], lens - (q_len - 1 - t))
+               for t in range(q_len)]
+    out = []
+    for parts in zip(*per_row):
+        if isinstance(parts[0], tuple):
+            out.append(tuple(torch.stack(ps, dim=partial_axis) for ps in zip(*parts)))
+        else:
+            out.append(torch.stack(parts, dim=stack_axis))
+    return tuple(out)
 
 
 def _qk_logits(q_c8: torch.Tensor, q_r: torch.Tensor, content: torch.Tensor,
@@ -229,7 +257,16 @@ def snapmla_decode_splitkv_ref(q_c8, q_r, sigma_q, content, rope, sigma_k,
     """Split-KV oracle: each slice runs the pipeline with its local ragged
     length and the dead-block early exit, then ``lse_combine_ref`` merges
     the (o, lse, sigma_p) partials — or, under ``rescale="amla"``,
-    ``amla_combine_ref`` merges the raw (acc, l, g) partials."""
+    ``amla_combine_ref`` merges the raw (acc, l, g) partials. A rank-4 query
+    gives o [B, q_len, H, d_c], lse [B, q_len, H] and partials
+    [B, S, q_len, H, .]."""
+    if q_c8.dim() == 4:
+        return _verify_rows(
+            lambda qc, qr, sq, sl: snapmla_decode_splitkv_ref(
+                qc, qr, sq, content, rope, sigma_k, sl, softmax_scale=softmax_scale,
+                num_splits=num_splits, block_n=block_n, fmt=fmt,
+                return_partials=return_partials, rescale=rescale),
+            q_c8, q_r, sigma_q, seq_lens)
     amla_mode = rescale == "amla"
 
     def one_split(c, r, sk, local_len):

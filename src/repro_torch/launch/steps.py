@@ -1,6 +1,8 @@
-"""Prefill / decode steps and sampling (port of the serving half of
-``repro/launch/steps.py``)."""
+"""Prefill / decode / chunked-prefill / verify steps and sampling (port of
+the serving half of ``repro/launch/steps.py``)."""
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -20,6 +22,61 @@ def make_decode_step(cfg: ModelConfig):
         return T.decode_step(params, cfg, token, state, pos)
 
     return decode_step
+
+
+def make_ref_decode_step(cfg: ModelConfig):
+    """Decode step pinned to the plain reference backend: the serving
+    engine's degradation twin (quarantine retry, fallback of a raising
+    dispatch)."""
+    ref_cfg = dataclasses.replace(cfg, decode_backend="ref", use_kernels=False)
+
+    def ref_decode_step(params, token, state, pos):
+        return T.decode_step(params, ref_cfg, token, state, pos)
+
+    return ref_decode_step
+
+
+def make_verify_step(cfg: ModelConfig, ref: bool = False):
+    """verify_step(params, tokens [B, K], state, start [B]) -> (logits
+    [B, K, V], state); ``ref=True`` pins the plain reference backend."""
+    vcfg = dataclasses.replace(cfg, decode_backend="ref", use_kernels=False) if ref else cfg
+
+    def verify_step(params, tokens, state, start):
+        return T.verify_step(params, vcfg, tokens, state, start)
+
+    return verify_step
+
+
+def make_chunked_prefill_step(cfg: ModelConfig):
+    """chunk_prefill_step(params, tokens [B, C], state, chunk_start [B],
+    last_idx [B]) -> (logits [B, V] at the last real token, state)."""
+    def chunk_prefill_step(params, tokens, state, chunk_start, last_idx):
+        return T.chunked_prefill(params, cfg, tokens, state, chunk_start, last_idx)
+
+    return chunk_prefill_step
+
+
+def chunk_buckets(prefill_chunk: int) -> list[int]:
+    """Chunk widths: powers of two below ``prefill_chunk``, then
+    ``prefill_chunk`` itself. The engine pads every chunk up to its bucket,
+    so it dispatches at most ``len(buckets)`` distinct chunk widths."""
+    if prefill_chunk < 1:
+        raise ValueError("prefill_chunk must be >= 1 to bucket")
+    buckets = []
+    b = 1
+    while b < prefill_chunk:
+        buckets.append(b)
+        b *= 2
+    buckets.append(prefill_chunk)
+    return buckets
+
+
+def bucket_for(n_tokens: int, prefill_chunk: int) -> int:
+    """Smallest bucket covering ``n_tokens`` (the padded chunk width)."""
+    for b in chunk_buckets(prefill_chunk):
+        if b >= n_tokens:
+            return b
+    raise ValueError(f"{n_tokens} tokens exceed prefill_chunk {prefill_chunk}")
 
 
 def masked_logits(logits: torch.Tensor, temperature: float, top_k: int = 0,

@@ -253,3 +253,93 @@ def _assert_bytes(a, b):
         return
     assert a.dtype == b.dtype and a.shape == b.shape
     assert torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _verify_case(fmt, lens, P, page, q_len, H, d_c, d_r, seed=0):
+    """A paged case whose query is a [B, q_len, H, .] verify block."""
+    base = _case(fmt, lens, P, page, q_len * H, d_c, d_r, seed)
+    B = len(lens)
+    q = (base[0].reshape(B, q_len, H, d_c), base[1].reshape(B, q_len, H, d_r),
+         base[2].reshape(B, q_len, H))
+    return q + base[3:]
+
+
+def _assert_verify_close(got, want, rescale):
+    o, lse = got
+    o_r, lse_r = want
+    # rows with no valid token: NaN (AMLA: 0 / 0) or 0 in both
+    if rescale == "amla":
+        torch.testing.assert_close(o, o_r, equal_nan=True, **AMLA_O)
+        torch.testing.assert_close(lse, lse_r, equal_nan=True, **AMLA_LSE)
+    else:
+        torch.testing.assert_close(o, o_r, equal_nan=True, **TOL)
+        torch.testing.assert_close(lse, lse_r, equal_nan=True, **TOL)
+
+
+@pytest.mark.parametrize("rescale", ["fma", "amla"])
+@pytest.mark.parametrize("q_len", [2, 5])
+@pytest.mark.parametrize("fmt", ["fp8_e4m3", "none"])
+def test_verify_kernel_matches_plain_and_rows(cuda, rescale, q_len, fmt):
+    """The q_len > 1 mode of A and #2 at H = 4 (a tile of 8 rows straddles two
+    positions): against the plain version, row t bitwise equal to a q_len = 1
+    launch at its limit, contiguous bitwise equal to paged, and a rank-4
+    q_len = 1 block bitwise equal to the rank-3 launch. One slot is shorter
+    than q_len (rows with limit <= 0)."""
+    page, H, d_c, d_r, P = 16, 4, 32, 16, 6
+    lens = [q_len - 1, page + 3, P * page - 2, 2 * page]
+    args = _verify_case(fmt, lens, P, page, q_len, H, d_c, d_r, seed=q_len)
+    contig = _contiguous(args, P, page)
+    kw = dict(softmax_scale=0.1, fmt=fmt, rescale=rescale)
+    for S in (1, 2, 4):
+        _lib.reset_launches()
+        o, lse, parts = K.mla_decode_paged_splitkv_cuda(*args, num_splits=S,
+                                                        return_partials=True, **kw)
+        suffix = "_amla" if rescale == "amla" else ""
+        assert _lib.LAUNCHES[f"paged_splitkv_decode_verify{suffix}"] == 1
+        assert o.shape == (4, q_len, H, d_c) and lse.shape == (4, q_len, H)
+        assert parts[0].shape == (4, S, q_len, H, d_c)
+        o_r, lse_r, parts_r = R.snapmla_decode_paged_splitkv_ref(
+            *args, num_splits=S, return_partials=True, **kw)
+        _assert_verify_close((o, lse), (o_r, lse_r), rescale)
+        if rescale == "amla":
+            _assert_equal(parts[2], parts_r[2])           # grid exponents g
+        oc, lc = K.mla_decode_splitkv_cuda(*contig, num_splits=S, block_n=page, **kw)
+        _assert_equal(oc, o)
+        _assert_equal(lc, lse)
+        for t in range(q_len):
+            row_lens = torch.clamp(args[7] - (q_len - 1 - t), min=0).int()
+            o1, l1 = K.mla_decode_paged_splitkv_cuda(
+                args[0][:, t].contiguous(), args[1][:, t].contiguous(),
+                args[2][:, t].contiguous(), *args[3:7], row_lens, num_splits=S, **kw)
+            live = row_lens > 0
+            _assert_equal(o[live, t], o1[live])
+            _assert_equal(lse[live, t], l1[live])
+    q1 = tuple(a[:, :1].contiguous() for a in args[:3])
+    o4, l4 = K.mla_decode_paged_splitkv_cuda(*q1, *args[3:], num_splits=2, **kw)
+    o3, l3 = K.mla_decode_paged_splitkv_cuda(*(a[:, 0] for a in q1), *args[3:],
+                                             num_splits=2, **kw)
+    _assert_equal(o4[:, 0], o3)
+    _assert_equal(l4[:, 0], l3)
+
+
+@pytest.mark.parametrize("fmt", ["fp8_e4m3", "int8", "none"])
+def test_fetch_dequant_kernel_bit_exact(cuda, fmt):
+    """K1 in full, bounded and contiguous mode: bitwise against the plain
+    version, dead pages all zero."""
+    from repro_torch.kernels.quantize import fetch_dequant as FD
+    page, d_c, d_r, P = 16, 32, 16, 5
+    args = _case(fmt, [3, 40, 80], P, page, 4, d_c, d_r, seed=7)
+    pool = PagedMLAPool(*args[3:])
+    _lib.reset_launches()
+    _assert_bytes(FD.paged_fetch_dequant(pool), FD.paged_fetch_dequant_ref(pool))
+    for cs in ([0, 8, 16], [16, 79, 80], [5, 33, 1]):
+        cs = torch.tensor(cs, dtype=torch.int32, device="cuda")
+        got = FD.paged_fetch_dequant(pool, chunk_start=cs)
+        _assert_bytes(got, FD.paged_fetch_dequant_ref(pool, chunk_start=cs))
+        for b in range(3):
+            dead = -(-int(cs[b]) // page) * page
+            assert torch.count_nonzero(got[b, dead:]) == 0
+    contig = _contiguous(args, P, page)
+    cache = MLACache(*contig[3:6], args[7])
+    _assert_bytes(FD.fetch_dequant(cache, page=page), FD.fetch_dequant_ref(cache))
+    assert _lib.LAUNCHES == {"paged_fetch_dequant": 4, "fetch_dequant": 1}
