@@ -40,7 +40,17 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   7. profile — one decode step of the serving run under torch.profiler (paged
                at kv_splits 0 and 4, contiguous at 0), one chunked-prefill step
                and one verify step: host wall, device kernel time, the device's
-               idle share, top kernels.
+               idle share, top kernels;
+  8. gqa     — the dense GQA family, after mla-7b's weights are freed: the FP8
+               GQA decode kernel (#7) against its plain version at llama3.2-3b's
+               serving shape (fp8, int8, none), qwen2.5-3b's heads, gemma3-27b's
+               wrapped 1,024-slot ring, MQA, MHA and a ragged ~32k-token case;
+               ``launch.serve.generate`` on full llama3.2-3b (28 layers, batch
+               4, prompt 512, gen 16, fp8 and none) and on gemma3-27b at full
+               width cut to one 6-layer superblock (batch 2, prompt 1,200 past
+               its 1,024-token window, gen 16, fp8), kernel backend against the
+               reference backend, #7's launches exactly one per layer and decode
+               step; one llama decode step under torch.profiler.
 
 Phase 2 also holds the fused fetch-dequant kernel (#11 paged, #10 its
 contiguous mode) bitwise against its plain version at ~32k tokens and at the
@@ -57,6 +67,7 @@ a card or without the repository beside it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -80,6 +91,8 @@ SRC_DECODE = "src/repro_torch/csrc/mla_decode.cu"
 SRC_QQUANT = "src/repro_torch/csrc/q_quant.cu"
 SRC_KAPPEND = "src/repro_torch/csrc/k_append.cu"
 SRC_FETCH = "src/repro_torch/csrc/fetch_dequant.cu"
+SRC_GQA = "src/repro_torch/csrc/gqa_decode.cu"
+TPU_GQA = "src/repro/kernels/gqa_decode/kernel.py"
 TPU_DECODE = "src/repro/kernels/mla_decode/kernel.py"
 TPU_QUANT = "src/repro/kernels/quantize/kernel.py"
 TPU_FETCH = "src/repro/kernels/quantize/fetch_dequant.py"
@@ -106,6 +119,8 @@ KERNELS = {  # launch-counter name -> (source, the TPU kernel it replaces, mode)
     "paged_splitkv_decode_verify_amla": (SRC_DECODE, f"{TPU_DECODE}:794", "amla"),
     "splitkv_decode_verify": (SRC_DECODE, f"{TPU_DECODE}:516", "fma"),
     "splitkv_decode_verify_amla": (SRC_DECODE, f"{TPU_DECODE}:516", "amla"),
+    # the FP8 GQA decode (#7), on the dense GQA family's decode path
+    "gqa_decode": (SRC_GQA, f"{TPU_GQA}:107", None),
 }
 # kernels no model path calls (the reference's callers are not on a model
 # path either): held against their plain versions in phase 2 only
@@ -119,6 +134,7 @@ SUMMARY_CASES = {
     "paged_fetch_dequant": (("engine_shape", 0), ("long_32k", 0)),
     "fetch_dequant": (("engine_shape", 0), ("long_32k", 0)),
     **{k: (("verify_shape", 1), ("long_32k_verify", 8)) for k in KERNELS if "verify" in k},
+    "gqa_decode": (("gqa_llama_serve", 0), ("gqa_long_32k", 0)),
 }
 # E1-E3 (phase 5): serve's engine flags
 E1 = ["--batch", "6", "--max-batch", "3", "--prompt-lens", "640,200,384",
@@ -1069,8 +1085,9 @@ def phase_engine(base, params, serve_tps):
     return launches
 
 
-def _profile(fn, reps=3):
-    """Host wall per call and the device time by kernel under torch.profiler."""
+def _profile(fn, reps=3, match=None):
+    """Host wall per call and the device time by kernel under torch.profiler
+    (``match``: also the device ms per call of the kernels whose name holds it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1089,11 +1106,16 @@ def _profile(fn, reps=3):
                   for r in rows if r.self_device_time_total > 0
                   and not r.key.startswith("aten::")), key=lambda x: -x[1])
     busy = sum(ms for _, ms, _ in dev)
-    return dict(wall_ms_per_step=wall, device_ms_per_step=busy,
-                device_idle_share=1.0 - busy / wall,
-                aten_ops_per_step=sum(r.count for r in rows
-                                      if r.key.startswith("aten::")) / reps,
-                top=[(k[:80], round(ms, 4), n) for k, ms, n in dev[:8]])
+    out = dict(wall_ms_per_step=wall, device_ms_per_step=busy,
+               device_idle_share=1.0 - busy / wall,
+               aten_ops_per_step=sum(r.count for r in rows
+                                     if r.key.startswith("aten::")) / reps,
+               top=[(k[:80], round(ms, 4), n) for k, ms, n in dev[:8]])
+    if match is not None:
+        out["match"] = match
+        out["match_ms_per_step"] = sum(ms for k, ms, _ in dev if match in k)
+        out["match_calls_per_step"] = sum(n for k, _, n in dev if match in k)
+    return out
 
 
 def phase_profile_engine(gen, base, params, prompts):
@@ -1118,6 +1140,186 @@ def phase_profile_engine(gen, base, params, prompts):
     emit(phase="profile", step="verify", batch=4, q_len=5, context=512,
          **_profile(lambda: T.verify_step(params, cfg, toks, state, start)))
 
+
+# phase 8: the dense GQA family (llama3.2-3b full, gemma3-27b's window)
+GQA_LLAMA_LENS = [527, 512, 520, 513]          # positions 511-526, N = 640
+GQA_LONG_LENS = [0, PAGE, 32768, 20000]
+GQA_SERVE = [  # (arch, layers kept (0 = all), batch, prompt, gen, formats)
+    ("llama3.2-3b", 0, 4, 512, 16, ("fp8_e4m3", "none")),
+    ("gemma3-27b", 6, 2, 1200, 16, ("fp8_e4m3",))]
+
+
+def gqa_case(gen, fmt, lens, N, Hkv, g, dh, window=0, page=PAGE):
+    """A GQA cache of capacity N (``window``: a ring) whose row b was
+    prefilled with ``lens[b]`` tokens of random K, V through the port's
+    ``gqa_prefill``, and a query per row at position ``lens[b] - 1``."""
+    import torch
+    from repro_torch.core.kvcache import CacheConfig, GQACache, gqa_prefill, init_gqa_cache
+    cfg = CacheConfig(fmt=fmt, page_size=page, window=window)
+    rows = []
+    for n in lens:
+        c = init_gqa_cache(cfg, 1, N, Hkv, dh, device="cuda")
+        if n:
+            c = gqa_prefill(c, cfg, torch.randn(1, n, Hkv, dh, generator=gen, device="cuda"),
+                            torch.randn(1, n, Hkv, dh, generator=gen, device="cuda"))
+        rows.append(c)
+    cache = GQACache(*(torch.cat(ts).contiguous() for ts in zip(*rows)))
+    q = torch.randn(len(lens), Hkv * g, dh, generator=gen, device="cuda")
+    pos = torch.tensor([max(n - 1, 0) for n in lens], dtype=torch.int32, device="cuda")
+    return q, cache, pos
+
+
+def gqa_bound(cache, pos, window, g, fmt):
+    """Least time of one #7 call: the valid slots' K, V and scales, slot_pos
+    for every slot, q and o, at HBM rate, against the QK + PV operations of
+    the valid slots at the format's tensor-core peak."""
+    from repro_torch.kernels.gqa_decode.ref import _valid_slots
+    B, N, Hkv, dh = cache.k.shape
+    esize = cache.k.element_size()
+    valid = int(_valid_slots(cache.slot_pos, pos, window).sum())
+    nbytes = valid * Hkv * (2 * dh * esize + 8) + B * N * 4 + 2 * B * Hkv * g * dh * 4
+    return _bound(nbytes, valid * Hkv * g * 4 * dh, PEAK[fmt])
+
+
+def gqa_checks(gen, records):
+    """#7 against its plain version on the card, within rtol / atol 1e-5
+    (NaN rows, from a row with no token, equal), bitwise equality recorded;
+    ms (CUDA-graph replay), plain ms and bound ms per case."""
+    import torch
+    from repro_torch.kernels.gqa_decode import kernel as GK
+    from repro_torch.kernels.gqa_decode import ops as GO
+    cases = [  # (tag, fmt, lens, N, Hkv, g, dh, window, block)
+        ("gqa_llama_serve", "fp8_e4m3", GQA_LLAMA_LENS, 640, 8, 3, 128, 0, PAGE),
+        ("gqa_llama_serve_int8", "int8", GQA_LLAMA_LENS, 640, 8, 3, 128, 0, PAGE),
+        ("gqa_llama_serve_none", "none", GQA_LLAMA_LENS, 640, 8, 3, 128, 0, PAGE),
+        ("gqa_qwen_serve", "fp8_e4m3", GQA_LLAMA_LENS, 640, 2, 8, 128, 0, PAGE),
+        ("gqa_gemma_ring", "fp8_e4m3", [1200, 300], 1024, 16, 2, 128, 1024, PAGE),
+        ("gqa_mqa", "fp8_e4m3", [200, 37], 256, 1, 8, 64, 0, 64),
+        ("gqa_mha", "int8", [256, 100], 256, 8, 1, 64, 96, 64),
+        ("gqa_long_32k", "fp8_e4m3", GQA_LONG_LENS, 32768, 8, 3, 128, 0, PAGE)]
+    for tag, fmt, lens, N, Hkv, g, dh, window, block in cases:
+        q, cache, pos = gqa_case(gen, fmt, lens, N, Hkv, g, dh, window)
+        kw = dict(window=window, block_n=block, fmt=fmt)
+        got = GO.gqa_decode(q, cache, pos, **kw)
+        want = GO.gqa_decode(q, cache, pos, use_kernel=False, **kw)
+        err = check_close(f"{tag} #7", got, want, equal_nan=True, **TOL)
+        empty = [b for b, n in enumerate(lens) if n == 0]
+        if not (torch.isnan(got[empty]).all() and torch.isfinite(
+                got[[b for b in range(len(lens)) if b not in empty]]).all()):
+            raise AssertionError(f"{tag} #7: NaN only on the rows with no token expected")
+        bitwise = bool(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+        args = (q, cache.k, cache.v, cache.k_scale, cache.v_scale, cache.slot_pos, pos)
+        bound = gqa_bound(cache, pos, window, g, fmt)
+        rec = dict(max_abs_err=err, ms=kernel_ms(lambda: GK.gqa_decode_cuda(*args, **kw)),
+                   plain_ms=time_ms(lambda: GK.gqa_decode_plain(*args, **kw)),
+                   bound_ms=bound[0], bound_by=bound[1])
+        records[("gqa_decode", tag, 0)] = rec
+        emit(phase="kernels", case=tag, kernel="#7 gqa_decode", fmt=fmt, lens=lens,
+             capacity=cache.capacity, kv_heads=Hkv, g=g, dh=dh, window=window, block=block,
+             max_abs_err=err, bitwise=bitwise, **{k: v for k, v in rec.items()
+                                                  if k != "max_abs_err"})
+
+
+class _CountDecodeSteps:
+    """Counts ``transformer.decode_step`` calls inside the block."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as T
+        self.T, self.orig, self.n = T, T.decode_step, 0
+
+        def counted(*a, **kw):
+            self.n += 1
+            return self.orig(*a, **kw)
+        T.decode_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.T.decode_step = self.orig
+
+
+def phase_gqa_serve(arch, layers, batch, prompt_len, gen_steps, fmts):
+    """``serve.generate`` on one GQA model at full width (depth cut to
+    ``layers`` when non-zero), weights from a seeded generator: the kernel
+    backend against the reference backend per format. The kernel runs are
+    this path's counted run: #7 launches exactly once per layer and decode
+    step. Returns (launches, cfg, params, prompts)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    base = get_config(arch)
+    if layers:
+        base = dataclasses.replace(base, n_layers=layers)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.time()
+    params = T.init_model(gen, base, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    emit(phase="gqa_serve_init", arch=arch, layers=base.n_layers,
+         kinds=list(base.layer_kinds), params=n_params, seconds=time.time() - t0,
+         gib=torch.cuda.memory_allocated() / 2**30)
+    prompts = torch.randint(0, base.vocab_size, (batch, prompt_len), generator=gen,
+                            device="cuda")
+    launches: dict = {}
+    for fmt in fmts:
+        def cfg_of(backend):
+            return dataclasses.replace(base, kv_fmt=fmt, decode_backend=backend,
+                                       use_kernels=backend == "kernel")
+        r_toks, r_tps, r_logits = serve.generate(cfg_of("ref"), params, prompts, gen_steps,
+                                                 return_logits=True)
+        torch.cuda.synchronize()
+        _lib.reset_launches()                  # the GQA serve path starts here
+        with _CountDecodeSteps() as steps:
+            toks, tps, logits = serve.generate(cfg_of("kernel"), params, prompts, gen_steps,
+                                               return_logits=True)
+        torch.cuda.synchronize()
+        run_launches = dict(_lib.LAUNCHES)     # ... and ends here
+        lbl = f"serve {arch} fmt={fmt}"
+        if not (torch.isfinite(logits).all() and torch.isfinite(r_logits).all()):
+            raise AssertionError(f"{lbl}: non-finite logits")
+        first = float((logits[:, 1] - r_logits[:, 1]).abs().max()
+                      / r_logits[:, 1].abs().max())
+        if first > 1e-2:
+            raise AssertionError(f"{lbl}: first-step logits rel err {first}")
+        if not torch.equal(toks[:, 0], r_toks[:, 0]):
+            raise AssertionError(f"{lbl}: prefill tokens differ")
+        want = base.n_layers * steps.n
+        if run_launches.get("gqa_decode", 0) != want:
+            raise AssertionError(f"{lbl}: #7 launches {run_launches} != {base.n_layers} "
+                                 f"layers x {steps.n} decode steps")
+        for k, v in run_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        emit(phase="gqa_serve", arch=arch, layers=base.n_layers, batch=batch,
+             prompt=prompt_len, gen=gen_steps, fmt=fmt, window=base.window,
+             decode_steps=steps.n, launches=run_launches, tok_per_s=tps,
+             ref_tok_per_s=r_tps, greedy_agreement_vs_ref=float((toks == r_toks).float().mean()),
+             first_step_logits_rel_err=first,
+             max_logits_rel_err=float((logits - r_logits).abs().max() / r_logits.abs().max()))
+    return launches, base, params, prompts
+
+
+def phase_gqa_profile(base, params, prompts):
+    """Where one llama3.2-3b decode step's time goes (kernel backend, fp8,
+    batch 4, context ~0.5k): host wall, device ms, idle share, the heaviest
+    kernels and #7's device ms per step."""
+    import torch
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(base, decode_backend="kernel", use_kernels=True)
+    B, S = prompts.shape
+    state = T.init_decode_state(cfg, B, S + 128, device="cuda")
+    logits, state = T.prefill(params, cfg, prompts, state)
+    tok = logits.argmax(-1).to(torch.int32)
+    step = [0]
+
+    def one():
+        nonlocal state
+        pos = torch.full((B,), S + step[0], dtype=torch.int32, device="cuda")
+        step[0] += 1
+        _, state = T.decode_step(params, cfg, tok, state, pos)
+
+    emit(phase="profile", step="decode", arch=base.name, layers=base.n_layers, batch=B,
+         context=S, **_profile(one, match="gqa_decode_kernel"))
 
 
 def _leaves(tree):
@@ -1237,13 +1439,40 @@ def main() -> int:
     parts = (layer_launches, serve_launches, engine_launches)
     launches = {k: sum(x.get(k, 0) for x in parts) for k in set().union(*parts)}
     emit(phase="counts", layer=layer_launches, serve=serve_launches, engine=engine_launches)
-    missing = [k for k in KERNELS if k not in OFF_PATH and launches.get(k, 0) <= 0]
+    missing = [k for k in KERNELS if k not in OFF_PATH and k != "gqa_decode"
+               and launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main paths: {missing}")
 
     # 7. where a step's time goes (after the counted main paths)
     phase_profile(base, params, prompts)
     phase_profile_engine(gen, base, params, prompts)
+    del params                                  # free mla-7b (22 GiB) for the next models
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. the dense GQA family: #7 against its plain version, then serve on
+    # full llama3.2-3b and the 6-layer full-width gemma3-27b (counted main
+    # paths), one llama decode step profiled
+    t0 = time.time()
+    gqa_checks(gen, records)
+    gqa_launches = {}
+    for arch, layers, batch, plen, gsteps, fmts in GQA_SERVE:
+        got, g_base, g_params, g_prompts = phase_gqa_serve(arch, layers, batch, plen, gsteps,
+                                                           fmts)
+        gqa_launches[arch] = got
+        if arch == "llama3.2-3b":
+            phase_gqa_profile(g_base, g_params, g_prompts)
+        del g_params
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit(phase="gqa_done", seconds=time.time() - t0, launches=gqa_launches)
+    for part in gqa_launches.values():
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    missing = [k for k in KERNELS if k not in OFF_PATH and launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main paths: {missing}")
 
     print(summary_line(records, launches, sum(long_lens)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

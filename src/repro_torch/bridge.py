@@ -1,5 +1,5 @@
-"""Carry the JAX package's parameters and MLA caches (contiguous and paged),
-handed over as numpy, into the port's structures.
+"""Carry the JAX package's parameters and caches (GQA, MLA contiguous and
+paged), handed over as numpy, into the port's structures.
 
 Input is the tree ``jax.tree.map(np.asarray, tree)`` gives: nested dicts,
 lists and NamedTuples of numpy arrays. Fields are read by name; nothing of
@@ -13,9 +13,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.kvcache import MLACache, PagedMLAPool
+from repro_torch.core.kvcache import GQACache, MLACache, PagedMLAPool
 from repro_torch.core.mla import MLAParams
-from repro_torch.models.layers import MLPParams
+from repro_torch.models.layers import AttnParams, MLPParams
 
 _RAW = {"float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
         "bfloat16": (np.int16, torch.bfloat16)}
@@ -57,32 +57,47 @@ def _mla_params(m: Any, device) -> MLAParams:
     return MLAParams(**{f: to_torch(_field(m, f), device) for f in MLAParams._fields})
 
 
+def _attn_params(m: Any, device) -> AttnParams:
+    """A reference ``AttnParams`` (biases None unless ``qkv_bias``)."""
+    return AttnParams(**{f: to_torch(_field(m, f), device) for f in AttnParams._fields})
+
+
+def _mixer_params(m: Any, device) -> AttnParams | MLAParams:
+    """The mixer of an ``attn`` / ``swa`` layer (``AttnParams``, which has
+    ``wq``) or of an ``mla`` layer (``MLAParams``)."""
+    fields = m.keys() if isinstance(m, dict) else getattr(m, "_fields", ())
+    return _attn_params(m, device) if "wq" in fields else _mla_params(m, device)
+
+
 def _mlp_params(m: Any, device) -> MLPParams:
     return MLPParams(**{f: to_torch(_field(m, f), device) for f in MLPParams._fields})
 
 
 def params_from_jax(np_params: dict, device=None) -> dict[str, Any]:
-    """The reference ``init_model`` tree of a dense MLA model with tied
-    embeddings (one-kind ``layer_pattern``, layers stacked along the
-    ``scanned`` axis) -> the port's ``{"embed", "ln_f", "layers": [...]}``."""
-    scanned = np_params.get("scanned")
+    """The reference ``init_model`` tree (transformer.py:112-140) of a model
+    whose layers are ``attn``, ``swa`` or ``mla`` -> the port's
+    ``{"embed", "ln_f", ("unembed",) "layers": [...]}``. ``scanned`` holds
+    one entry per pattern slot, each stacked over the superblocks; the port's
+    list interleaves them in layer order (superblock i, slot j is layer
+    ``i * pattern_len + j``), then appends the ``tail`` (the remainder)."""
+    scanned = np_params.get("scanned") or []
     layers = []
     if scanned:
-        if len(scanned) != 1:
-            raise ValueError("only a one-kind layer pattern ('mla',) is ported")
-        stacked = scanned[0]
-        n = np.asarray(stacked["ln1"]).shape[0]
+        n = np.asarray(scanned[0]["ln1"]).shape[0]
         for i in range(n):
-            layers.append(_unstack(stacked, i))
+            layers += [_unstack(slot, i) for slot in scanned]
     layers += list(np_params.get("tail", []))
-    return {
+    out = {
         "embed": to_torch(np_params["embed"], device),
         "ln_f": to_torch(np_params["ln_f"], device),
         "layers": [{"ln1": to_torch(lp["ln1"], device),
-                    "mixer": _mla_params(lp["mixer"], device),
+                    "mixer": _mixer_params(lp["mixer"], device),
                     "ln2": to_torch(lp["ln2"], device),
                     "mlp": _mlp_params(lp["mlp"], device)} for lp in layers],
     }
+    if "unembed" in np_params:
+        out["unembed"] = to_torch(np_params["unembed"], device)
+    return out
 
 
 def mla_params_from_jax(np_mla: Any, device=None) -> MLAParams:
@@ -101,3 +116,8 @@ def cache_from_jax(np_cache: Any, device=None) -> MLACache:
     -> the port's, byte for byte."""
     return MLACache(**{f: to_torch(_field(np_cache, f), device)
                        for f in MLACache._fields})
+
+
+def gqa_cache_from_jax(np_cache: Any, device=None) -> GQACache:
+    """A reference ``GQACache`` (as numpy) -> the port's, byte for byte."""
+    return GQACache(**{f: to_torch(_field(np_cache, f), device) for f in GQACache._fields})

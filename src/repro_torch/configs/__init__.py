@@ -1,13 +1,19 @@
-"""Architecture registry of the port (only mla-7b is ported so far)."""
+"""Architecture registry of the port: the ids whose every layer kind is
+ported (``attn``, ``swa``, ``mla``), in the reference's ``ARCH_IDS`` order."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import MLADims, ModelConfig  # noqa: F401
 
-ARCH_IDS = ["mla-7b"]
+ARCH_IDS = ["llama3.2-3b", "gemma3-27b", "qwen2.5-3b", "mla-7b"]
 
-_MODULES = {"mla-7b": "mla_7b"}
+_MODULES = {
+    "llama3.2-3b": "llama32_3b",
+    "gemma3-27b": "gemma3_27b",
+    "qwen2.5-3b": "qwen25_3b",
+    "mla-7b": "mla_7b",
+}
 
 
 def _module(arch: str):

@@ -1,7 +1,12 @@
 """ModelConfig for the port: the fields of ``repro/configs/base.py`` that the
-MLA serving path reads (the reference's module imports its MoE module, which
-imports JAX, so the port keeps its own copy). Embeddings are tied, as in
-every MLA config of the reference."""
+ported serving paths read (the reference's module imports its MoE module,
+which imports JAX, so the port keeps its own copy).
+
+Layer heterogeneity is ``layer_pattern``, tiled over ``n_layers`` as in the
+reference: ``n_superblocks`` full tiles of the pattern, then the
+``remainder_kinds`` (the first ``n_layers % pattern_len`` kinds of the
+pattern). Ported kinds: ``attn`` (full causal GQA), ``swa`` (sliding-window
+GQA over a ring-buffer cache) and ``mla``."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,13 +23,17 @@ class MLADims:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
+    family: str                      # dense | moe | mla | hybrid | ssm | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
+    n_kv_heads: int
     d_head: int
     d_ff: int
     vocab_size: int
     layer_pattern: Tuple[str, ...] = ("attn",)
+    window: int = 0                  # for 'swa' layers
+    qkv_bias: bool = False
     rope_theta: float = 10000.0
     act: str = "silu"
     mla: MLADims | None = None
@@ -56,3 +65,23 @@ class ModelConfig:
     use_kernels: bool = False
     # "auto" | "ref" | "kernel" | an exact backend name
     decode_backend: str = "auto"
+    max_seq_len: int = 131072
+    tie_embeddings: bool = True
+
+    @property
+    def pattern_len(self) -> int:
+        return len(self.layer_pattern)
+
+    @property
+    def n_superblocks(self) -> int:
+        return self.n_layers // self.pattern_len
+
+    @property
+    def remainder_kinds(self) -> Tuple[str, ...]:
+        return self.layer_pattern[:self.n_layers % self.pattern_len]
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Every layer's kind in stack order: the superblocks, then the
+        remainder (``transformer.py:112-140`` of the reference)."""
+        return self.layer_pattern * self.n_superblocks + self.remainder_kinds

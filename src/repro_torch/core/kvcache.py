@@ -1,6 +1,11 @@
-"""MLA KV caches (port of the MLA half of ``repro/core/kvcache.py``).
+"""Quantized KV caches (port of ``repro/core/kvcache.py``).
 
-Two layouts, as in the reference:
+The GQA cache (``GQACache``): K and V per-token quantized per kv head
+(post-RoPE), with per-slot absolute positions; a sliding-window layer keeps a
+ring buffer of ``min(max_len, window)`` slots (rounded up to the page), the
+token at position ``p`` in slot ``p % capacity``.
+
+The MLA caches, in two layouts, as in the reference:
 
   * ``MLACache`` — the contiguous per-slot cache (the reference's default):
     content ``[B, N, d_c]`` in the storage format (fp8 / int8, or bf16 when
@@ -33,6 +38,7 @@ from repro_torch.core import quant
 class CacheConfig:
     fmt: str = "fp8_e4m3"        # "fp8_e4m3" | "int8" | "none" (bf16 baseline)
     page_size: int = 128          # kernel KV-block granularity (§3.3.2: 128)
+    window: int = 0               # >0: GQA ring buffer of this many tokens (SWA)
     # P-Cast sink guard: >0 keeps the first ``sink_tokens`` tokens' latent
     # content in full precision beside the quantized rows (``MLACache.sink``),
     # substituted at the decode boundary. Contiguous caches only.
@@ -168,6 +174,100 @@ def mla_prefill(cache: MLACache, cfg: CacheConfig, c_kv: torch.Tensor,
     if cache.sink is not None:
         W = min(S, cache.sink.shape[1])
         cache.sink[:, :W] = c_kv[:, :W].float()
+    return cache._replace(seq_lens=torch.full_like(cache.seq_lens, S))
+
+
+class GQACache(NamedTuple):
+    """Per-slot GQA cache; a sliding-window layer's is a ring buffer."""
+
+    k: torch.Tensor           # [B, N, Hkv, dh] storage dtype
+    v: torch.Tensor           # [B, N, Hkv, dh]
+    k_scale: torch.Tensor     # [B, N, Hkv] f32 (ones if none)
+    v_scale: torch.Tensor     # [B, N, Hkv] f32
+    slot_pos: torch.Tensor    # [B, N] int32 absolute position in the slot, -1 = empty
+    seq_lens: torch.Tensor    # [B] int32 tokens seen (not capped by the window)
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[1]
+
+
+def init_gqa_cache(cfg: CacheConfig, batch: int, max_len: int, n_kv: int, d_h: int,
+                   device=None) -> GQACache:
+    """Capacity ``min(max_len, window)`` (``max_len`` without a window),
+    rounded up to the page size."""
+    cap = min(max_len, cfg.window) if cfg.window else max_len
+    cap = _round_up(cap, cfg.page_size)
+    return GQACache(
+        k=torch.zeros((batch, cap, n_kv, d_h), dtype=cfg.storage_dtype(), device=device),
+        v=torch.zeros((batch, cap, n_kv, d_h), dtype=cfg.storage_dtype(), device=device),
+        k_scale=torch.ones((batch, cap, n_kv), dtype=torch.float32, device=device),
+        v_scale=torch.ones((batch, cap, n_kv), dtype=torch.float32, device=device),
+        slot_pos=torch.full((batch, cap), -1, dtype=torch.int32, device=device),
+        seq_lens=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def gqa_quantize_entry(cfg: CacheConfig, k: torch.Tensor, v: torch.Tensor):
+    """k, v [..., Hkv, dh] -> (k storage, v storage, k scales, v scales
+    [..., Hkv]); bf16 storage and unit scales when ``fmt == "none"``."""
+    if not cfg.quantized:
+        ones = torch.ones(k.shape[:-1], dtype=torch.float32, device=k.device)
+        return k.to(torch.bfloat16), v.to(torch.bfloat16), ones, ones
+    qk = quant.quantize_per_token(k, cfg.fmt)
+    qv = quant.quantize_per_token(v, cfg.fmt)
+    return qk.q, qv.q, qk.scale[..., 0], qv.scale[..., 0]
+
+
+def gqa_append(cache: GQACache, cfg: CacheConfig, k: torch.Tensor, v: torch.Tensor,
+               active: torch.Tensor | None = None) -> GQACache:
+    """Append one token per sequence (in place): k, v [B, Hkv, dh] (RoPE
+    applied) land in slot ``seq_lens % capacity`` of a ring buffer, else in
+    slot ``seq_lens`` clamped to the last slot (as the reference's
+    ``dynamic_update_slice`` clamps it); the slot records the absolute
+    position. ``active`` [B] bool gates the append per row: inactive rows
+    rewrite their slot with its old value and keep ``seq_lens`` frozen."""
+    B = k.shape[0]
+    kq, vq, ks, vs = gqa_quantize_entry(cfg, k, v)
+    pos = cache.seq_lens.long()
+    slot = pos % cache.capacity if cfg.window else torch.clamp(pos, 0, cache.capacity - 1)
+    rows = torch.arange(B, device=k.device)
+    kq, vq = kq.to(cache.k.dtype), vq.to(cache.v.dtype)
+    sp = cache.seq_lens.to(torch.int32)
+    if active is not None:
+        kq = _where_rows(active, kq, cache.k[rows, slot])
+        vq = _where_rows(active, vq, cache.v[rows, slot])
+        ks = _where_rows(active, ks, cache.k_scale[rows, slot])
+        vs = _where_rows(active, vs, cache.v_scale[rows, slot])
+        sp = torch.where(active, sp, cache.slot_pos[rows, slot])
+    cache.k[rows, slot] = kq
+    cache.v[rows, slot] = vq
+    cache.k_scale[rows, slot] = ks.float()
+    cache.v_scale[rows, slot] = vs.float()
+    cache.slot_pos[rows, slot] = sp
+    step = 1 if active is None else active.to(cache.seq_lens.dtype)
+    return cache._replace(seq_lens=cache.seq_lens + step)
+
+
+def gqa_prefill(cache: GQACache, cfg: CacheConfig, k: torch.Tensor,
+                v: torch.Tensor) -> GQACache:
+    """Bulk-write a prefix (in place): k, v [B, S, Hkv, dh] at positions
+    [0, S). With a window only the last ``capacity`` tokens are kept, at
+    slot ``pos % capacity``; without one, positions past the capacity are
+    dropped, as the reference's scatter drops them."""
+    B, S = k.shape[:2]
+    cap = cache.capacity
+    kq, vq, ks, vs = gqa_quantize_entry(cfg, k, v)
+    positions = torch.arange(S, dtype=torch.int32, device=k.device)
+    keep = slice(S - cap, S) if cfg.window and S > cap else slice(0, min(S, cap))
+    kq, vq, ks, vs = kq[:, keep], vq[:, keep], ks[:, keep], vs[:, keep]
+    positions = positions[keep]
+    slots = (positions % cap if cfg.window else positions).long()
+    cache.k[:, slots] = kq.to(cache.k.dtype)
+    cache.v[:, slots] = vq.to(cache.v.dtype)
+    cache.k_scale[:, slots] = ks.float()
+    cache.v_scale[:, slots] = vs.float()
+    cache.slot_pos[:, slots] = positions.expand(B, -1)
     return cache._replace(seq_lens=torch.full_like(cache.seq_lens, S))
 
 
@@ -322,9 +422,10 @@ def paged_mla_prefill_at(pool: PagedMLAPool, cfg: CacheConfig, c_kv: torch.Tenso
 
 
 def _where_rows(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
-    """Row select that also works for fp8 tensors (``torch.where`` has no
-    float8 kernel): pick on the raw bytes."""
+    """Row select (``active`` [B] against [B, ...] rows) that also works for
+    fp8 tensors (``torch.where`` has no float8 kernel): pick on the raw bytes."""
+    mask = active.reshape(active.shape + (1,) * (new.dim() - 1))
     if new.dtype == torch.float8_e4m3fn:
-        picked = torch.where(active[:, None], new.view(torch.uint8), old.view(torch.uint8))
+        picked = torch.where(mask, new.view(torch.uint8), old.view(torch.uint8))
         return picked.view(torch.float8_e4m3fn)
-    return torch.where(active[:, None], new.to(old.dtype), old)
+    return torch.where(mask, new.to(old.dtype), old)

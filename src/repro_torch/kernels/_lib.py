@@ -29,7 +29,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("mla_decode.cu", "q_quant.cu", "k_append.cu", "fetch_dequant.cu")
+SOURCES = ("mla_decode.cu", "q_quant.cu", "k_append.cu", "fetch_dequant.cu",
+           "gqa_decode.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -54,6 +55,9 @@ _SIGNATURES = {
     # fmt, content, rope, scale, page_table, chunk_start, out, B, P, page, d_c,
     # d_r, stream
     "snapmla_fetch_dequant": [_I] + [_P] * 6 + [_I] * 5 + [_P],
+    # fmt, q, k, v, k_scale, v_scale, slot_pos, positions, o, B, N, Hkv, g, dh,
+    # block, window, sm_scale, stream
+    "snapmla_gqa_decode": [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -9,7 +9,9 @@ On the card, with the hand-written kernels:
         --arch mla-7b --backend kernel --batch 4 --prompt-len 512 --gen 16
 
 (add ``--paged``, ``--kv-splits N``, ``--rescale amla``, ``--sink-tokens K`` or
-``--block-n N``). On the CPU (plain PyTorch versions of every kernel):
+``--block-n N``; ``--arch llama3.2-3b``, ``qwen2.5-3b`` or ``gemma3-27b`` serve
+the dense GQA family through the FP8 GQA decode kernel, where the MLA-only
+flags do nothing). On the CPU (plain PyTorch versions of every kernel):
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch mla-7b --smoke --backend kernel --device cpu
@@ -279,7 +281,8 @@ def run_engine(cfg, params, args) -> dict:
 def build_parser() -> argparse.ArgumentParser:
     """The command line of ``serve`` (``main`` parses it)."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mla-7b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="mla-7b", choices=ARCH_IDS,
+                    help="model; --engine takes only the pure-MLA mla-7b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -1,8 +1,16 @@
-"""Transformer layers the MLA path needs (port of the matching parts of
-``repro/models/layers.py``): RMSNorm, half-split RoPE, the gated MLP and the
-embedding. Weights are plain tensors in the JAX package's layouts."""
+"""Transformer layers (port of ``repro/models/layers.py`` without layer norm
+and cross attention): RMSNorm, half-split RoPE, GQA attention for training
+and prefill (``project_qkv``, ``sdpa``, ``flash_sdpa``, ``attention_block``),
+the MLPs, the embedding and the tied unembedding. Weights are plain tensors
+in the JAX package's layouts.
+
+``sdpa`` and ``flash_sdpa`` are plain PyTorch, as the reference computes them
+in plain jnp outside any Pallas kernel; ``scaled_dot_product_attention`` is
+not used, since its rounding differs."""
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
@@ -33,6 +41,127 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
     return (x.float() * cos + rotated.float() * sin).to(x.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    rope_theta: float = 10000.0
+    qkv_bias: bool = False            # qwen2.5 style
+    window: int = 0                   # 0 = full causal; >0 = sliding window
+    use_rope: bool = True
+
+
+class AttnParams(NamedTuple):
+    wq: torch.Tensor            # [d, H, dh]
+    wk: torch.Tensor            # [d, Hkv, dh]
+    wv: torch.Tensor            # [d, Hkv, dh]
+    wo: torch.Tensor            # [H, dh, d]
+    bq: torch.Tensor | None     # [H, dh]
+    bk: torch.Tensor | None     # [Hkv, dh]
+    bv: torch.Tensor | None     # [Hkv, dh]
+
+
+def init_attn_params(gen: torch.Generator, cfg: AttnConfig, dtype=torch.float32,
+                     device=None) -> AttnParams:
+    d, H, Hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+
+    def bias(shape):
+        return torch.zeros(shape, dtype=dtype, device=device) if cfg.qkv_bias else None
+
+    return AttnParams(
+        wq=_normal(gen, (d, H, dh), d ** -0.5, dtype, device),
+        wk=_normal(gen, (d, Hk, dh), d ** -0.5, dtype, device),
+        wv=_normal(gen, (d, Hk, dh), d ** -0.5, dtype, device),
+        wo=_normal(gen, (H, dh, d), (H * dh) ** -0.5, dtype, device),
+        bq=bias((H, dh)), bk=bias((Hk, dh)), bv=bias((Hk, dh)),
+    )
+
+
+def project_qkv(params: AttnParams, cfg: AttnConfig, x: torch.Tensor,
+                positions: torch.Tensor):
+    """x [B, S, d] -> q [B, S, H, dh], k, v [B, S, Hkv, dh] (RoPE on q, k)."""
+    q = torch.einsum("bsd,dhk->bshk", x, params.wq)
+    k = torch.einsum("bsd,dhk->bshk", x, params.wk)
+    v = torch.einsum("bsd,dhk->bshk", x, params.wv)
+    if params.bq is not None:
+        q, k, v = q + params.bq, k + params.bk, v + params.bv
+    if cfg.use_rope:
+        sin, cos = rope_freqs(positions, cfg.d_head, cfg.rope_theta)
+        sin, cos = sin[..., None, :], cos[..., None, :]
+        q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+    return q, k, v
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+         window: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """Reference attention with GQA head sharing and the sliding window:
+    q [B, Sq, H, dh], k, v [B, Sk, Hkv, dh] -> [B, Sq, H, dh]."""
+    B, Sq, H, dh = q.shape
+    Hkv, Sk = k.shape[2], k.shape[1]
+    g = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, g, dh).float()
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(dh)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    kpos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    logits = torch.where(mask, logits, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+               window: int = 0, q_offset: int = 0, block_k: int = 512) -> torch.Tensor:
+    """The training / prefill attention: online softmax over KV blocks of
+    ``block_k`` tokens (the reference's ``lax.scan``), with the causal and
+    window masks; peak intermediate O(Sq * block_k)."""
+    B, Sq, H, dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    nblocks = -(-Sk // block_k)
+    qg = q.reshape(B, Sq, Hkv, g, dh).float() / math.sqrt(dh)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    m = torch.full((B, Hkv, g, Sq), float("-inf"), device=q.device)
+    l = torch.zeros((B, Hkv, g, Sq), device=q.device)
+    acc = torch.zeros((B, Hkv, g, Sq, dh), device=q.device)
+    for j in range(nblocks):
+        lo, hi = j * block_k, min((j + 1) * block_k, Sk)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k[:, lo:hi].float())
+        kpos = torch.arange(lo, hi, device=q.device)
+        valid = torch.ones((Sq, hi - lo), dtype=torch.bool, device=q.device)
+        if causal:
+            valid &= kpos[None, :] <= qpos[:, None]
+        if window:
+            valid &= kpos[None, :] > qpos[:, None] - window
+        s = torch.where(valid, s, float("-inf"))
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        e = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + torch.sum(e, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", e,
+                                                   v[:, lo:hi].float())
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]            # [B, Hkv, g, Sq, dh]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def attention_block(params: AttnParams, cfg: AttnConfig, x: torch.Tensor,
+                    positions: torch.Tensor, causal: bool = True,
+                    use_flash: bool = True) -> torch.Tensor:
+    q, k, v = project_qkv(params, cfg, x, positions)
+    if use_flash:
+        o = flash_sdpa(q, k, v, causal=causal, window=cfg.window)
+    else:
+        o = sdpa(q, k, v, causal=causal, window=cfg.window)
+    return torch.einsum("bshk,hkd->bsd", o, params.wo)
+
+
 class MLPParams(NamedTuple):
     w_gate: torch.Tensor | None  # [d, f] (None for plain MLP)
     w_up: torch.Tensor           # [d, f]
@@ -53,7 +182,8 @@ def init_mlp_params(gen: torch.Generator, d: int, f: int, gated: bool = True,
     )
 
 
-_ACTS = {"silu": F.silu, "gelu": F.gelu,
+# "gelu" is the tanh form, as the reference's jax.nn.gelu (approximate=True)
+_ACTS = {"silu": F.silu, "gelu": lambda t: F.gelu(t, approximate="tanh"),
          "gelu_tanh": lambda t: F.gelu(t, approximate="tanh")}
 
 
@@ -73,3 +203,8 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens]
+
+
+def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding: x [B, S, d] @ table.T -> [B, S, V] (f32 logits)."""
+    return torch.einsum("bsd,vd->bsv", x.float(), table.float())

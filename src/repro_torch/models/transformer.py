@@ -1,16 +1,27 @@
-"""Decoder stack of the port — the MLA path of ``repro/models/transformer.py``:
-``init_model``, ``init_decode_state``, ``prefill``, ``decode_step`` and
-``_mla_decode``, over the contiguous ``MLACache`` (the default) or the paged
-pool (``kv_paged``; the serving engine's shared pool with ``kv_pool_pages``),
-and the serving engine's two paged steps: ``chunked_prefill`` (one prompt
-chunk, its prefix read back through the fused fetch-dequant kernel) and
-``verify_step`` (a K-token speculative block through the q_len > 1 split-KV
-kernel).
+"""Decoder stack of the port (``repro/models/transformer.py``) for the layer
+kinds ``attn`` (full causal GQA), ``swa`` (sliding-window GQA over a
+ring-buffer cache) and ``mla``: ``init_model``, ``init_decode_state``,
+``forward``, ``prefill`` and ``decode_step`` over any pattern of those
+kinds; and, for pure-MLA models over the paged pool, the serving engine's
+two paged steps: ``chunked_prefill`` (one prompt chunk, its prefix read back
+through the fused fetch-dequant kernel) and ``verify_step`` (a K-token
+speculative block through the q_len > 1 split-KV kernel).
 
-The reference stacks its layers along a leading ``scanned`` axis; the port
-keeps a list: ``params["layers"][i]`` is one layer's
-``{"ln1", "mixer": MLAParams, "ln2", "mlp": MLPParams}`` and
-``state["layers"][i]`` its ``MLACache`` or ``PagedMLAPool``.
+MLA layers decode through the contiguous ``MLACache`` (the default) or the
+paged pool (``kv_paged``; the serving engine's shared pool with
+``kv_pool_pages``). GQA layers decode through a ``GQACache`` and the FP8 GQA
+decode (``kernels/gqa_decode``): the CUDA kernel under the ``kernel``
+backend, its plain version (the pipeline form) under ``ref``, where the
+reference's model path runs the parallel form (transformer.py:351); the
+MLA-only fields (``kv_paged``, ``kv_splits``, ``kv_block_n``,
+``kv_rescale``, ``kv_sink_tokens``) do nothing on GQA layers, as in the
+reference.
+
+The reference stacks each pattern slot's layers along a leading ``scanned``
+axis and keeps the remainder in ``tail``; the port keeps one list in layer
+order (``cfg.layer_kinds``): ``params["layers"][i]`` is one layer's
+``{"ln1", "mixer": AttnParams | MLAParams, "ln2", "mlp": MLPParams}`` and
+``state["layers"][i]`` its ``GQACache``, ``MLACache`` or ``PagedMLAPool``.
 """
 from __future__ import annotations
 
@@ -20,20 +31,34 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mla as mla_lib
-from repro_torch.core.kvcache import (CacheConfig, init_mla_cache, init_paged_mla_cache,
-                                      mla_append, mla_prefill, paged_mla_append,
-                                      paged_mla_prefill, paged_mla_prefill_at)
+from repro_torch.core.kvcache import (CacheConfig, gqa_append, gqa_prefill, init_gqa_cache,
+                                      init_mla_cache, init_paged_mla_cache, mla_append,
+                                      mla_prefill, paged_mla_append, paged_mla_prefill,
+                                      paged_mla_prefill_at)
+from repro_torch.kernels.gqa_decode import ops as gqa_ops
 from repro_torch.kernels.mla_decode import backends as BK
 from repro_torch.kernels.mla_decode import ref as mla_kref
 from repro_torch.kernels.quantize import fetch_dequant as FD
 from repro_torch.kernels.quantize.ops import fused_q_quant
 from repro_torch.models import layers as L
 
+PORTED_KINDS = ("attn", "swa", "mla")
 
-def _check_mla(cfg: ModelConfig) -> None:
-    if cfg.layer_pattern != ("mla",) or cfg.mla is None:
-        raise NotImplementedError(f"{cfg.name}: only dense MLA models are ported "
-                                  "(layer_pattern ('mla',))")
+
+def _check_ported(cfg: ModelConfig) -> None:
+    missing = sorted(set(cfg.layer_pattern) - set(PORTED_KINDS))
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: layer kinds {missing} are not ported "
+                                  f"(ported: {PORTED_KINDS})")
+    if "mla" in cfg.layer_pattern and cfg.mla is None:
+        raise ValueError(f"{cfg.name}: 'mla' layers need cfg.mla")
+
+
+def _attn_cfg(cfg: ModelConfig, kind: str) -> L.AttnConfig:
+    return L.AttnConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                        n_kv_heads=cfg.n_kv_heads, d_head=cfg.d_head,
+                        rope_theta=cfg.rope_theta, qkv_bias=cfg.qkv_bias,
+                        window=cfg.window if kind == "swa" else 0, use_rope=True)
 
 
 def _mla_cfg(cfg: ModelConfig) -> mla_lib.MLAConfig:
@@ -43,55 +68,99 @@ def _mla_cfg(cfg: ModelConfig) -> mla_lib.MLAConfig:
                              q_lora_rank=m.q_lora_rank, rope_theta=cfg.rope_theta)
 
 
-def _cache_cfg(cfg: ModelConfig) -> CacheConfig:
-    # the sink guard arms only on contiguous MLA caches (transformer.py:64-70)
+def _cache_cfg(cfg: ModelConfig, kind: str = "mla") -> CacheConfig:
+    # the window arms on 'swa' layers only; the sink guard only on
+    # contiguous MLA caches (transformer.py:64-70)
     return CacheConfig(fmt=cfg.kv_fmt, page_size=cfg.page_size,
-                       sink_tokens=0 if cfg.kv_paged else cfg.kv_sink_tokens)
+                       window=cfg.window if kind == "swa" else 0,
+                       sink_tokens=0 if kind != "mla" or cfg.kv_paged
+                       else cfg.kv_sink_tokens)
+
+
+def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device):
+    if kind == "mla":
+        mixer = mla_lib.init_mla_params(gen, _mla_cfg(cfg), dtype, device)
+    else:
+        mixer = L.init_attn_params(gen, _attn_cfg(cfg, kind), dtype, device)
+    return {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+            "mixer": mixer,
+            "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
+            "mlp": L.init_mlp_params(gen, cfg.d_model, cfg.d_ff, True, dtype, device)}
 
 
 def init_model(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
                device=None) -> dict[str, Any]:
     """Random weights from ``gen`` (a ``torch.Generator`` on ``device``)."""
-    _check_mla(cfg)
-    layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
-            "ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-            "mixer": mla_lib.init_mla_params(gen, _mla_cfg(cfg), dtype, device),
-            "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-            "mlp": L.init_mlp_params(gen, cfg.d_model, cfg.d_ff, True, dtype, device),
-        })
-    return {
+    _check_ported(cfg)
+    layers = [_init_layer(gen, cfg, kind, dtype, device) for kind in cfg.layer_kinds]
+    params = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype, device),
         "ln_f": torch.ones((cfg.d_model,), dtype=dtype, device=device),
         "layers": layers,
     }
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype, device)
+    return params
+
+
+def _init_layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int, device):
+    ccfg = _cache_cfg(cfg, kind)
+    if kind in ("attn", "swa"):
+        return init_gqa_cache(ccfg, batch, max_len, cfg.n_kv_heads, cfg.d_head,
+                              device=device)
+    dims = (cfg.mla.d_c, cfg.mla.d_rope)
+    if cfg.kv_paged:
+        # kv_pool_pages > 0: the engine's shared pool (transformer.py:266-270)
+        return init_paged_mla_cache(ccfg, batch, max_len, *dims, device=device,
+                                    n_pages=cfg.kv_pool_pages)
+    return init_mla_cache(ccfg, batch, max_len, *dims, device=device)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device=None) -> dict[str, Any]:
-    _check_mla(cfg)
-    ccfg = _cache_cfg(cfg)
-    dims = (cfg.mla.d_c, cfg.mla.d_rope)
-    if cfg.kv_paged:
-        # kv_pool_pages > 0: the engine's shared pool (transformer.py:266-270)
-        layers = [init_paged_mla_cache(ccfg, batch, max_len, *dims, device=device,
-                                       n_pages=cfg.kv_pool_pages)
-                  for _ in range(cfg.n_layers)]
-    else:
-        layers = [init_mla_cache(ccfg, batch, max_len, *dims, device=device)
-                  for _ in range(cfg.n_layers)]
-    return {"layers": layers}
+    _check_ported(cfg)
+    return {"layers": [_init_layer_state(cfg, kind, batch, max_len, device)
+                       for kind in cfg.layer_kinds]}
 
 
 def _apply_mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), cfg.act)
 
 
+def _table(params) -> torch.Tensor:
+    return params.get("unembed", params["embed"])
+
+
 def _logits(params, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding of the final normed hidden state: [B, V] f32."""
+    """Unembedding of the final normed hidden state: [B, V] f32."""
     x = L.rms_norm(x, params["ln_f"])
-    return torch.einsum("bd,vd->bv", x.float(), params["embed"].float())
+    return torch.einsum("bd,vd->bv", x.float(), _table(params).float())
+
+
+def _use_gqa_kernel(cfg: ModelConfig) -> bool:
+    """GQA layers take the kernel where the MLA layers' backend rule picks a
+    kernel backend (``decode_backend`` / ``use_kernels``)."""
+    return BK.resolve_backend(cfg.decode_backend, paged=cfg.kv_paged,
+                              use_kernels=cfg.use_kernels).kind == "kernel"
+
+
+def _attn_decode(p: L.AttnParams, cfg: ModelConfig, kind: str, x_t: torch.Tensor,
+                 cache, pos: torch.Tensor, active: torch.Tensor | None = None):
+    """One-token GQA / SWA decode against a quantized cache
+    (transformer.py:337-357). ``active`` [B] bool gates the cache append per
+    row; inactive rows keep a frozen cache and give finite outputs nobody
+    reads."""
+    acfg = _attn_cfg(cfg, kind)
+    ccfg = _cache_cfg(cfg, kind)
+    q, k, v = L.project_qkv(p, acfg, x_t[:, None, :], pos[:, None])
+    if active is not None:
+        q = torch.where(active[:, None, None, None], q, 0.0)
+    cache = gqa_append(cache, ccfg, k[:, 0], v[:, 0], active=active)
+    o = gqa_ops.gqa_decode(q[:, 0].float(), cache, pos, window=acfg.window,
+                           block_n=ccfg.page_size,
+                           fmt=ccfg.fmt if ccfg.quantized else "none",
+                           use_kernel=_use_gqa_kernel(cfg))
+    return torch.einsum("bhk,hkd->bd", o.to(x_t.dtype), p.wo), cache
 
 
 def _mla_decode(p: mla_lib.MLAParams, cfg: ModelConfig, x_t: torch.Tensor, cache,
@@ -151,36 +220,75 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state,
 
     ``active`` [B] bool (optional) marks rows still generating: inactive rows
     skip their cache append and run with zeroed queries."""
-    _check_mla(cfg)
+    _check_ported(cfg)
     x_t = L.embed(params["embed"], token)
     new_layers = []
-    for p, cache in zip(params["layers"], state["layers"]):
+    for p, kind, cache in zip(params["layers"], cfg.layer_kinds, state["layers"]):
         h = L.rms_norm(x_t, p["ln1"])
-        y, cache = _mla_decode(p["mixer"], cfg, h, cache, pos, active)
+        if kind == "mla":
+            y, cache = _mla_decode(p["mixer"], cfg, h, cache, pos, active)
+        else:
+            y, cache = _attn_decode(p["mixer"], cfg, kind, h, cache, pos, active)
         x_t = _apply_mlp(p, cfg, x_t + y)
         new_layers.append(cache)
     return _logits(params, x_t), {**state, "layers": new_layers}
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state):
-    """tokens [B, S] -> (last-token logits [B, V], filled decode state)."""
-    _check_mla(cfg)
+def _attention_train(p, cfg: ModelConfig, kind: str, h: torch.Tensor,
+                     positions: torch.Tensor) -> torch.Tensor:
+    if kind == "mla":
+        return mla_lib.mla_attention(p["mixer"], _mla_cfg(cfg), h, positions)
+    return L.attention_block(p["mixer"], _attn_cfg(cfg, kind), h, positions)
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor):
+    """Training forward (transformer.py:208): tokens [B, S] -> (logits
+    [B, S, V] f32, the MoE auxiliary loss, 0.0 for these dense models)."""
+    _check_ported(cfg)
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    mcfg = _mla_cfg(cfg)
-    fill = paged_mla_prefill if cfg.kv_paged else mla_prefill
-    new_layers = []
-    for p, cache in zip(params["layers"], state["layers"]):
-        h = L.rms_norm(x, p["ln1"])
+    for p, kind in zip(params["layers"], cfg.layer_kinds):
+        x = x + _attention_train(p, cfg, kind, L.rms_norm(x, p["ln1"]), positions)
+        x = _apply_mlp(p, cfg, x)
+    return L.unembed(_table(params), L.rms_norm(x, params["ln_f"])), 0.0
+
+
+def _prefill_layer(p, cfg: ModelConfig, kind: str, x: torch.Tensor, cache,
+                   positions: torch.Tensor):
+    """One layer over the prompt: its output and its filled cache
+    (transformer.py:537-553)."""
+    h = L.rms_norm(x, p["ln1"])
+    if kind == "mla":
+        mcfg = _mla_cfg(cfg)
         x = x + mla_lib.mla_attention(p["mixer"], mcfg, h, positions)
         c_kv, k_r = mla_lib.project_kv(p["mixer"], mcfg, h, positions)
-        new_layers.append(fill(cache, _cache_cfg(cfg), c_kv, k_r))
-        x = _apply_mlp(p, cfg, x)
+        fill = paged_mla_prefill if cfg.kv_paged else mla_prefill
+        cache = fill(cache, _cache_cfg(cfg), c_kv, k_r)
+    else:
+        acfg = _attn_cfg(cfg, kind)
+        q, k, v = L.project_qkv(p["mixer"], acfg, h, positions)
+        o = L.flash_sdpa(q, k, v, causal=True, window=acfg.window)
+        cache = gqa_prefill(cache, _cache_cfg(cfg, kind), k, v)
+        x = x + torch.einsum("bshk,hkd->bsd", o, p["mixer"].wo)
+    return _apply_mlp(p, cfg, x), cache
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state):
+    """tokens [B, S] -> (last-token logits [B, V], filled decode state)."""
+    _check_ported(cfg)
+    x = L.embed(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    new_layers = []
+    for p, kind, cache in zip(params["layers"], cfg.layer_kinds, state["layers"]):
+        x, cache = _prefill_layer(p, cfg, kind, x, cache, positions)
+        new_layers.append(cache)
     return _logits(params, x[:, -1]), {**state, "layers": new_layers}
 
 
 def _check_paged_mla(cfg: ModelConfig, what: str) -> None:
-    _check_mla(cfg)
+    if cfg.layer_pattern != ("mla",) or cfg.mla is None:
+        raise NotImplementedError(f"{what} drives the paged MLA pipeline; {cfg.name}'s "
+                                  f"layer pattern {cfg.layer_pattern} is not pure-MLA")
     if not cfg.kv_paged:
         raise ValueError(f"{what} drives the paged MLA pipeline; kv_paged=False "
                          "is unsupported")
@@ -265,5 +373,5 @@ def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, state,
         x, pool = _verify_mla_layer(p, cfg, x, pool, start)
         new_layers.append(pool)
     x = L.rms_norm(x, params["ln_f"])
-    logits = torch.einsum("bkd,vd->bkv", x.float(), params["embed"].float())
+    logits = torch.einsum("bkd,vd->bkv", x.float(), _table(params).float())
     return logits, {**state, "layers": new_layers}

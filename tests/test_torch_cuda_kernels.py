@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions
 on the card (phase 2 of chip_smoke.py at small sizes): paged and contiguous
-decode in both rescale modes, the sink guard, both combines, Fused-Q-Quant
-and Fused-K-Append. Needs an NVIDIA GPU and nvcc; skipped elsewhere. Run on
+decode in both rescale modes, the sink guard, both combines, Fused-Q-Quant,
+Fused-K-Append, the fetch-dequant kernel, the q_len > 1 verify mode and the
+GQA decode (#7). Needs an NVIDIA GPU and nvcc; skipped elsewhere. Run on
 the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
@@ -343,3 +344,62 @@ def test_fetch_dequant_kernel_bit_exact(cuda, fmt):
     cache = MLACache(*contig[3:6], args[7])
     _assert_bytes(FD.fetch_dequant(cache, page=page), FD.fetch_dequant_ref(cache))
     assert _lib.LAUNCHES == {"paged_fetch_dequant": 4, "fetch_dequant": 1}
+
+
+def _gqa_case(fmt, B, N, Hkv, g, dh, window, page, lens, seed=0):
+    """A GQA cache on the card: each row prefilled with ``lens[b]`` tokens
+    through the port's ring / linear prefill, and a query per row at
+    position ``lens[b] - 1``."""
+    from repro_torch.core.kvcache import GQACache, gqa_prefill, init_gqa_cache
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cfg = CacheConfig(fmt=fmt, page_size=page, window=window)
+    rows = []
+    for n in lens:
+        c = init_gqa_cache(cfg, 1, N, Hkv, dh, device="cuda")
+        if n:
+            c = gqa_prefill(c, cfg, torch.randn(1, n, Hkv, dh, generator=gen, device="cuda"),
+                            torch.randn(1, n, Hkv, dh, generator=gen, device="cuda"))
+        rows.append(c)
+    cache = GQACache(*(torch.cat(ts).contiguous() for ts in zip(*rows)))
+    q = torch.randn(B, Hkv * g, dh, generator=gen, device="cuda")
+    pos = torch.tensor([max(n - 1, 0) for n in lens], dtype=torch.int32, device="cuda")
+    return q, cache, pos
+
+
+@pytest.mark.parametrize("fmt", ["fp8_e4m3", "int8", "none"])
+@pytest.mark.parametrize("Hkv,g,dh,window,N,block", [
+    (8, 3, 128, 0, 192, 64),      # llama3.2-3b's heads
+    (2, 8, 64, 0, 160, 64),       # qwen2.5-3b-like, N not a multiple of the block
+    (4, 2, 32, 48, 96, 16),       # sliding window over a wrapped ring
+    (1, 8, 16, 0, 128, 128),      # MQA
+    (8, 1, 32, 0, 64, 16)])       # MHA
+def test_gqa_decode_kernel_matches_plain(cuda, fmt, Hkv, g, dh, window, N, block):
+    """#7 against its plain version (within 1e-5; NaN rows, from a row with
+    no token, equal), bitwise where the float64 sums' order does not show,
+    one launch counted per call."""
+    from repro_torch.kernels.gqa_decode import kernel as GK
+    from repro_torch.kernels.gqa_decode import ops as GO
+    q, cache, pos = _gqa_case(fmt, 3, N, Hkv, g, dh, window, 16, [N + 40 if window else N,
+                                                                 0, 37])
+    kw = dict(window=window, block_n=block, fmt=fmt)
+    _lib.reset_launches()
+    got = GO.gqa_decode(q, cache, pos, **kw)
+    assert _lib.LAUNCHES[GK.LAUNCH_KEY] == 1
+    want = GO.gqa_decode(q, cache, pos, use_kernel=False, **kw)
+    assert _lib.LAUNCHES[GK.LAUNCH_KEY] == 1
+    torch.testing.assert_close(got, want, equal_nan=True, **TOL)
+    assert torch.isnan(got[1]).all() and torch.isfinite(got[0]).all()
+    assert torch.isfinite(got[2]).all()
+
+
+def test_gqa_decode_rejections(cuda):
+    from repro_torch.kernels.gqa_decode import kernel as GK
+    q, cache, pos = _gqa_case("fp8_e4m3", 1, 64, 2, 2, 16, 0, 16, [10])
+    args = (cache.k, cache.v, cache.k_scale, cache.v_scale, cache.slot_pos, pos)
+    with pytest.raises(ValueError, match="KV block"):
+        GK.gqa_decode_cuda(q, *args, block_n=48)
+    with pytest.raises(ValueError, match="dtype"):
+        GK.gqa_decode_cuda(q, *args, fmt="int8")
+    with pytest.raises(ValueError, match="dh"):
+        GK.gqa_decode_cuda(q[..., :8].contiguous(), cache.k[..., :8].contiguous(),
+                           cache.v[..., :8].contiguous(), *args[2:])
