@@ -32,7 +32,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                prefill (the fused fetch-dequant kernel) against the same engine
                on the plain backend, with the oracle's agreement reported; E3
                speculative decoding (the q_len > 1 split-KV kernel) against the
-               non-speculative engine and the plain backend, and its AMLA mode.
+               non-speculative engine and the plain backend, and its AMLA mode
+               against the non-speculative AMLA engine and the plain AMLA
+               backend.
                Every run: fault counters 0, no leaked page;
   6. counts  — the launch counters, set to 0 just before and read just after
                each main path (phase 3's kernel steps, phase 4's and phase 5's
@@ -58,7 +60,11 @@ engine's shape, and the q_len > 1 verify mode of the split-KV kernels (#6,
 #2) at a verify shape and at ~32k: against the plain version, each row
 bitwise against the q_len = 1 kernel at its limit, and the q_len = 1
 launches bitwise against a build without the verify code
-(``-DSNAPMLA_NO_VERIFY``), whose q_len = 1 register counts must match.
+(``-DSNAPMLA_NO_VERIFY``), whose q_len = 1 register counts must match. Every
+decode launch of phase 2 is also repeated at each head-tile width the kernel
+is instantiated for (heads per CUDA block), bitwise equal to width 8, and one
+line gives each width's ms for B, A and K2 at the serving shape and at ~32k
+beside the width the wrappers pick.
 
 The line before the last holds the per-kernel JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, without
@@ -180,6 +186,22 @@ def check_bitwise(name, got, want) -> None:
     if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
             a.view(torch.uint8), b.view(torch.uint8)):
         raise AssertionError(f"{name}: not bit-identical")
+
+
+def width_gate(name, call) -> None:
+    """The decode launches inside ``call`` at every instantiated head-tile
+    width give width 8's bits (outputs and partials)."""
+    from repro_torch.kernels.mla_decode import kernel as K
+
+    def flat(x):
+        return [t for y in x for t in flat(y)] if isinstance(x, (tuple, list)) else [x]
+    with K.forced_head_width(8):
+        want = flat(call())
+    for w in K.HEAD_WIDTHS[1:]:
+        with K.forced_head_width(w):
+            got = flat(call())
+        for a, b in zip(got, want, strict=True):
+            check_bitwise(f"{name} width {w} vs width 8", a, b)
 
 
 def time_ms(fn, reps: int = 3) -> float:
@@ -352,6 +374,7 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
                     table = 0
                 (o, lse, parts), (o_r, lse_r, parts_r) = got, want
                 lbl = f"{tag} {name} S={S}"
+                width_gate(lbl, partials)
                 err = max(check_close(f"{lbl} o", o, o_r, equal_nan=True, **o_tol),
                           check_close(f"{lbl} lse", lse, lse_r, equal_nan=True, **lse_tol))
                 if amla:   # g: integer grid exponents, exact
@@ -386,6 +409,7 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
                     check_bitwise(f"{tag} {rescale} S={S} contiguous vs paged", a, b)
             emit(phase="kernels", case=tag, fmt=fmt, rescale=rescale, splits=S,
                  layouts=list(outs), bitwise_contiguous_vs_paged=len(outs) == 2,
+                 bitwise_widths=True,
                  max_abs_err={k[0]: v["max_abs_err"] for k, v in records.items()
                               if k[1] == tag and k[2] == S})
         # single pass (B / #1), against its plain version (the empty row is
@@ -411,6 +435,7 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
                 table = 0
             o, lse = fn()
             o_r, lse_r = plain()
+            width_gate(f"{tag} {name}", fn)
             err = max(check_close(f"{tag} {name} o", o, o_r, equal_nan=True, **o_tol),
                       check_close(f"{tag} {name} lse", lse, lse_r, equal_nan=True, **lse_tol))
             for a, b in zip(single_live, one):
@@ -423,7 +448,7 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
                 check_bitwise(f"{tag} {rescale} single pass contiguous vs paged", a, b)
         emit(phase="kernels", case=tag, fmt=fmt, rescale=rescale, kernel="single pass",
              layouts=list(outs), bitwise_vs_one_split=True,
-             bitwise_contiguous_vs_paged=len(outs) == 2)
+             bitwise_contiguous_vs_paged=len(outs) == 2, bitwise_widths=True)
     if fmt != "none":   # D: bit-identical to its plain version
         from repro_torch.kernels.quantize import kernel as QK
         from repro_torch.kernels.quantize import ref as QR
@@ -571,6 +596,10 @@ def verify_checks(gen, lens, P, q_len, splits_list, scale, *, tag, records):
             o_r, lse_r, parts_r = R.snapmla_decode_paged_splitkv_ref(
                 *pgd, num_splits=S, return_partials=True, **kw)
             lbl = f"{tag} verify q_len={q_len} {rescale} S={S}"
+            width_gate(lbl, lambda S=S: K.mla_decode_paged_splitkv_cuda(
+                *pgd, num_splits=S, return_partials=True, **kw))
+            width_gate(f"{lbl} contiguous", lambda S=S: K.mla_decode_splitkv_cuda(
+                *ctg, num_splits=S, block_n=PAGE, return_partials=True, **kw))
             err = max(check_close(f"{lbl} o", o, o_r, equal_nan=True, **o_tol),
                       check_close(f"{lbl} lse", lse, lse_r, equal_nan=True, **lse_tol))
             if amla:
@@ -615,10 +644,42 @@ def verify_checks(gen, lens, P, q_len, splits_list, scale, *, tag, records):
                     "bound_ms": decode_bound(lens, "fp8_e4m3", S, P)[0], "bound_by": "bytes"}
             emit(phase="kernels", case=tag, kernel="verify", q_len=q_len, rescale=rescale,
                  splits=S, lens=lens, rows=q_len * H, max_abs_err=err,
-                 bitwise_contiguous_vs_paged=True, bitwise_rows_vs_q_len_1=True)
+                 bitwise_contiguous_vs_paged=True, bitwise_rows_vs_q_len_1=True,
+                 bitwise_widths=True)
     emit(phase="kernels", case=tag, kernel="verify timing", q_len=q_len,
          ms={f"{k[0]} S={k[2]}": v.get("ms") for k, v in records.items()
              if k[1] == tag and v.get("ms") is not None})
+
+
+def width_sweep(gen, scale) -> None:
+    """Each head-tile width's ms for B (paged single pass), A (paged split)
+    and K2 (the verify mode) at the serving shape and at ~32k, beside the
+    width ``head_width`` picks there: one line."""
+    from repro_torch.kernels.mla_decode import kernel as K
+    sms = K._sm_count(0)
+    rows = []
+    for tag, lens, P, q_len, S_a, S_v in (("serve_shape", [527, 512, 520, 513], 5, 5, 4, 1),
+                                          ("long_32k", [0, PAGE, 32768, 20000], 256, 4, 8, 8)):
+        q, cache, pool = make_case(gen, "fp8_e4m3", lens, P)
+        qv = K._flatten_q(*verify_query(gen, len(lens), q_len))[:3]
+        kw = dict(softmax_scale=scale, fmt="fp8_e4m3")
+        B = len(lens)
+        cases = {
+            "B": (lambda: K.paged_decode_partials_cuda(*q, *pool, num_splits=1,
+                                                       single_pass=True, **kw), H, 1),
+            f"A S={S_a}": (lambda: K.paged_decode_partials_cuda(*q, *pool, num_splits=S_a,
+                                                                single_pass=False, **kw), H, S_a),
+            f"K2 q_len={q_len} S={S_v}": (lambda: K.paged_decode_partials_cuda(
+                *qv, *pool, num_splits=S_v, single_pass=False, q_len=q_len, **kw),
+                q_len * H, S_v)}
+        for name, (fn, n_rows, S) in cases.items():
+            ms = {}
+            for w in K.HEAD_WIDTHS:
+                with K.forced_head_width(w):
+                    ms[w] = kernel_ms(fn)
+            rows.append(dict(case=tag, kernel=name, ms_by_width=ms,
+                             picked=K.head_width(B, n_rows, S, sms)))
+    emit(phase="kernels", check="head-tile widths", sms=sms, widths=rows)
 
 
 def ptxas_registers(log: str) -> dict:
@@ -659,14 +720,17 @@ def no_verify_checks(gen, variant, scale):
                   lambda kw=kw: K.mla_decode_paged_cuda(*pgd, **kw),
                   lambda kw=kw: K.mla_decode_splitkv_cuda(*ctg, num_splits=4, block_n=PAGE, **kw),
                   lambda kw=kw: K.mla_decode_cuda(*ctg, block_n=PAGE, **kw)]
-    for i, call in enumerate(calls):
-        got = call()
-        with _lib.using(variant):
-            want = call()
-        for a, b in zip(got, want):
-            check_bitwise(f"q_len = 1 launch {i} vs the build without the verify code", a, b)
+    for w in K.HEAD_WIDTHS:
+        with K.forced_head_width(w):
+            for i, call in enumerate(calls):
+                got = call()
+                with _lib.using(variant):
+                    want = call()
+                for a, b in zip(got, want):
+                    check_bitwise(f"q_len = 1 launch {i} at width {w} vs the build without "
+                                  "the verify code", a, b)
     emit(phase="kernels", check="q_len = 1 without the verify code", launches=len(calls),
-         bitwise=True, registers_equal=True,
+         widths=list(K.HEAD_WIDTHS), bitwise=True, registers_equal=True,
          registers={k[:60]: v for k, v in sorted(dec.items())},
          verify_instantiations={k[:60]: main_regs[k] for k in verify_only})
 
@@ -1071,17 +1135,34 @@ def phase_engine(base, params, serve_tps):
          near_tie_flips_vs_plain=flips3, dispatches=dict(e3.dispatches),
          launches=e3.launches, non_spec_dispatches=dict(e3n.dispatches),
          non_spec_launches=e3n.launches)
+    # E3's AMLA mode, held to the same two checks as FMA: the non-speculative
+    # AMLA engine (exactly) and the plain AMLA backend forced onto its tokens;
+    # its agreement with the FMA run is reported only (AMLA and FMA differ
+    # by ~2% of tokens under FP8, tests/test_parity.py:168-186)
     acfg = dataclasses.replace(kcfg, kv_rescale="amla")
     e3a, r3a, w3a, _ = run(acfg, a3)
     m3a = gate("E3 amla", e3a, r3a, amla=True)
+    e3an, r3an, w3an, _ = run(acfg, a3n)
+    m3an = gate("E3 amla non-speculative", e3an, r3an, amla=True)
+    if tokens(r3a) != tokens(r3an):
+        rid = next(i for i in sorted(r3a) if r3a[i].tokens != r3an[i].tokens)
+        raise AssertionError(f"E3 amla: speculative tokens differ from sequential for request "
+                             f"{rid}: {r3a[rid].tokens} vs {r3an[rid].tokens}")
+    p3a, pw3a, worst3a, flips3a = held_to_plain(
+        "E3 amla kernel vs plain backend", e3a, r3a,
+        dataclasses.replace(pcfg, kv_rescale="amla"), a3)
     emit(phase="engine", run="E3 amla", seconds=w3a, steps=m3a["steps"],
          tok_per_s=m3a["wall"]["decode_tok_per_s"],
          drafted=m3a["speculative"]["drafted_tokens"],
          accepted=m3a["speculative"]["accepted_tokens"],
+         non_spec_steps=m3an["steps"], non_spec_seconds=w3an, plain_spec_seconds=pw3a,
+         tokens_equal_non_speculative=True, rows_vs_plain=len(e3a.step_logits),
+         max_row_rel_err_vs_plain=worst3a, near_tie_flips_vs_plain=flips3a,
          token_agreement_vs_fma=sum(a == b for i in r3 for a, b in
                                     zip(r3[i].tokens, r3a[i].tokens)) / sum(
              len(r.tokens) for r in r3.values()),
-         dispatches=dict(e3a.dispatches), launches=e3a.launches)
+         dispatches=dict(e3a.dispatches), launches=e3a.launches,
+         non_spec_dispatches=dict(e3an.dispatches), non_spec_launches=e3an.launches)
     return launches
 
 
@@ -1422,6 +1503,7 @@ def main() -> int:
     verify_checks(gen, long_lens, 256, 4, [1, 4, 8], scale, tag="long_32k_verify",
                   records=records)
     no_verify_checks(gen, variant_lib, scale)
+    width_sweep(gen, scale)
     emit(phase="kernels_done", seconds=time.time() - t0)
 
     # 3. one full-width layer, paged and contiguous (a counted main path)

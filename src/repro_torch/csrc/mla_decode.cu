@@ -19,14 +19,34 @@
 // (kAmla = false) and "amla" (kAmla = true, kernel.py:152-177), and the
 // q_len > 1 verify mode of A and #2 (kVerify = true, kernel.py:381-399).
 //
-// Design. One block of 512 threads per (head tile of kHeads heads, split,
-// batch row); the block walks its split's KV blocks in order (the sigma_p
-// scale chain needs monotone order, kernel.py:27-38). KV block g of row b is
-// block page_table[b, g] of the pool, or block b*P + g of a contiguous
-// [B, P*bn, .] cache — the same address with the identity table, so the
-// paged and contiguous kernels run one code path and agree bit for bit when
-// block_n equals the page. Per block it stages content, rope and scale in
-// shared memory, then
+// Design. One block of 512 threads per (head tile of W heads, split, batch
+// row); the block walks its split's KV blocks in order (the sigma_p scale
+// chain needs monotone order, kernel.py:27-38). KV block g of row b is block
+// page_table[b, g] of the pool, or block b*P + g of a contiguous [B, P*bn, .]
+// cache — the same address with the identity table, so the paged and
+// contiguous kernels run one code path and agree bit for bit when block_n
+// equals the page.
+//
+// Schedule. The head-tile width W is a template parameter (kWide = 8 and
+// kNarrow); the wrapper picks it per launch so that B x ceil(H / W) x
+// splits blocks cover the SMs with the fewest re-reads of each KV block from
+// L2 (kernel.py::head_width). The width only decides which block computes a
+// head: every sum below runs per head, in the same order, at every width, so
+// the outputs are bit-identical across widths. The KV blocks are staged
+// through a ring of D shared-memory stages: each stage holds one block's
+// content, rope and scales in the padded row layout, filled by cp.async
+// copies of 16 bytes (8 or 4 where a row or its padded stride is not a
+// multiple of 16), one commit group per block. Blocks g + 1 .. g + D - 1 are
+// in flight while block g computes; a block's stage is refilled only after
+// the barrier that closes the block that last read it. Dead blocks issue no
+// copies (an empty group keeps the count), so no step waits on a stage that
+// was never filled. D is the deepest ring that fits (at most kMaxStages; 2
+// at block 128 in fp8) — unless the grid has more blocks than SMs and the
+// kernel's registers allow two blocks per SM (the narrow tile): then the
+// deepest ring that lets two blocks share an SM (1 at block 128 in fp8), so
+// one block's loads and latencies overlap the other's compute.
+//
+// Per block, on the staged tiles:
 //   1. s = (q_c8.C + q_r.R) * (sigma_q x sigma_k) * scale, masked to
 //      tok < seq_len with the -1e30 sentinel. A group of lanes per token
 //      widens the token's content once for all heads of the tile. Both dots
@@ -59,10 +79,10 @@
 // [B, q_len, H, .] flattened head-major to R = q_len*H rows, row = t*H + h,
 // and the wrappers pass R as the kernel's head count). Row t attends tokens
 // < seq_len - (q_len - 1) + t, so each row of a head tile carries its own limit
-// (a tile of kHeads rows straddles positions when H < kHeads). The block-level
-// early exit still uses seq_len. A row with no valid token in a live block
-// keeps its state exactly (the reference's row_guard): its sigma_p (FMA) or
-// e (AMLA) is pinned to the carried value, so its rescale is exactly 1 or 2^0
+// (a tile of W rows straddles positions when H < W). The block-level early
+// exit still uses seq_len. A row with no valid token in a live block keeps
+// its state exactly (the reference's row_guard): its sigma_p (FMA) or e
+// (AMLA) is pinned to the carried value, so its rescale is exactly 1 or 2^0
 // and its P entries are exact zeros; a row with no valid token in a split
 // publishes the empty partial. The mask and the guard are compiled only into
 // the kVerify instantiations, so q_len = 1 launches run the kernels compiled
@@ -80,25 +100,42 @@
 //
 // Bound on the H100: 644 bytes per live token (512 fp8 content + 128 bf16
 // rope + 4 scale) at 3.35 TB/s, i.e. memory-bound at the card's rates. This
-// simple version is far from that bound: the float64 QK dot and the conversions
-// run on the CUDA cores, each head tile re-reads its block (from L2), and the
-// loads are not overlapped with compute. Left for later: fp8 wgmma for QK and
-// PV with an exactness-preserving accumulation, TMA block loads in a ring of
-// shared-memory stages, all heads of a row in one warp-specialised block, and
-// the combine folded into the split kernel's epilogue.
+// version is still far from it: per block, the float64 QK dot (W x 73,728
+// DFMAs, each reading its query value from shared memory) and the PV run on
+// the CUDA cores, about 55% and 34% of a width-8 block's time, while the
+// staged loads are 4-20% (H100 runs with parts of the kernel switched off);
+// each head tile re-reads its block from L2. Left for later: fp8 wgmma for QK
+// and PV with an exactness-preserving accumulation (P's fp8 rounding flips
+// on a one-ulp change of a logit); the fp8 / int8 content dot, exact in
+// float64 in any order, register-blocked over tokens and heads; warp
+// specialisation (a producer warp issuing TMA loads, consumer warpgroups);
+// the combine (C, #4) folded into the split kernel's epilogue.
 #include "common.cuh"
 
 namespace snap {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kHeads = 8;           // heads per block: one warp per head in step 2
-constexpr int kMaxDcPerThread = 2;  // d_c <= kThreads * kMaxDcPerThread
+constexpr int kMaxDc = 1024;               // the largest latent width taken
+constexpr int kCols = 2;                   // latent columns per thread in step 3
+static_assert(kThreads * kCols >= kMaxDc, "step 3 covers every column");
+constexpr int kMaxStages = 4;              // shared-memory stages of the KV ring
+constexpr int kSmemLimit = 227 * 1024;     // dynamic shared memory of one block
+constexpr int kSmemPerSm = 228 * 1024;     // of one SM, for all its blocks
+constexpr int kSmemReserved = 1024;        // the system's share of each block
+constexpr int kRegsPerSm = 65536;
+// head-tile widths (heads per block), instantiated for every mode; the
+// wrapper's HEAD_WIDTHS (kernels/mla_decode/kernel.py) lists the same two
+constexpr int kWide = 8;
+constexpr int kNarrow = 1;
 
-// byte offsets into the dynamic shared memory of one block
+// byte offsets into the dynamic shared memory of one block; c, r and sk are
+// offsets inside a stage, the ring's stage i starting at stage + i*stage_bytes
 struct Layout {
-  int q, qr, c, r, sk, p, state, total;
+  int q, qr, p, state, stage, stage_bytes, stages, total;
+  int c, r, sk;
   int c_row_words, r_row_words;
+  int c_chunk, r_chunk, sk_chunk;  // bytes per cp.async copy (16, 8 or 4)
 };
 
 static int take(int& off, int bytes) {
@@ -114,23 +151,100 @@ static int padded_row_words(int words, int tpt) {
   return words + (((tpt - words) % 32) + 32) % 32;
 }
 
-template <int F>
-static Layout layout(int d_c, int d_r, int bn) {
+template <int F, int W>
+static Layout layout(int d_c, int d_r, int bn, int stages) {
   Layout L;
   const int esize = sizeof(typename Format<F>::T);
   const int tpt = kThreads / bn;
   L.c_row_words = padded_row_words(d_c * esize / 4, tpt);
   L.r_row_words = padded_row_words(d_r / 2, tpt);
   int off = 0;
-  L.q = take(off, kHeads * d_c * 8);
-  L.qr = take(off, kHeads * d_r * 8);
-  L.c = take(off, bn * L.c_row_words * 4);
-  L.r = take(off, bn * L.r_row_words * 4);
-  L.sk = take(off, bn * 4);
-  L.p = take(off, kHeads * bn * 4);
-  L.state = take(off, 4 * kHeads * 4);
+  L.q = take(off, W * d_c * 8);
+  L.qr = take(off, W * d_r * 8);
+  L.p = take(off, W * bn * 4);
+  L.state = take(off, 4 * W * 4);
+  int s = 0;
+  L.c = take(s, bn * L.c_row_words * 4);
+  L.r = take(s, bn * L.r_row_words * 4);
+  L.sk = take(s, bn * 4);
+  L.stage_bytes = s;
+  L.stages = stages;
+  L.stage = take(off, stages * s);
   L.total = off;
   return L;
+}
+
+// The widest cp.async copy (16, 8 or 4 bytes) that divides a row, its
+// shared-memory stride and the alignment of its source; 0 if none does.
+static int chunk_bytes(int row_bytes, int stride_bytes, const void* src) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  for (int c = 16; c >= 4; c /= 2)
+    if (row_bytes % c == 0 && stride_bytes % c == 0 && a % c == 0) return c;
+  return 0;
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(N)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n (< kMaxStages) of this thread's groups are pending
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+// This thread's share of copying `rows` rows of `per_row` pieces, contiguous
+// in global memory, into shared rows `stride` bytes apart: pieces tid,
+// tid + kThreads, ...; (t0, c0) is piece tid's (row, column) and (dq, dr)
+// the step of kThreads pieces, so the walk needs no division per piece.
+struct Walk {
+  int per_row, t0, c0, dq, dr;
+};
+
+__device__ __forceinline__ Walk make_walk(int row_bytes, int chunk) {
+  Walk w;
+  w.per_row = row_bytes / chunk;
+  w.t0 = threadIdx.x / w.per_row;
+  w.c0 = threadIdx.x - w.t0 * w.per_row;
+  w.dq = kThreads / w.per_row;
+  w.dr = kThreads - w.dq * w.per_row;
+  return w;
+}
+
+template <int N>
+__device__ __forceinline__ void copy_rows(unsigned char* dst, const unsigned char* src, int rows,
+                                          int stride, const Walk& w) {
+  int t = w.t0, c = w.c0;
+  for (int i = threadIdx.x; t < rows; i += kThreads) {
+    cp_async<N>(dst + t * stride + c * N, src + static_cast<size_t>(i) * N);
+    t += w.dq;
+    c += w.dr;
+    if (c >= w.per_row) {
+      c -= w.per_row;
+      ++t;
+    }
+  }
+}
+
+__device__ __forceinline__ void copy_region(int chunk, unsigned char* dst, const unsigned char* src,
+                                            int rows, int stride, const Walk& w) {
+  if (chunk == 16) copy_rows<16>(dst, src, rows, stride, w);
+  else if (chunk == 8) copy_rows<8>(dst, src, rows, stride, w);
+  else copy_rows<4>(dst, src, rows, stride, w);
 }
 
 __device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
@@ -166,15 +280,46 @@ template <> struct Unpack<kNone> {
   }
 };
 
+// The N (2 or 4) consecutive content values at p of one staged row, widened
+// to float (exactly), read as one or two 32-bit words (a 16-bit one for two
+// 8-bit values).
+template <int F, int N>
+__device__ __forceinline__ void widen_cols(const unsigned char* p, float (&c)[N]) {
+  if constexpr (F == kNone) {
+#pragma unroll
+    for (int k = 0; k < N; k += 2) {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(p + 2 * k);
+      c[k] = bf16_lo(v);
+      c[k + 1] = bf16_hi(v);
+    }
+  } else {
+    const uint32_t v = N == 4 ? *reinterpret_cast<const uint32_t*>(p)
+                              : *reinterpret_cast<const uint16_t*>(p);
+#pragma unroll
+    for (int k = 0; k < N; k += 2) {
+      const uint32_t pair = (v >> (8 * k)) & 0xffffu;
+      if constexpr (F == kFp8) {
+        const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+            static_cast<__nv_fp8x2_storage_t>(pair), __NV_E4M3)));
+        c[k] = f.x;
+        c[k + 1] = f.y;
+      } else {
+        c[k] = static_cast<int8_t>(pair & 0xffu);
+        c[k + 1] = static_cast<int8_t>(pair >> 8);
+      }
+    }
+  }
+}
+
 // Add one content word's values (widened to float64) times the query of every
 // head of the tile: ac[h] += q[h, w*N + e] * cv[e], in that order.
-template <int N>
-__device__ __forceinline__ void qk_word(double (&ac)[kHeads], const double* q, const double (&cv)[N],
+template <int N, int W>
+__device__ __forceinline__ void qk_word(double (&ac)[W], const double* q, const double (&cv)[N],
                                         int d_c, int nh) {
 #pragma unroll
   for (int e = 0; e < N; ++e)
 #pragma unroll
-    for (int h = 0; h < kHeads; ++h)
+    for (int h = 0; h < W; ++h)
       if (h < nh) ac[h] = fma(q[h * d_c + e], cv[e], ac[h]);
 }
 
@@ -184,7 +329,7 @@ __device__ __forceinline__ float sink_value(const float* __restrict__ sink, int 
   return __fdiv_rn(sink[(static_cast<size_t>(b) * S_k + tok) * d_c + d], fmaxf(scale, kTiny));
 }
 
-template <int F, bool kSinglePass, bool kAmla, bool kSink, bool kVerify>
+template <int F, int W, bool kSinglePass, bool kAmla, bool kSink, bool kVerify>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
               const float* __restrict__ q_r, const float* __restrict__ sigma_q,
@@ -200,19 +345,18 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
   extern __shared__ __align__(16) unsigned char smem[];
   double* q_s = reinterpret_cast<double*>(smem + L.q);
   double* qr_s = reinterpret_cast<double*>(smem + L.qr);
-  uint32_t* c_s = reinterpret_cast<uint32_t*>(smem + L.c);
-  uint32_t* r_s = reinterpret_cast<uint32_t*>(smem + L.r);
-  float* sk_s = reinterpret_cast<float*>(smem + L.sk);
+  unsigned char* ring = smem + L.stage;
   float* p_s = reinterpret_cast<float*>(smem + L.p);
   float* m_s = reinterpret_cast<float*>(smem + L.state);  // FMA: m; AMLA: i
-  float* l_s = m_s + kHeads;
-  float* sp_s = l_s + kHeads;                              // FMA: sigma_p; AMLA: e
-  float* corr_s = sp_s + kHeads;                           // FMA: corr
+  float* l_s = m_s + W;
+  float* sp_s = l_s + W;                                   // FMA: sigma_p; AMLA: e
+  float* corr_s = sp_s + W;                                // FMA: corr
   int* k_s = reinterpret_cast<int*>(corr_s);               // AMLA: k
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h0 = blockIdx.x * kHeads;
-  const int nh = min(kHeads, H - h0);
+  const int d0 = kCols * tid;  // the first latent column of this thread in step 3
+  const int h0 = blockIdx.x * W;
+  const int nh = min(W, H - h0);
   const int split = blockIdx.y, S = gridDim.y;
   const int b = blockIdx.z;
   const int seq_len = seq_lens[b];
@@ -224,45 +368,71 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
     else return seq_len;
   };
 
-  for (int i = tid; i < nh * d_c; i += kThreads) q_s[i] = Fm::widen(q_c8[row0 * d_c + i]);
-  const int tpt = kThreads / bn;  // lanes per token in step 1 (power of two, <= 32)
-  for (int i = tid; i < nh * d_r; i += kThreads) qr_s[i] = static_cast<double>(q_r[row0 * d_r + i]);
-  if (tid < kHeads) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-    sp_s[tid] = 1.f;
-  }
-  float acc[kHeads][kMaxDcPerThread];
-#pragma unroll
-  for (int h = 0; h < kHeads; ++h)
-#pragma unroll
-    for (int i = 0; i < kMaxDcPerThread; ++i) acc[h][i] = 0.f;
-  __syncthreads();
-
   const int c_words = d_c * static_cast<int>(sizeof(T)) / 4;  // words per content row
   const int r_words = d_r / 2;
   const int c_row_bytes = L.c_row_words * 4;
   const int first = split * blocks_per_split;
   const int last = min(first + blocks_per_split, P);
+  const int D = L.stages;
+  // the pool block holding KV block g of row b (g < last)
+  auto block_of = [&](int g) -> size_t {
+    if (g >= last) return 0;
+    return page_table != nullptr ? static_cast<size_t>(page_table[static_cast<size_t>(b) * P + g])
+                                 : static_cast<size_t>(b) * P + g;
+  };
+  // issue the copies of block g, pool block pid (none when g is past the
+  // split or dead), into its stage, (g - first) mod D, as one commit group
+  auto issue = [&](int g, size_t pid) {
+    if (g < last && g * bn < seq_len) {
+      const Walk wc = make_walk(c_words * 4, L.c_chunk);
+      const Walk wr = make_walk(r_words * 4, L.r_chunk);
+      const Walk ws = make_walk(bn * 4, L.sk_chunk);
+      unsigned char* st = ring + ((g - first) % D) * L.stage_bytes;
+      copy_region(L.c_chunk, st + L.c,
+                  reinterpret_cast<const unsigned char*>(content + pid * bn * d_c), bn,
+                  c_row_bytes, wc);
+      copy_region(L.r_chunk, st + L.r,
+                  reinterpret_cast<const unsigned char*>(rope + pid * bn * d_r), bn,
+                  L.r_row_words * 4, wr);
+      copy_region(L.sk_chunk, st + L.sk,
+                  reinterpret_cast<const unsigned char*>(scale + pid * bn), 1, 0, ws);
+    }
+    cp_async_commit();
+  };
+  for (int k = 0; k < D - 1; ++k) issue(first + k, block_of(first + k));  // in flight during the set-up
+  size_t pid_ahead = block_of(first + D - 1);
+
+  for (int i = tid; i < nh * d_c; i += kThreads) q_s[i] = Fm::widen(q_c8[row0 * d_c + i]);
+  const int tpt = kThreads / bn;  // lanes per token in step 1 (power of two, <= 32)
+  for (int i = tid; i < nh * d_r; i += kThreads) qr_s[i] = static_cast<double>(q_r[row0 * d_r + i]);
+  if (tid < W) {
+    m_s[tid] = kNegInf;
+    l_s[tid] = 0.f;
+    sp_s[tid] = 1.f;
+  }
+  float acc[W][kCols];
+#pragma unroll
+  for (int h = 0; h < W; ++h)
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) acc[h][k] = 0.f;
+  __syncthreads();
+
   for (int g = first; g < last; ++g) {
     const bool live = g * bn < seq_len;
     if (!kSinglePass && !live) break;  // early exit: valid tokens are a prefix
+    // refill the stage that block g - 1 read (its readers have passed the
+    // barrier that closed block g - 1); the page of the next refill is read
+    // now, one block ahead of its use
+    const size_t pid = pid_ahead;
+    pid_ahead = block_of(g + D);
+    issue(g + D - 1, pid);
+    unsigned char* st = ring + ((g - first) % D) * L.stage_bytes;
+    const uint32_t* c_s = reinterpret_cast<const uint32_t*>(st + L.c);
+    const uint32_t* r_s = reinterpret_cast<const uint32_t*>(st + L.r);
+    const float* sk_s = reinterpret_cast<const float*>(st + L.sk);
     if (live) {
-      const size_t pid = page_table != nullptr
-                             ? static_cast<size_t>(page_table[static_cast<size_t>(b) * P + g])
-                             : static_cast<size_t>(b) * P + g;
-      const uint32_t* src_c = reinterpret_cast<const uint32_t*>(content + pid * bn * d_c);
-      for (int i = tid; i < bn * c_words; i += kThreads) {
-        const int t = i / c_words;
-        c_s[t * L.c_row_words + (i - t * c_words)] = src_c[i];
-      }
-      const uint32_t* src_r = reinterpret_cast<const uint32_t*>(rope + pid * bn * d_r);
-      for (int i = tid; i < bn * r_words; i += kThreads) {
-        const int t = i / r_words;
-        r_s[t * L.r_row_words + (i - t * r_words)] = src_r[i];
-      }
-      for (int t = tid; t < bn; t += kThreads) sk_s[t] = scale[pid * bn + t];
-      __syncthreads();
+      cp_async_wait(D - 1);  // this thread's copies of block g have landed ...
+      __syncthreads();       // ... and every thread's
       // 1. uniform QK over [content | rope], one sigma_q x sigma_k rescale.
       // A group of tpt lanes per token: each lane widens a strided share of
       // the token's content once and accumulates it for every head of the
@@ -274,9 +444,9 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
         const int t = tid / tpt, j = tid - t * tpt;
         const int tok = g * bn + t;
         const bool valid = tok < seq_len;
-        double ac[kHeads], ar[kHeads];
+        double ac[W], ar[W];
 #pragma unroll
-        for (int h = 0; h < kHeads; ++h) ac[h] = ar[h] = 0.0;
+        for (int h = 0; h < W; ++h) ac[h] = ar[h] = 0.0;
         if (valid) {
           const uint32_t* crow = c_s + t * L.c_row_words;
           if (kSink && g * bn < S_k) {  // a block holding sink rows (one branch per block)
@@ -289,13 +459,13 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
                 for (int e = 0; e < U::kPerWord; ++e)
                   cv[e] = sink_value(sink, b, S_k, tok, w * U::kPerWord + e, d_c, sk_s[t]);
               }
-              qk_word<U::kPerWord>(ac, q_s + w * U::kPerWord, cv, d_c, nh);
+              qk_word<U::kPerWord, W>(ac, q_s + w * U::kPerWord, cv, d_c, nh);
             }
           } else {
             for (int w = j; w < c_words; w += tpt) {
               double cv[U::kPerWord];
               U::run(crow[w], cv);
-              qk_word<U::kPerWord>(ac, q_s + w * U::kPerWord, cv, d_c, nh);
+              qk_word<U::kPerWord, W>(ac, q_s + w * U::kPerWord, cv, d_c, nh);
             }
           }
           const uint32_t* rrow = r_s + t * L.r_row_words;
@@ -303,7 +473,7 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
             const uint32_t v = rrow[w];
             const double r0 = bf16_lo(v), r1 = bf16_hi(v);
 #pragma unroll
-            for (int h = 0; h < kHeads; ++h) {
+            for (int h = 0; h < W; ++h) {
               if (h < nh) {
                 ar[h] = fma(qr_s[h * d_r + 2 * w], r0, ar[h]);
                 ar[h] = fma(qr_s[h * d_r + 2 * w + 1], r1, ar[h]);
@@ -313,13 +483,13 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
         }
         for (int o = tpt / 2; o > 0; o >>= 1) {
 #pragma unroll
-          for (int h = 0; h < kHeads; ++h) {
+          for (int h = 0; h < W; ++h) {
             ac[h] += __shfl_xor_sync(0xffffffffu, ac[h], o);
             ar[h] += __shfl_xor_sync(0xffffffffu, ar[h], o);
           }
         }
 #pragma unroll
-        for (int h = 0; h < kHeads; ++h) {
+        for (int h = 0; h < W; ++h) {
           if (h < nh && (h & (tpt - 1)) == j) {
             float s = kNegInf;
             if (kVerify ? tok < limit(h) : valid) {
@@ -395,55 +565,67 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
     }
     __syncthreads();
 
-    // 3. implicit dequantization: acc = acc * corr + P8 . C
+    // 3. implicit dequantization: acc = acc * corr + P8 . C. Thread tid owns
+    // the kCols columns from d0 = kCols*tid, read together per token; each
+    // column sums its tokens in order.
+    if (d0 < d_c) {
+      float pv[W][kCols];
 #pragma unroll
-    for (int i = 0; i < kMaxDcPerThread; ++i) {
-      const int d = tid + i * kThreads;
-      if (d < d_c) {
-        float pv[kHeads];
+      for (int h = 0; h < W; ++h)
 #pragma unroll
-        for (int h = 0; h < kHeads; ++h) pv[h] = 0.f;
-        if (live) {
-          const unsigned char* col = reinterpret_cast<const unsigned char*>(c_s) + d * sizeof(T);
-          // the block's sink rows (tok < S_k), rounded up to 4, one token at
-          // a time; the rest four at a time (the same order of sums)
-          const int t_fast = kSink ? min(bn, max(0, S_k - g * bn + 3) / 4 * 4) : 0;
-          for (int t = 0; kSink && t < t_fast; ++t) {
-            const int tok = g * bn + t;
-            const float c = tok < S_k ? sink_value(sink, b, S_k, tok, d, d_c, sk_s[t])
-                                      : Fm::widen(*reinterpret_cast<const T*>(col + t * c_row_bytes));
+        for (int k = 0; k < kCols; ++k) pv[h][k] = 0.f;
+      if (live) {
+        const unsigned char* col = reinterpret_cast<const unsigned char*>(c_s) + d0 * sizeof(T);
+        // the block's sink rows (tok < S_k), rounded up to 4, one token at
+        // a time; the rest four at a time (the same order of sums)
+        const int t_fast = kSink ? min(bn, max(0, S_k - g * bn + 3) / 4 * 4) : 0;
+        for (int t = 0; kSink && t < t_fast; ++t) {
+          const int tok = g * bn + t;
+          float c[kCols];
+          widen_cols<F, kCols>(col + t * c_row_bytes, c);
+          if (tok < S_k) {
 #pragma unroll
-            for (int h = 0; h < kHeads; ++h)
-              if (h < nh) pv[h] = fmaf(p_s[h * bn + t], c, pv[h]);
+            for (int k = 0; k < kCols; ++k) c[k] = sink_value(sink, b, S_k, tok, d0 + k, d_c, sk_s[t]);
           }
-          for (int t = t_fast; t < bn; t += 4) {  // bn % 4 == 0: float4 reads of P
-            const unsigned char* ct = col + t * c_row_bytes;
-            const float c0 = Fm::widen(*reinterpret_cast<const T*>(ct));
-            const float c1 = Fm::widen(*reinterpret_cast<const T*>(ct + c_row_bytes));
-            const float c2 = Fm::widen(*reinterpret_cast<const T*>(ct + 2 * c_row_bytes));
-            const float c3 = Fm::widen(*reinterpret_cast<const T*>(ct + 3 * c_row_bytes));
 #pragma unroll
-            for (int h = 0; h < kHeads; ++h) {
-              if (h < nh) {
-                const float4 p4 = *reinterpret_cast<const float4*>(p_s + h * bn + t);
-                pv[h] = fmaf(p4.x, c0, pv[h]);
-                pv[h] = fmaf(p4.y, c1, pv[h]);
-                pv[h] = fmaf(p4.z, c2, pv[h]);
-                pv[h] = fmaf(p4.w, c3, pv[h]);
+          for (int h = 0; h < W; ++h)
+            if (h < nh)
+#pragma unroll
+              for (int k = 0; k < kCols; ++k) pv[h][k] = fmaf(p_s[h * bn + t], c[k], pv[h][k]);
+        }
+        for (int t = t_fast; t < bn; t += 4) {  // bn % 4 == 0: float4 reads of P
+          const unsigned char* ct = col + t * c_row_bytes;
+          float c0[kCols], c1[kCols], c2[kCols], c3[kCols];
+          widen_cols<F, kCols>(ct, c0);
+          widen_cols<F, kCols>(ct + c_row_bytes, c1);
+          widen_cols<F, kCols>(ct + 2 * c_row_bytes, c2);
+          widen_cols<F, kCols>(ct + 3 * c_row_bytes, c3);
+#pragma unroll
+          for (int h = 0; h < W; ++h) {
+            if (h < nh) {
+              const float4 p4 = *reinterpret_cast<const float4*>(p_s + h * bn + t);
+#pragma unroll
+              for (int k = 0; k < kCols; ++k) {
+                pv[h][k] = fmaf(p4.x, c0[k], pv[h][k]);
+                pv[h][k] = fmaf(p4.y, c1[k], pv[h][k]);
+                pv[h][k] = fmaf(p4.z, c2[k], pv[h][k]);
+                pv[h][k] = fmaf(p4.w, c3[k], pv[h][k]);
               }
             }
           }
         }
+      }
 #pragma unroll
-        for (int h = 0; h < kHeads; ++h) {
-          if (h < nh) {
-            acc[h][i] = kAmla ? __fadd_rn(exp2_mul(acc[h][i], k_s[h]), pv[h])
-                              : __fadd_rn(__fmul_rn(acc[h][i], corr_s[h]), pv[h]);
-          }
+      for (int h = 0; h < W; ++h) {
+        if (h < nh) {
+#pragma unroll
+          for (int k = 0; k < kCols; ++k)
+            acc[h][k] = kAmla ? __fadd_rn(exp2_mul(acc[h][k], k_s[h]), pv[h][k])
+                              : __fadd_rn(__fmul_rn(acc[h][k], corr_s[h]), pv[h][k]);
         }
       }
     }
-    __syncthreads();  // the next block overwrites the staged tiles
+    __syncthreads();  // closes block g: its stage may be refilled
   }
 
   // epilogue. FMA: (acc / l, m + log(sigma_p * l), sigma_p) — sigma_p cancels
@@ -451,18 +633,19 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
   // raw (acc, l, g = i + e), combined by amla_combine.
   const size_t out0 = (static_cast<size_t>(b) * S + split) * H + h0;
   const bool raw = kAmla && !kSinglePass;
+  if (d0 < d_c) {
 #pragma unroll
-  for (int i = 0; i < kMaxDcPerThread; ++i) {
-    const int d = tid + i * kThreads;
-    if (d < d_c) {
+    for (int h = 0; h < W; ++h) {
+      if (h < nh) {
+        const float l = l_s[h];
+        float o[kCols];
 #pragma unroll
-      for (int h = 0; h < kHeads; ++h) {
-        if (h < nh) {
-          const float l = l_s[h];
-          float o = raw ? acc[h][i] : acc[h][i] / l;
-          if (!kSinglePass && !kAmla && !(l > 0.f)) o = 0.f;  // empty split: neutral partial
-          o_part[(out0 + h) * d_c + d] = o;
+        for (int k = 0; k < kCols; ++k) {
+          o[k] = raw ? acc[h][k] : acc[h][k] / l;
+          if (!kSinglePass && !kAmla && !(l > 0.f)) o[k] = 0.f;  // empty split: neutral partial
         }
+#pragma unroll
+        for (int k = 0; k < kCols; ++k) o_part[(out0 + h) * d_c + d0 + k] = o[k];
       }
     }
   }
@@ -485,7 +668,7 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
   }
 }
 
-template <int F, bool kSinglePass, bool kAmla, bool kSink, bool kVerify>
+template <int F, int W, bool kSinglePass, bool kAmla, bool kSink, bool kVerify>
 static cudaError_t launch_decode(const void* q_c8, const float* q_r, const float* sigma_q,
                                  const void* content, const void* rope, const float* scale,
                                  const int* page_table, const int* seq_lens, const float* sink,
@@ -494,9 +677,33 @@ static cudaError_t launch_decode(const void* q_c8, const float* q_r, const float
                                  int blocks_per_split, float softmax_scale, int q_len,
                                  cudaStream_t stream) {
   using T = typename Format<F>::T;
-  const Layout L = layout<F>(d_c, d_r, bn);
-  if (L.total > 227 * 1024) return cudaErrorInvalidValue;
-  auto kern = decode_kernel<F, kSinglePass, kAmla, kSink, kVerify>;
+  auto kern = decode_kernel<F, W, kSinglePass, kAmla, kSink, kVerify>;
+  // registers per thread and SMs, read once (outside any graph capture)
+  static int regs = 0, sms = 0;
+  if (regs == 0) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kern);
+    if (err != cudaSuccess) return err;
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    regs = attr.numRegs;
+  }
+  // the deepest ring that fits; when the grid has more blocks than SMs and
+  // the registers allow two blocks per SM, the deepest ring that lets two
+  // blocks share an SM (each block's loads then overlap the other's compute)
+  const long long blocks = static_cast<long long>((H + W - 1) / W) * num_splits * B;
+  const bool two = blocks > sms && 2 * kThreads * regs <= kRegsPerSm;
+  const int limit = two ? kSmemPerSm / 2 - kSmemReserved : kSmemLimit;
+  Layout L = layout<F, W>(d_c, d_r, bn, kMaxStages);
+  for (int D = kMaxStages - 1; D >= 1 && L.total > limit; --D) L = layout<F, W>(d_c, d_r, bn, D);
+  if (L.total > limit) L = layout<F, W>(d_c, d_r, bn, 1);
+  if (L.total > kSmemLimit) return cudaErrorInvalidValue;
+  L.c_chunk = chunk_bytes(d_c * static_cast<int>(sizeof(T)), L.c_row_words * 4, content);
+  L.r_chunk = chunk_bytes(d_r * 2, L.r_row_words * 4, rope);
+  L.sk_chunk = chunk_bytes(bn * 4, bn * 4, scale);
+  if (!L.c_chunk || !L.r_chunk || !L.sk_chunk) return cudaErrorInvalidValue;
   // raise the kernel's dynamic shared-memory limit once (grow-only), so a
   // later call inside CUDA-graph capture makes no attribute call
   static int smem_limit = 0;
@@ -506,7 +713,7 @@ static cudaError_t launch_decode(const void* q_c8, const float* q_r, const float
     if (err != cudaSuccess) return err;
     smem_limit = L.total;
   }
-  const dim3 grid((H + kHeads - 1) / kHeads, num_splits, B);
+  const dim3 grid((H + W - 1) / W, num_splits, B);
   kern<<<grid, kThreads, L.total, stream>>>(
       static_cast<const T*>(q_c8), q_r, sigma_q, static_cast<const T*>(content),
       static_cast<const __nv_bfloat16*>(rope), scale, page_table, seq_lens, sink, S_k, o_part,
@@ -582,17 +789,18 @@ __global__ void amla_combine_kernel(const float* __restrict__ acc_part,
 // the template; page_table == nullptr selects contiguous block addressing
 // (content [B, P*block, d_c]); sink (with S_k rows) is the contiguous
 // cache's sink guard shadow or nullptr; q_len > 1 selects the verify mode
-// (split mode, no sink; H is then the row count q_len * heads).
+// (split mode, no sink; H is then the row count q_len * heads); width is the
+// head tile (heads per block), kWide or kNarrow.
 extern "C" int snapmla_decode(int fmt, int single_pass, int amla, const void* q_c8,
                               const void* q_r, const void* sigma_q, const void* content,
                               const void* rope, const void* scale, const void* page_table,
                               const void* seq_lens, const void* sink, int S_k, void* o_part,
                               void* lse_part, void* sp_part, int B, int H, int d_c, int d_r,
                               int block, int P, int num_splits, int blocks_per_split,
-                              float softmax_scale, int q_len, void* stream) {
+                              float softmax_scale, int q_len, int width, void* stream) {
   using namespace snap;
   if (d_c % 4 || d_r % 2 || block < kThreads / 32 || block > kThreads || kThreads % block ||
-      d_c > kThreads * kMaxDcPerThread || num_splits < 1 ||
+      d_c > kMaxDc || num_splits < 1 ||
       (single_pass && num_splits != 1) || S_k < 0 || (S_k > 0 && sink == nullptr) ||
       q_len < 1 || H % q_len || (q_len > 1 && (single_pass || S_k > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -606,10 +814,14 @@ extern "C" int snapmla_decode(int fmt, int single_pass, int amla, const void* q_
   auto* lp = static_cast<float*>(lse_part);
   auto* spp = static_cast<float*>(sp_part);
   auto st = static_cast<cudaStream_t>(stream);
-#define SNAP_LAUNCH(F, SP, AM, SK, VF)                                                         \
-  launch_decode<F, SP, AM, SK, VF>(q_c8, qr, sq, content, rope, sc, pt, sl, sk, S_k, op, lp,   \
-                                   spp, B, H, d_c, d_r, block, P, num_splits, blocks_per_split, \
-                                   softmax_scale, q_len, st)
+#define SNAP_LAUNCH_W(F, W, SP, AM, SK, VF)                                                      \
+  launch_decode<F, W, SP, AM, SK, VF>(q_c8, qr, sq, content, rope, sc, pt, sl, sk, S_k, op, lp,   \
+                                      spp, B, H, d_c, d_r, block, P, num_splits,                 \
+                                      blocks_per_split, softmax_scale, q_len, st)
+#define SNAP_LAUNCH(F, SP, AM, SK, VF)                 \
+  (width == kWide     ? SNAP_LAUNCH_W(F, kWide, SP, AM, SK, VF)   \
+   : width == kNarrow ? SNAP_LAUNCH_W(F, kNarrow, SP, AM, SK, VF) \
+                      : cudaErrorInvalidValue)
 #define SNAP_DECODE(F, SP, AM)                                                              \
   (S_k > 0 ? SNAP_LAUNCH(F, SP, AM, true, false) : SNAP_LAUNCH(F, SP, AM, false, false))
 #ifdef SNAPMLA_NO_VERIFY
@@ -633,6 +845,7 @@ extern "C" int snapmla_decode(int fmt, int single_pass, int amla, const void* q_
 #undef SNAP_VERIFY
 #undef SNAP_DECODE
 #undef SNAP_LAUNCH
+#undef SNAP_LAUNCH_W
   return static_cast<int>(err);
 }
 

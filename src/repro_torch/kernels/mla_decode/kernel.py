@@ -25,10 +25,17 @@ merges R rows, and ``_unflatten_rows`` gives o [B, q_len, H, d_c], lse
 [B, q_len, H] back. A rank-4 query with q_len = 1 runs the ordinary kernel
 and comes back rank-4. The verify mode takes no sink guard.
 
+Each decode launch computes its heads in tiles of ``head_width(...)`` heads
+per CUDA block, one of the two widths the kernel is instantiated for; the
+width changes which block computes a head, never a bit of the result.
+
 A wrapper runs its plain PyTorch version (``ref.py``) only when it is handed
 CPU tensors; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 
@@ -40,6 +47,40 @@ FMT_CODES = {"fp8_e4m3": 0, "int8": 1, "none": 2}
 STORAGE = {"fp8_e4m3": torch.float8_e4m3fn, "int8": torch.int8, "none": torch.bfloat16}
 BLOCK_SIZES = (16, 32, 64, 128, 256, 512)   # the KV block sizes the kernel takes
 RESCALES = ("fma", "amla")
+# head-tile widths instantiated in mla_decode.cu (kWide, kNarrow), widest first
+HEAD_WIDTHS = (8, 1)
+_forced_width: int | None = None
+
+
+def head_width(batch: int, rows: int, splits: int, sms: int) -> int:
+    """Heads per CUDA block of one decode launch: the widest instantiated
+    width whose grid, ``batch * ceil(rows / width) * splits`` blocks, covers
+    the card's ``sms`` SMs (a wider tile re-reads each KV block from L2 fewer
+    times), else the narrowest (the most blocks). ``rows`` is the head count,
+    ``q_len * heads`` in the verify mode."""
+    for w in HEAD_WIDTHS:
+        if batch * -(-rows // w) * splits >= sms:
+            return w
+    return HEAD_WIDTHS[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@contextlib.contextmanager
+def forced_head_width(width: int):
+    """Launch every decode kernel inside the block at ``width`` heads per
+    CUDA block in place of ``head_width``'s pick (to compare the widths)."""
+    global _forced_width
+    if width not in HEAD_WIDTHS:
+        raise ValueError(f"head width {width} is not one of {HEAD_WIDTHS}")
+    saved, _forced_width = _forced_width, width
+    try:
+        yield
+    finally:
+        _forced_width = saved
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -106,6 +147,7 @@ def _launch_decode(kernel: str, fmt: str, single_pass: bool, rescale: str, q_c8,
     amla = rescale == "amla"
     if q_len > 1:
         kernel += "_verify"
+    width = _forced_width or head_width(B, H, num_splits, _sm_count(dev.index or 0))
     _lib.launch(
         kernel + ("_amla" if amla else ""), "snapmla_decode", FMT_CODES[fmt],
         int(single_pass), int(amla), q_c8.data_ptr(), q_r.data_ptr(), sigma_q.data_ptr(),
@@ -114,7 +156,7 @@ def _launch_decode(kernel: str, fmt: str, single_pass: bool, rescale: str, q_c8,
         None if sink is None else sink.data_ptr(), 0 if sink is None else sink.shape[1],
         o_p.data_ptr(), lse_p.data_ptr(), None if sp_p is None else sp_p.data_ptr(),
         B, H, d_c, d_r, block, P, num_splits, -(-P // num_splits), float(softmax_scale),
-        q_len)
+        q_len, width)
     return o_p, lse_p, sp_p
 
 

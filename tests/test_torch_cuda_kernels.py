@@ -277,6 +277,61 @@ def _assert_verify_close(got, want, rescale):
         torch.testing.assert_close(lse, lse_r, equal_nan=True, **TOL)
 
 
+WIDTH_SHAPES = [(16, 12, 96, 32, 6), (64, 12, 256, 32, 4), (128, 32, 512, 64, 3),
+                (256, 9, 512, 64, 2)]
+
+
+@pytest.mark.parametrize("fmt", ["fp8_e4m3", "int8", "none"])
+@pytest.mark.parametrize("rescale", ["fma", "amla"])
+@pytest.mark.parametrize("page,H,d_c,d_r,P", WIDTH_SHAPES)
+def test_every_head_width_bitwise_equal_to_width_8(cuda, fmt, rescale, page, H, d_c, d_r, P):
+    """The head-tile width decides only which CUDA block computes a head:
+    every instantiated width gives width 8's bits in every mode — split and
+    single pass, paged and contiguous, the q_len > 1 verify mode and the
+    sink guard — on rows that are empty, ragged and full."""
+    if fmt == "none" and page == 256:
+        d_c = 256   # 256 bf16 rows of 512 do not fit one block's shared memory
+    lens = [0, P * page - page // 2 - 3, P * page, 5]
+    paged = _case(fmt, lens, P, page, H, d_c, d_r, seed=11)
+    contig = _contiguous(paged, P, page)
+    ver = _verify_case(fmt, lens, P, page, 3, H, d_c, d_r, seed=12)
+    ver_contig = _contiguous(ver, P, page)
+    kw = dict(softmax_scale=0.1, fmt=fmt, rescale=rescale)
+    calls = []
+    for S in (1, 2, P):
+        calls += [lambda S=S: K.mla_decode_paged_splitkv_cuda(*paged, num_splits=S,
+                                                              return_partials=True, **kw),
+                  lambda S=S: K.mla_decode_splitkv_cuda(*contig, num_splits=S, block_n=page,
+                                                        return_partials=True, **kw),
+                  lambda S=S: K.mla_decode_paged_splitkv_cuda(*ver, num_splits=S,
+                                                              return_partials=True, **kw),
+                  lambda S=S: K.mla_decode_splitkv_cuda(*ver_contig, num_splits=S,
+                                                        block_n=page, return_partials=True,
+                                                        **kw)]
+    calls += [lambda: K.mla_decode_paged_cuda(*paged, **kw),
+              lambda: K.mla_decode_cuda(*contig, block_n=page, **kw)]
+    if fmt == "fp8_e4m3":   # the sink guard (contiguous caches)
+        sink = torch.randn(len(lens), 4, d_c, generator=torch.Generator(device="cuda")
+                           .manual_seed(13), device="cuda")
+        calls += [lambda: K.mla_decode_cuda(*contig, block_n=page, sink=sink, **kw),
+                  lambda: K.mla_decode_splitkv_cuda(*contig, num_splits=2, block_n=page,
+                                                    sink=sink, **kw)]
+
+    def flat(x):
+        return [t for y in x for t in flat(y)] if isinstance(x, tuple) else [x]
+
+    for i, call in enumerate(calls):
+        with K.forced_head_width(8):
+            want = flat(call())
+        for w in K.HEAD_WIDTHS[1:]:
+            with K.forced_head_width(w):
+                got = flat(call())
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                assert torch.equal(a.contiguous().view(torch.uint8),
+                                   b.contiguous().view(torch.uint8)), (i, w)
+
+
 @pytest.mark.parametrize("rescale", ["fma", "amla"])
 @pytest.mark.parametrize("q_len", [2, 5])
 @pytest.mark.parametrize("fmt", ["fp8_e4m3", "none"])
