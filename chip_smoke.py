@@ -46,7 +46,12 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   8. gqa     — the dense GQA family, after mla-7b's weights are freed: the FP8
                GQA decode kernel (#7) against its plain version at llama3.2-3b's
                serving shape (fp8, int8, none), qwen2.5-3b's heads, gemma3-27b's
-               wrapped 1,024-slot ring, MQA, MHA and a ragged ~32k-token case;
+               wrapped 1,024-slot ring, MQA, MHA and a ragged ~32k-token case,
+               each at every head-tile width (bitwise equal to each other), one
+               line with each width's ms beside the rule's pick (adding two
+               batches past the SMs, checked the same way), and one with
+               the registers and spills of every #7 instantiation (a spill
+               fails);
                ``launch.serve.generate`` on full llama3.2-3b (28 layers, batch
                4, prompt 512, gen 16, fp8 and none) and on gemma3-27b at full
                width cut to one 6-layer superblock (batch 2, prompt 1,200 past
@@ -655,8 +660,9 @@ def width_sweep(gen, scale) -> None:
     """Each head-tile width's ms for B (paged single pass), A (paged split)
     and K2 (the verify mode) at the serving shape and at ~32k, beside the
     width ``head_width`` picks there: one line."""
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.mla_decode import kernel as K
-    sms = K._sm_count(0)
+    sms = _lib.sm_count(0)
     rows = []
     for tag, lens, P, q_len, S_a, S_v in (("serve_shape", [527, 512, 520, 513], 5, 5, 4, 1),
                                           ("long_32k", [0, PAGE, 32768, 20000], 256, 4, 8, 8)):
@@ -1225,6 +1231,16 @@ def phase_profile_engine(gen, base, params, prompts):
 # phase 8: the dense GQA family (llama3.2-3b full, gemma3-27b's window)
 GQA_LLAMA_LENS = [527, 512, 520, 513]          # positions 511-526, N = 640
 GQA_LONG_LENS = [0, PAGE, 32768, 20000]
+GQA_CASES = [  # #7's cases: (tag, fmt, lens, N, Hkv, g, dh, window, block)
+    ("gqa_llama_serve", "fp8_e4m3", GQA_LLAMA_LENS, 640, 8, 3, 128, 0, PAGE),
+    ("gqa_llama_serve_int8", "int8", GQA_LLAMA_LENS, 640, 8, 3, 128, 0, PAGE),
+    ("gqa_llama_serve_none", "none", GQA_LLAMA_LENS, 640, 8, 3, 128, 0, PAGE),
+    ("gqa_qwen_serve", "fp8_e4m3", GQA_LLAMA_LENS, 640, 2, 8, 128, 0, PAGE),
+    ("gqa_gemma_ring", "fp8_e4m3", [1200, 300], 1024, 16, 2, 128, 1024, PAGE),
+    ("gqa_mqa", "fp8_e4m3", [200, 37], 256, 1, 8, 64, 0, 64),
+    ("gqa_mha", "int8", [256, 100], 256, 8, 1, 64, 96, 64),
+    ("gqa_long_32k", "fp8_e4m3", GQA_LONG_LENS, 32768, 8, 3, 128, 0, PAGE)]
+GQA_SWEEP = ("gqa_llama_serve", "gqa_qwen_serve", "gqa_long_32k")  # the width line's cases
 GQA_SERVE = [  # (arch, layers kept (0 = all), batch, prompt, gen, formats)
     ("llama3.2-3b", 0, 4, 512, 16, ("fp8_e4m3", "none")),
     ("gemma3-27b", 6, 2, 1200, 16, ("fp8_e4m3",))]
@@ -1262,26 +1278,56 @@ def gqa_bound(cache, pos, window, g, fmt):
     return _bound(nbytes, valid * Hkv * g * 4 * dh, PEAK[fmt])
 
 
+def gqa_ptxas() -> None:
+    """Registers and spills of every #7 instantiation (format, head-tile
+    width), from the build's -Xptxas -v report: one line; raises on a spill
+    or a missing report."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.gqa_decode import kernel as GK
+    fmts = {v: k for k, v in GK.FMT_CODES.items()}
+    rows = {}
+    for block in _lib.BUILD_LOG.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        if "gqa_decode_kernel" in name:
+            f, w = re.search(r"ILi(\d+)ELi(\d+)E", name).groups()
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+            rows[f"{fmts[int(f)]} width {w}"] = dict(
+                registers=int(regs[1]) if regs else None,
+                spill_bytes=int(spill[1]) + int(spill[2]) if spill else None)
+    want = {f"{f} width {w}" for f in GK.FMT_CODES for w in GK.GQA_HEAD_WIDTHS}
+    if set(rows) != want or any(None in r.values() for r in rows.values()):
+        raise AssertionError(f"#7: ptxas report incomplete: {rows}")
+    spills = {k: r for k, r in rows.items() if r["spill_bytes"]}
+    if spills:
+        raise AssertionError(f"#7: ptxas reports spills: {spills}")
+    emit(phase="kernels", check="#7 ptxas", instantiations=rows)
+
+
 def gqa_checks(gen, records):
     """#7 against its plain version on the card, within rtol / atol 1e-5
     (NaN rows, from a row with no token, equal), bitwise equality recorded;
-    ms (CUDA-graph replay), plain ms and bound ms per case."""
+    every head-tile width bitwise equal to every other and to the rule's
+    pick; ms (CUDA-graph replay) at the rule's pick, plain ms and bound ms
+    per case; one line with each width's ms beside the pick."""
     import torch
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.gqa_decode import kernel as GK
     from repro_torch.kernels.gqa_decode import ops as GO
-    cases = [  # (tag, fmt, lens, N, Hkv, g, dh, window, block)
-        ("gqa_llama_serve", "fp8_e4m3", GQA_LLAMA_LENS, 640, 8, 3, 128, 0, PAGE),
-        ("gqa_llama_serve_int8", "int8", GQA_LLAMA_LENS, 640, 8, 3, 128, 0, PAGE),
-        ("gqa_llama_serve_none", "none", GQA_LLAMA_LENS, 640, 8, 3, 128, 0, PAGE),
-        ("gqa_qwen_serve", "fp8_e4m3", GQA_LLAMA_LENS, 640, 2, 8, 128, 0, PAGE),
-        ("gqa_gemma_ring", "fp8_e4m3", [1200, 300], 1024, 16, 2, 128, 1024, PAGE),
-        ("gqa_mqa", "fp8_e4m3", [200, 37], 256, 1, 8, 64, 0, 64),
-        ("gqa_mha", "int8", [256, 100], 256, 8, 1, 64, 96, 64),
-        ("gqa_long_32k", "fp8_e4m3", GQA_LONG_LENS, 32768, 8, 3, 128, 0, PAGE)]
-    for tag, fmt, lens, N, Hkv, g, dh, window, block in cases:
+    gqa_ptxas()
+    widths = GK.GQA_HEAD_WIDTHS
+    sweep = []
+    for tag, fmt, lens, N, Hkv, g, dh, window, block in GQA_CASES:
         q, cache, pos = gqa_case(gen, fmt, lens, N, Hkv, g, dh, window)
         kw = dict(window=window, block_n=block, fmt=fmt)
+        by_width = {}
+        for w in widths:
+            with GK.forced_gqa_head_width(w):
+                by_width[w] = GO.gqa_decode(q, cache, pos, **kw)
         got = GO.gqa_decode(q, cache, pos, **kw)
+        for w, o in by_width.items():
+            check_bitwise(f"{tag} #7 width {w} vs width {widths[0]}", o, by_width[widths[0]])
+        check_bitwise(f"{tag} #7 the rule's pick vs width {widths[0]}", got, by_width[widths[0]])
         want = GO.gqa_decode(q, cache, pos, use_kernel=False, **kw)
         err = check_close(f"{tag} #7", got, want, equal_nan=True, **TOL)
         empty = [b for b, n in enumerate(lens) if n == 0]
@@ -1295,10 +1341,44 @@ def gqa_checks(gen, records):
                    plain_ms=time_ms(lambda: GK.gqa_decode_plain(*args, **kw)),
                    bound_ms=bound[0], bound_by=bound[1])
         records[("gqa_decode", tag, 0)] = rec
+        pick = GK.gqa_head_width(len(lens), Hkv, g, _lib.sm_count(0))
         emit(phase="kernels", case=tag, kernel="#7 gqa_decode", fmt=fmt, lens=lens,
              capacity=cache.capacity, kv_heads=Hkv, g=g, dh=dh, window=window, block=block,
-             max_abs_err=err, bitwise=bitwise, **{k: v for k, v in rec.items()
-                                                  if k != "max_abs_err"})
+             max_abs_err=err, bitwise=bitwise, bitwise_widths=True, width=pick,
+             **{k: v for k, v in rec.items() if k != "max_abs_err"})
+        if tag in GQA_SWEEP:
+            sweep.append(dict(case=tag, picked=pick, ms_by_width=gqa_width_ms(
+                lambda: GK.gqa_decode_cuda(*args, **kw))))
+    # llama3.2-3b's heads at batches past the SMs: at 32 rows the rule picks
+    # the wide tile; at 8 rows in bf16, width 1 gives 192 blocks and the ring
+    # is cut so that two blocks share an SM
+    for tag, fmt, lens in (("gqa_llama_batch32", "fp8_e4m3", [520] * 32),
+                           ("gqa_llama_none_batch8", "none", [520] * 8)):
+        q, cache, pos = gqa_case(gen, fmt, lens, 640, 8, 3, 128)
+        kw = dict(window=0, block_n=PAGE, fmt=fmt)
+        by_width = {}
+        for w in widths:
+            with GK.forced_gqa_head_width(w):
+                by_width[w] = GO.gqa_decode(q, cache, pos, **kw)
+            check_bitwise(f"{tag} #7 width {w} vs width {widths[0]}", by_width[w],
+                          by_width[widths[0]])
+        check_close(f"{tag} #7", by_width[widths[0]],
+                    GO.gqa_decode(q, cache, pos, use_kernel=False, **kw), **TOL)
+        args = (q, cache.k, cache.v, cache.k_scale, cache.v_scale, cache.slot_pos, pos)
+        sweep.append(dict(case=tag, fmt=fmt, picked=GK.gqa_head_width(len(lens), 8, 3,
+                                                                      _lib.sm_count(0)),
+                          ms_by_width=gqa_width_ms(lambda: GK.gqa_decode_cuda(*args, **kw))))
+    emit(phase="kernels", check="gqa head-tile widths", sms=_lib.sm_count(0), widths=sweep)
+
+
+def gqa_width_ms(fn) -> dict:
+    """Each instantiated head-tile width's kernel ms for one #7 call."""
+    from repro_torch.kernels.gqa_decode import kernel as GK
+    out = {}
+    for w in GK.GQA_HEAD_WIDTHS:
+        with GK.forced_gqa_head_width(w):
+            out[w] = kernel_ms(fn)
+    return out
 
 
 class _CountDecodeSteps:

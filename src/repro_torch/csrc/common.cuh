@@ -1,5 +1,6 @@
 // Shared helpers of the SnapMLA Hopper kernels: storage formats, the exact
-// casts of repro_torch/core/quant.py, and warp reductions.
+// casts of repro_torch/core/quant.py, cp.async copies, the widening of a
+// packed 32-bit word, and warp reductions.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, never
 // --use_fast_math: expf/logf and IEEE division keep every kernel bit-equal
@@ -101,6 +102,81 @@ template <int F>
 __device__ __forceinline__ float pow2_scale_exponent(float amax) {
   return ceilf(__fmul_rn(logf(dynamic_scale<F>(amax)), kLog2e));
 }
+
+// --- asynchronous copies into shared memory (sm_80 and later) ---
+// cp.async of N (4, 8 or 16) bytes from global into shared memory
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(N)
+                 : "memory");
+}
+
+// cp.async of N (4, 8 or 16) bytes that reads nothing and zero-fills the
+// destination when ok is false (source size 0)
+template <int N>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(ok ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src), "n"(N),
+                 "r"(ok ? N : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n (<= 3) of this thread's groups are pending
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// The values packed in one 32-bit word of a stored row (an MLA content row,
+// a GQA K or V row), widened to float64 (exactly: every storage format is a
+// subset of float64).
+template <int F> struct Unpack;
+
+template <> struct Unpack<kFp8> {
+  static constexpr int kPerWord = 4;
+  static __device__ __forceinline__ void run(uint32_t v, double (&out)[4]) {
+    const float2 lo = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(v & 0xffffu), __NV_E4M3)));
+    const float2 hi = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
+        static_cast<__nv_fp8x2_storage_t>(v >> 16), __NV_E4M3)));
+    out[0] = lo.x; out[1] = lo.y; out[2] = hi.x; out[3] = hi.y;
+  }
+};
+
+template <> struct Unpack<kInt8> {
+  static constexpr int kPerWord = 4;
+  static __device__ __forceinline__ void run(uint32_t v, double (&out)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[e] = static_cast<int8_t>((v >> (8 * e)) & 0xffu);
+  }
+};
+
+template <> struct Unpack<kNone> {
+  static constexpr int kPerWord = 2;
+  static __device__ __forceinline__ void run(uint32_t v, double (&out)[2]) {
+    out[0] = bf16_lo(v); out[1] = bf16_hi(v);
+  }
+};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll

@@ -120,6 +120,7 @@ constexpr int kMaxDc = 1024;               // the largest latent width taken
 constexpr int kCols = 2;                   // latent columns per thread in step 3
 static_assert(kThreads * kCols >= kMaxDc, "step 3 covers every column");
 constexpr int kMaxStages = 4;              // shared-memory stages of the KV ring
+static_assert(kMaxStages <= 4, "cp_async_wait waits for at most 3 pending groups");
 constexpr int kSmemLimit = 227 * 1024;     // dynamic shared memory of one block
 constexpr int kSmemPerSm = 228 * 1024;     // of one SM, for all its blocks
 constexpr int kSmemReserved = 1024;        // the system's share of each block
@@ -183,30 +184,6 @@ static int chunk_bytes(int row_bytes, int stride_bytes, const void* src) {
   return 0;
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(N)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most n (< kMaxStages) of this thread's groups are pending
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-  }
-}
-
 // This thread's share of copying `rows` rows of `per_row` pieces, contiguous
 // in global memory, into shared rows `stride` bytes apart: pieces tid,
 // tid + kThreads, ...; (t0, c0) is piece tid's (row, column) and (dq, dr)
@@ -246,39 +223,6 @@ __device__ __forceinline__ void copy_region(int chunk, unsigned char* dst, const
   else if (chunk == 8) copy_rows<8>(dst, src, rows, stride, w);
   else copy_rows<4>(dst, src, rows, stride, w);
 }
-
-__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
-
-// The values packed in one 32-bit word of a content row, widened to float64
-// (exactly: every storage format is a subset of float64).
-template <int F> struct Unpack;
-
-template <> struct Unpack<kFp8> {
-  static constexpr int kPerWord = 4;
-  static __device__ __forceinline__ void run(uint32_t v, double (&out)[4]) {
-    const float2 lo = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
-        static_cast<__nv_fp8x2_storage_t>(v & 0xffffu), __NV_E4M3)));
-    const float2 hi = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(
-        static_cast<__nv_fp8x2_storage_t>(v >> 16), __NV_E4M3)));
-    out[0] = lo.x; out[1] = lo.y; out[2] = hi.x; out[3] = hi.y;
-  }
-};
-
-template <> struct Unpack<kInt8> {
-  static constexpr int kPerWord = 4;
-  static __device__ __forceinline__ void run(uint32_t v, double (&out)[4]) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) out[e] = static_cast<int8_t>((v >> (8 * e)) & 0xffu);
-  }
-};
-
-template <> struct Unpack<kNone> {
-  static constexpr int kPerWord = 2;
-  static __device__ __forceinline__ void run(uint32_t v, double (&out)[2]) {
-    out[0] = bf16_lo(v); out[1] = bf16_hi(v);
-  }
-};
 
 // The N (2 or 4) consecutive content values at p of one staged row, widened
 // to float (exactly), read as one or two 32-bit words (a 16-bit one for two

@@ -12,12 +12,16 @@ plain PyTorch versions.
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made; a wrapper
 adds one where it launches its kernel and nowhere else (CPU calls that take
 the plain version do not count).
+
+``HeadTiles`` is the head-tile rule the decode wrappers share: of the widths
+a kernel is instantiated for, the widest whose grid covers the card's SMs.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -57,14 +61,14 @@ _SIGNATURES = {
     # d_r, stream
     "snapmla_fetch_dequant": [_I] + [_P] * 6 + [_I] * 5 + [_P],
     # fmt, q, k, v, k_scale, v_scale, slot_pos, positions, o, B, N, Hkv, g, dh,
-    # block, window, sm_scale, stream
-    "snapmla_gqa_decode": [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
+    # block, window, sm_scale, width, stream
+    "snapmla_gqa_decode": [_I] + [_P] * 8 + [_I] * 7 + [_F, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
 BUILD_SECONDS: float | None = None   # wall time of this process's build (None: reused)
-BUILD_LOG: str = ""                  # nvcc's messages (ptxas -v) of that build
-VARIANT_LOGS: dict = {}              # defines -> nvcc's messages of a variant build
+BUILD_LOG: str = ""                  # nvcc's messages (ptxas -v) of the library's build
+VARIANT_LOGS: dict = {}              # defines -> nvcc's messages of a variant's build
 
 
 def reset_launches() -> None:
@@ -90,14 +94,25 @@ def _digest(extra: tuple[str, ...]) -> str:
 
 def build(verbose: bool = False, defines: tuple[str, ...] = ()) -> Path:
     """Compile the sources (one nvcc each, in parallel) and link the shared
-    library; returns its path. ``verbose`` adds ``-Xptxas -v`` and keeps
-    nvcc's report in ``BUILD_LOG``; ``defines`` (``-D`` names) build a
-    variant library, e.g. ``("SNAPMLA_NO_VERIFY",)`` without the q_len > 1
-    decode instantiations."""
-    global BUILD_SECONDS, BUILD_LOG
+    library; returns its path. ``verbose`` adds ``-Xptxas -v``; ``defines``
+    (``-D`` names) build a variant library, e.g. ``("SNAPMLA_NO_VERIFY",)``
+    without the q_len > 1 decode instantiations. nvcc's report is written
+    beside the library (``.log``) and read back when the library is reused,
+    into ``BUILD_LOG`` (``VARIANT_LOGS[defines]`` for a variant)."""
+    global BUILD_SECONDS
     extra = (("-Xptxas", "-v") if verbose else ()) + tuple(f"-D{d}" for d in defines)
     lib_path = BUILD_DIR / f"libsnapmla_{_digest(extra)}.so"
-    if lib_path.exists():
+    log_path = lib_path.with_suffix(".log")
+
+    def keep(log: str) -> None:
+        global BUILD_LOG
+        if defines:
+            VARIANT_LOGS[defines] = log
+        else:
+            BUILD_LOG = log
+
+    if lib_path.exists() and log_path.exists():
+        keep(log_path.read_text())
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -121,14 +136,16 @@ def build(verbose: bool = False, defines: tuple[str, ...] = ()) -> Path:
                            str(tmp)], capture_output=True, text=True)
     if link.returncode != 0:
         raise RuntimeError(f"repro_torch: link failed:\n{link.stdout}{link.stderr}")
+    log = "\n".join(logs)
+    tmp_log = log_path.with_name(f"{tmp.name}.log")
+    tmp_log.write_text(log)
+    os.replace(tmp_log, log_path)   # the report first: a library without one is rebuilt
     os.replace(tmp, lib_path)
     for o in objs:
         o.unlink(missing_ok=True)
-    if defines:
-        VARIANT_LOGS[defines] = "\n".join(logs)
-    else:
+    keep(log)
+    if not defines:
         BUILD_SECONDS = time.time() - t0
-        BUILD_LOG = "\n".join(logs)
     return lib_path
 
 
@@ -170,6 +187,41 @@ def launch(kernel: str, fn_name: str, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"repro_torch: {fn_name} failed with cudaError_t {rc}")
     LAUNCHES[kernel] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+class HeadTiles:
+    """The head-tile widths one kernel is instantiated for (widest first),
+    the rule that picks one per launch, and an override for comparisons.
+    The width decides only which CUDA block computes a head."""
+
+    def __init__(self, what: str, widths: tuple[int, ...]):
+        self.what, self.widths = what, widths
+        self.forced: int | None = None
+
+    def pick(self, blocks, sms: int) -> int:
+        """The widest width whose grid, ``blocks(width)`` CUDA blocks, covers
+        the card's ``sms`` SMs, else the narrowest (the most blocks)."""
+        for w in self.widths:
+            if blocks(w) >= sms:
+                return w
+        return self.widths[-1]
+
+    @contextlib.contextmanager
+    def forcing(self, width: int):
+        """Launch at ``width`` inside the block in place of the rule's pick
+        (the launch takes ``forced or`` the pick)."""
+        if width not in self.widths:
+            raise ValueError(f"{self.what} width {width} is not one of {self.widths}")
+        saved, self.forced = self.forced, width
+        try:
+            yield
+        finally:
+            self.forced = saved
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

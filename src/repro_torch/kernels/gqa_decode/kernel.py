@@ -5,7 +5,11 @@
 On CPU tensors it runs its plain version (``ref.gqa_decode_pipeline_ref``
 over the cache padded to a multiple of ``block_n``, as the reference's op
 pads it); on CUDA tensors it launches the kernel, which masks the slots past
-N itself instead of copying the cache, or raises."""
+N itself instead of copying the cache, or raises.
+
+Each launch computes ``gqa_head_width(...)`` query heads of one kv head per
+CUDA block, one of the two widths the kernel is instantiated for; the width
+changes which block computes a query row, never a bit of the result."""
 from __future__ import annotations
 
 import math
@@ -20,6 +24,24 @@ STORAGE = {"fp8_e4m3": torch.float8_e4m3fn, "int8": torch.int8, "none": torch.bf
 HEAD_DIMS = (16, 32, 64, 128)               # the head sizes the kernel takes
 BLOCK_SIZES = (16, 32, 64, 128, 256, 512)   # the KV block sizes the kernel takes
 LAUNCH_KEY = "gqa_decode"                   # the launch counter of #7
+# head-tile widths instantiated in gqa_decode.cu (kGqaWide, kGqaNarrow), widest first
+GQA_HEAD_WIDTHS = (4, 1)
+_TILES = _lib.HeadTiles("GQA head", GQA_HEAD_WIDTHS)
+
+
+def gqa_head_width(batch: int, kv_heads: int, g: int, sms: int) -> int:
+    """Query heads per CUDA block of one #7 launch: the widest instantiated
+    width whose grid, ``batch * kv_heads * ceil(g / width)`` blocks, covers
+    the card's ``sms`` SMs (a wider tile reads each K/V block once for more
+    query rows), else the narrowest (the most blocks)."""
+    return _TILES.pick(lambda w: batch * kv_heads * -(-g // w), sms)
+
+
+def forced_gqa_head_width(width: int):
+    """Launch #7 inside the block at ``width`` query heads per CUDA block in
+    place of ``gqa_head_width``'s pick (to compare the widths); raises on a
+    width that is not instantiated."""
+    return _TILES.forcing(width)
 
 
 def gqa_decode_plain(q, k8, v8, k_scale, v_scale, slot_pos, positions, *, window: int,
@@ -65,8 +87,10 @@ def gqa_decode_cuda(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
     if k8.data_ptr() % 16 or v8.data_ptr() % 16:
         raise ValueError("k8 and v8 must be 16-byte aligned")
     o = torch.empty((B, H, dh), dtype=torch.float32, device=dev)
+    g = H // Hkv
+    width = _TILES.forced or gqa_head_width(B, Hkv, g, _lib.sm_count(dev.index or 0))
     _lib.launch(LAUNCH_KEY, "snapmla_gqa_decode", FMT_CODES[fmt], q.data_ptr(), k8.data_ptr(),
                 v8.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(), slot_pos.data_ptr(),
-                positions.data_ptr(), o.data_ptr(), B, N, Hkv, H // Hkv, dh, block_n, window,
-                1.0 / math.sqrt(dh))
+                positions.data_ptr(), o.data_ptr(), B, N, Hkv, g, dh, block_n, window,
+                1.0 / math.sqrt(dh), width)
     return o

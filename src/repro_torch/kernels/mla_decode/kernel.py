@@ -34,9 +34,6 @@ CPU tensors; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
-import contextlib
-import functools
-
 import torch
 
 from repro_torch.core.kvcache import patch_sink_rows
@@ -49,7 +46,7 @@ BLOCK_SIZES = (16, 32, 64, 128, 256, 512)   # the KV block sizes the kernel take
 RESCALES = ("fma", "amla")
 # head-tile widths instantiated in mla_decode.cu (kWide, kNarrow), widest first
 HEAD_WIDTHS = (8, 1)
-_forced_width: int | None = None
+_TILES = _lib.HeadTiles("head", HEAD_WIDTHS)
 
 
 def head_width(batch: int, rows: int, splits: int, sms: int) -> int:
@@ -58,29 +55,13 @@ def head_width(batch: int, rows: int, splits: int, sms: int) -> int:
     the card's ``sms`` SMs (a wider tile re-reads each KV block from L2 fewer
     times), else the narrowest (the most blocks). ``rows`` is the head count,
     ``q_len * heads`` in the verify mode."""
-    for w in HEAD_WIDTHS:
-        if batch * -(-rows // w) * splits >= sms:
-            return w
-    return HEAD_WIDTHS[-1]
+    return _TILES.pick(lambda w: batch * -(-rows // w) * splits, sms)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-@contextlib.contextmanager
 def forced_head_width(width: int):
     """Launch every decode kernel inside the block at ``width`` heads per
     CUDA block in place of ``head_width``'s pick (to compare the widths)."""
-    global _forced_width
-    if width not in HEAD_WIDTHS:
-        raise ValueError(f"head width {width} is not one of {HEAD_WIDTHS}")
-    saved, _forced_width = _forced_width, width
-    try:
-        yield
-    finally:
-        _forced_width = saved
+    return _TILES.forcing(width)
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -147,7 +128,7 @@ def _launch_decode(kernel: str, fmt: str, single_pass: bool, rescale: str, q_c8,
     amla = rescale == "amla"
     if q_len > 1:
         kernel += "_verify"
-    width = _forced_width or head_width(B, H, num_splits, _sm_count(dev.index or 0))
+    width = _TILES.forced or head_width(B, H, num_splits, _lib.sm_count(dev.index or 0))
     _lib.launch(
         kernel + ("_amla" if amla else ""), "snapmla_decode", FMT_CODES[fmt],
         int(single_pass), int(amla), q_c8.data_ptr(), q_r.data_ptr(), sigma_q.data_ptr(),

@@ -427,24 +427,39 @@ def _gqa_case(fmt, B, N, Hkv, g, dh, window, page, lens, seed=0):
     (2, 8, 64, 0, 160, 64),       # qwen2.5-3b-like, N not a multiple of the block
     (4, 2, 32, 48, 96, 16),       # sliding window over a wrapped ring
     (1, 8, 16, 0, 128, 128),      # MQA
-    (8, 1, 32, 0, 64, 16)])       # MHA
+    (8, 1, 32, 0, 64, 16),        # MHA
+    (2, 2, 128, 0, 1024, 512),    # block 512 at dh 128 (in bf16: no K/V stage fits)
+    (2, 5, 64, 0, 65, 64),        # N one slot past a block edge
+    (8, 6, 128, 0, 256, 128)])    # 144 blocks at width 1 (bf16: a ring shared by two per SM)
 def test_gqa_decode_kernel_matches_plain(cuda, fmt, Hkv, g, dh, window, N, block):
-    """#7 against its plain version (within 1e-5; NaN rows, from a row with
-    no token, equal), bitwise where the float64 sums' order does not show,
-    one launch counted per call."""
+    """#7 at every head-tile width: each width bitwise equal to every other,
+    each within 1e-5 of the plain version (NaN rows, from a row with no
+    token, equal), one launch counted per call."""
     from repro_torch.kernels.gqa_decode import kernel as GK
     from repro_torch.kernels.gqa_decode import ops as GO
+    from repro_torch.core.kvcache import GQACache
     q, cache, pos = _gqa_case(fmt, 3, N, Hkv, g, dh, window, 16, [N + 40 if window else N,
                                                                  0, 37])
+    if cache.k.shape[1] != N:  # the capacity, rounded up to the page, cut back to N
+        cache = GQACache(*(t[:, :N].contiguous() if t.dim() > 1 else t for t in cache))
     kw = dict(window=window, block_n=block, fmt=fmt)
-    _lib.reset_launches()
-    got = GO.gqa_decode(q, cache, pos, **kw)
-    assert _lib.LAUNCHES[GK.LAUNCH_KEY] == 1
     want = GO.gqa_decode(q, cache, pos, use_kernel=False, **kw)
+    outs = {}
+    for w in GK.GQA_HEAD_WIDTHS:
+        _lib.reset_launches()
+        with GK.forced_gqa_head_width(w):
+            outs[w] = GO.gqa_decode(q, cache, pos, **kw)
+        assert _lib.LAUNCHES[GK.LAUNCH_KEY] == 1
+        torch.testing.assert_close(outs[w], want, equal_nan=True, **TOL)
+        assert torch.isnan(outs[w][1]).all() and torch.isfinite(outs[w][0]).all()
+        assert torch.isfinite(outs[w][2]).all()
+    first = outs[GK.GQA_HEAD_WIDTHS[0]]
+    for w, got in outs.items():
+        assert torch.equal(got.view(torch.int32), first.view(torch.int32)), w
+    _lib.reset_launches()
+    assert torch.equal(GO.gqa_decode(q, cache, pos, **kw).view(torch.int32),
+                       first.view(torch.int32))
     assert _lib.LAUNCHES[GK.LAUNCH_KEY] == 1
-    torch.testing.assert_close(got, want, equal_nan=True, **TOL)
-    assert torch.isnan(got[1]).all() and torch.isfinite(got[0]).all()
-    assert torch.isfinite(got[2]).all()
 
 
 def test_gqa_decode_rejections(cuda):

@@ -88,7 +88,7 @@ def test_wrapper_passes_the_rule_s_width_for_the_flattened_rows(monkeypatch, q_l
         raise Launched
 
     monkeypatch.setattr(K, "_on_cpu", lambda *t: False)
-    monkeypatch.setattr(K, "_sm_count", lambda index: 12)
+    monkeypatch.setattr(_lib, "sm_count", lambda index: 12)
     monkeypatch.setattr(_lib, "launch", launch)
     with pytest.raises(Launched):
         K.mla_decode_paged_splitkv_cuda(q_c8, q_r, sigma_q, content, rope, scale, table, lens,
