@@ -16,7 +16,12 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                ~32k-token case, a sink-guarded cache (S_k = 4), int8 and none
                at a smaller shape; FMA and AMLA at 1/4/8 splits; contiguous
                against paged bit for bit at block_n == page; Fused-Q-Quant and
-               Fused-K-Append bytes. Kernel median ms, plain ms and bound ms;
+               Fused-K-Append bytes. Kernel median ms, plain ms and bound ms.
+               Every decode call is repeated folded — a raw query quantized in
+               the kernel's prologue (D), and under FMA the split partials
+               merged in its epilogue (C) — bitwise against D, the kernel, then
+               C or #4, at every head-tile width, and timed beside the
+               launches it replaces (the "folded D / C" line);
   3. layer   — ``core.snapmla.decode_step``, one full-width layer over a
                ~32k-token cache, paged and contiguous (Fused-K-Append): kernels
                vs the reference backend, cache bytes vs the plain append;
@@ -24,7 +29,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                weights from a seeded generator), batch 4, prompt 512, gen 16,
                contiguous and paged caches, FMA and AMLA, kv_splits 0 and 4, a
                sink-guarded run: kernel backend against the reference backend,
-               and contiguous against paged greedy tokens;
+               and contiguous against paged greedy tokens; each run one decode
+               launch per layer and step (plus #4 under AMLA split);
   5. engine  — ``repro_torch.serving.ServingEngine`` on full mla-7b, kernel
                backend, over the shared paged pool: E1 monolithic admission
                with staggered arrivals and a shared prefix through
@@ -38,7 +44,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                Every run: fault counters 0, no leaked page;
   6. counts  — the launch counters, set to 0 just before and read just after
                each main path (phase 3's kernel steps, phase 4's and phase 5's
-               kernel runs): every kernel of the paths launched at least once;
+               kernel runs): every kernel of the paths launched at least once
+               (C runs folded there, so only phase 2 launches it alone; D
+               alone only in phase 3's layer API);
   7. profile — one decode step of the serving run under torch.profiler (paged
                at kv_splits 0 and 4, contiguous at 0), one chunked-prefill step
                and one verify step: host wall, device kernel time, the device's
@@ -136,8 +144,13 @@ KERNELS = {  # launch-counter name -> (source, the TPU kernel it replaces, mode)
 # kernels no model path calls (the reference's callers are not on a model
 # path either): held against their plain versions in phase 2 only
 OFF_PATH = {"fetch_dequant": "its caller chunked_prefill_attention has no model path",
+            "lse_combine": "folded into the FMA split kernels' epilogue on every model path; "
+                           "a launch only where a caller keeps the partials",
             "splitkv_decode_verify": "the verify step runs on the paged pool only",
             "splitkv_decode_verify_amla": "the verify step runs on the paged pool only"}
+# the kernels whose work the decode kernels also do in the same launch
+FOLDED_INTO = {"fused_q_quant": f"the prologue of every MLA decode kernel ({SRC_DECODE})",
+               "lse_combine": f"the epilogue of the FMA split kernels ({SRC_DECODE})"}
 # the split count each kernel's summary row reports: serving shape, long case
 SUMMARY_SPLITS = {"split": (4, 8), "single": (1, 1), "other": (1, 1)}
 # the (case, splits) of each summary row: main shape, long case
@@ -207,6 +220,41 @@ def width_gate(name, call) -> None:
             got = flat(call())
         for a, b in zip(got, want, strict=True):
             check_bitwise(f"{name} width {w} vs width 8", a, b)
+
+
+FOLDS: list = []   # the folded launches' checks and times (phase 2)
+
+
+def fold_gate(lbl, folded, unfolded, launches: int) -> None:
+    """The folded launch (D in the prologue, C in the FMA split epilogue)
+    at every instantiated head-tile width gives the bits of the launches it
+    replaces (``unfolded``: D, then the kernel, then C or #4), in
+    ``launches`` launches (1; 2 under AMLA, whose #4 stays a launch)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.mla_decode import kernel as K
+    want = unfolded()
+    for w in K.HEAD_WIDTHS:
+        with K.forced_head_width(w):
+            _lib.reset_launches()
+            got = folded()
+            n = sum(_lib.LAUNCHES.values())
+        if n != launches:
+            raise AssertionError(f"{lbl}: the folded call made {dict(_lib.LAUNCHES)} launches, "
+                                 f"not {launches}")
+        for a, b in zip(got, want, strict=True):
+            check_bitwise(f"{lbl} folded at width {w} vs unfolded", a, b)
+
+
+def fold_time(entry, folded, kernel, replaced, **parts) -> None:
+    """Device ms of the folded launch, of the unfolded decode kernel alone
+    and of the launches the folded one replaces (D, the kernel, C), each
+    replayed back to back (kernel_ms), into ``entry``; ``parts`` (name ->
+    call): the kernel with one of the two folds only."""
+    entry.update(folded_ms=kernel_ms(folded), kernel_ms=kernel_ms(kernel),
+                 replaced_ms=kernel_ms(replaced),
+                 **{f"{k}_ms": kernel_ms(fn) for k, fn in parts.items()})
+    entry["fold_cost_ms"] = entry["folded_ms"] - entry["kernel_ms"]
+    entry["no_slower"] = entry["folded_ms"] <= entry["replaced_ms"]
 
 
 def time_ms(fn, reps: int = 3) -> float:
@@ -283,11 +331,35 @@ def _bound(nbytes, flops, peak):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def raw_query(gen, *lead):
+    """A raw decode query (q_lat [*lead, D_C], q_rope [*lead, D_R], float32)
+    on the card."""
+    import torch
+    return (torch.randn(*lead, D_C, generator=gen, device="cuda"),
+            torch.randn(*lead, D_R, generator=gen, device="cuda"))
+
+
+def d_query(raw, fmt, flat=None):
+    """D as its own launch on a raw query of rank 3 or 4 (on ``flat``, its
+    input from ``d_input``, when given): the prepared query the unfolded
+    decode launches take."""
+    from repro_torch.kernels.quantize import kernel as QK
+    lead = raw[0].shape[:-1]
+    out = QK.fused_q_quant_cuda(d_input(raw) if flat is None else flat, D_C, fmt=fmt)
+    return out[0].reshape(*lead, D_C), out[1].reshape(*lead, D_R), out[2].reshape(lead)
+
+
+def d_input(raw):
+    """D's input, [q_lat | q_rope] as [B, rows, D_C + D_R]."""
+    import torch
+    return torch.cat(raw, -1).reshape(raw[0].shape[0], -1, D_C + D_R).contiguous()
+
+
 def make_case(gen, fmt, lens, P, *, sink_tokens=0, extra=3):
     """One random quantized cache held twice on the card: contiguous
     ([B, P*PAGE, .], with the sink guard's shadow when ``sink_tokens``) and as
-    a shuffled page pool; plus a prepared query. Returns (query, MLACache,
-    PagedMLAPool)."""
+    a shuffled page pool; plus a raw query and its prepared form. Returns
+    (prepared query, MLACache, PagedMLAPool, raw query)."""
     import torch
     from repro_torch.core.kvcache import (CacheConfig, MLACache, PagedMLAPool,
                                           mla_quantize_entry)
@@ -307,10 +379,9 @@ def make_case(gen, fmt, lens, P, *, sink_tokens=0, extra=3):
         dst = torch.zeros((n_pool, PAGE) + x.shape[2:], dtype=x.dtype, device=dev)
         dst[table.reshape(-1)] = x.reshape((B * P, PAGE) + x.shape[2:])
         pool.append(dst)
-    q = prepare_q(torch.randn(B, H, D_C, generator=gen, device=dev),
-                  torch.randn(B, H, D_R, generator=gen, device=dev), fmt)
-    q = tuple(t.contiguous() for t in q)
-    return q, cache, PagedMLAPool(*pool, table.to(torch.int32).contiguous(), seq_lens)
+    raw = raw_query(gen, B, H)
+    q = tuple(t.contiguous() for t in prepare_q(*raw, fmt))
+    return q, cache, PagedMLAPool(*pool, table.to(torch.int32).contiguous(), seq_lens), raw
 
 
 def _record(records, name, tag, S, err, fn=None, plain=None, bound=None):
@@ -331,7 +402,7 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
     from repro_torch.core.kvcache import sink_patched_content
     from repro_torch.kernels.mla_decode import kernel as K
     from repro_torch.kernels.mla_decode import ref as R
-    q, cache, pool = make_case(gen, fmt, lens, P, sink_tokens=sink_tokens)
+    q, cache, pool, raw = make_case(gen, fmt, lens, P, sink_tokens=sink_tokens)
     pgd = q + tuple(pool)
     ctg = q + (cache.content, cache.rope, cache.scale, cache.seq_lens)
     ctg_ref = q + (sink_patched_content(cache), cache.rope.float(), cache.scale,
@@ -380,6 +451,10 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
                 (o, lse, parts), (o_r, lse_r, parts_r) = got, want
                 lbl = f"{tag} {name} S={S}"
                 width_gate(lbl, partials)
+                fold_split(tag, name, fmt, rescale, S, layout, q, raw, pgd[3:] if layout ==
+                           "paged" else ctg[3:], dict(kw, num_splits=S) if layout == "paged"
+                           else dict(ckw, num_splits=S), time_it=S in splits_list[:1] +
+                           splits_list[-1:])
                 err = max(check_close(f"{lbl} o", o, o_r, equal_nan=True, **o_tol),
                           check_close(f"{lbl} lse", lse, lse_r, equal_nan=True, **lse_tol))
                 if amla:   # g: integer grid exponents, exact
@@ -441,6 +516,18 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
             o, lse = fn()
             o_r, lse_r = plain()
             width_gate(f"{tag} {name}", fn)
+            if fmt != "none":   # D in the prologue of B / #1
+                cache_args, call_kw = (pgd[3:], kw) if layout == "paged" else (ctg[3:], ckw)
+                call = K.mla_decode_paged_cuda if layout == "paged" else K.mla_decode_cuda
+                fold_gate(f"{tag} {name}", lambda: call(*raw, None, *cache_args, **call_kw),
+                          lambda: call(*d_query(raw, fmt), *cache_args, **call_kw), 1)
+                entry = dict(case=tag, kernel=name, fmt=fmt, splits=1, folded="D")
+                if not amla:
+                    flat = d_input(raw)
+                    fold_time(entry, lambda: call(*raw, None, *cache_args, **call_kw),
+                              lambda: call(*q, *cache_args, **call_kw),
+                              lambda: call(*d_query(raw, fmt, flat), *cache_args, **call_kw))
+                FOLDS.append(entry)
             err = max(check_close(f"{tag} {name} o", o, o_r, equal_nan=True, **o_tol),
                       check_close(f"{tag} {name} lse", lse, lse_r, equal_nan=True, **lse_tol))
             for a, b in zip(single_live, one):
@@ -466,6 +553,51 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
         _record(records, "fused_q_quant", tag, 1, 0.0,
                 (lambda: QK.fused_q_quant_cuda(qin, D_C, fmt=fmt)) if timing else None,
                 lambda: QR.fused_q_quant_ref(qin, D_C, fmt), bound)
+
+
+def fold_split(tag, name, fmt, rescale, S, layout, q, raw, cache_args, call_kw, *, time_it):
+    """One split call (A, #2 or K2) folded — D in the prologue for fp8 /
+    int8, C in the epilogue under FMA — against D, the split kernel, then C
+    or #4, at every width (``fold_gate``); with ``time_it`` (FMA) its ms
+    beside the unfolded kernel's and the replaced launches' (``fold_time``).
+    ``q`` is the prepared query, ``raw`` the raw one (rank 3 or 4)."""
+    from repro_torch.kernels.mla_decode import kernel as K
+    amla = rescale == "amla"
+    if fmt == "none" and amla:
+        return                                    # nothing folds there
+    paged = layout == "paged"
+    call = K.mla_decode_paged_splitkv_cuda if paged else K.mla_decode_splitkv_cuda
+    parts_call = K.paged_decode_partials_cuda if paged else K.decode_partials_cuda
+    fq = q if fmt == "none" else raw + (None,)
+    uq = q if fmt == "none" else d_query(raw, fmt)
+    fold_gate(f"{tag} {name} S={S} {layout}", lambda: call(*fq, *cache_args, **call_kw),
+              lambda: call(*uq, *cache_args, return_partials=True, **call_kw)[:2],
+              2 if amla else 1)
+    entry = dict(case=tag, kernel=name, fmt=fmt, layout=layout, splits=S,
+                 folded="C" if fmt == "none" else "D" if amla else "D + C")
+    if time_it and not amla:
+        flat = None if fmt == "none" else d_input(raw)
+
+        def kernel_then_c(qq):
+            qc, qr, sq, q_len, _ = K._flatten_q(*qq)
+            parts = parts_call(qc, qr, sq, *cache_args, single_pass=False, q_len=q_len or 1,
+                               **call_kw)
+            return K.lse_combine_cuda(*parts[:2])
+
+        def kernel_alone(qq=q):
+            qc, qr, sq, q_len, _ = K._flatten_q(*qq)
+            return parts_call(qc, qr, sq, *cache_args, single_pass=False, q_len=q_len or 1,
+                              **call_kw)
+
+        # the two folds apart: D only (the raw query, the partials kept) and
+        # C only (the prepared query, merged in the epilogue)
+        parts = {"c_only": lambda: call(*q, *cache_args, **call_kw)}
+        if fmt != "none":
+            parts["d_only"] = lambda: kernel_alone(raw + (None,))
+        fold_time(entry, lambda: call(*fq, *cache_args, **call_kw), kernel_alone,
+                  lambda: kernel_then_c(q if flat is None else d_query(raw, fmt, flat)),
+                  **parts)
+    FOLDS.append(entry)
 
 
 def k_append_checks(gen, fmt, B, N, *, tag, timing, records):
@@ -532,7 +664,7 @@ def fetch_checks(gen, records, engine_pages):
     cases = (("long_32k", [0, PAGE, 32768, 20000], 256, [0, 1000, 20000, 32768]),
              ("engine_shape", [1000], engine_pages, [768]))
     for tag, lens, P, starts in cases:
-        _, cache, pool = make_case(gen, "fp8_e4m3", lens, P)
+        _, cache, pool, _ = make_case(gen, "fp8_e4m3", lens, P)
         cs = torch.tensor(starts, dtype=torch.int32, device="cuda")
         full = FD.paged_fetch_dequant(pool)
         check_bitwise(f"{tag} #11 full", full, FD.paged_fetch_dequant_ref(pool))
@@ -571,11 +703,12 @@ def verify_bound(lens, q_len, S, table_entries):
 
 
 def verify_query(gen, B, q_len, fmt="fp8_e4m3"):
-    import torch
+    """A [B, q_len, H, .] verify block: (prepared query, raw query)."""
     from repro_torch.kernels.mla_decode.ref import prepare_q
-    q = prepare_q(torch.randn(B, q_len * H, D_C, generator=gen, device="cuda"),
-                  torch.randn(B, q_len * H, D_R, generator=gen, device="cuda"), fmt)
-    return tuple(t.reshape(B, q_len, H, *t.shape[2:]).contiguous() for t in q)
+    raw = raw_query(gen, B, q_len * H)
+    q = prepare_q(*raw, fmt)
+    return (tuple(t.reshape(B, q_len, H, *t.shape[2:]).contiguous() for t in q),
+            tuple(t.reshape(B, q_len, H, -1) for t in raw))
 
 
 def verify_checks(gen, lens, P, q_len, splits_list, scale, *, tag, records):
@@ -587,8 +720,8 @@ def verify_checks(gen, lens, P, q_len, splits_list, scale, *, tag, records):
     import torch
     from repro_torch.kernels.mla_decode import kernel as K
     from repro_torch.kernels.mla_decode import ref as R
-    _, cache, pool = make_case(gen, "fp8_e4m3", lens, P)
-    q = verify_query(gen, len(lens), q_len)
+    _, cache, pool, _ = make_case(gen, "fp8_e4m3", lens, P)
+    q, raw = verify_query(gen, len(lens), q_len)
     pgd, ctg = q + tuple(pool), q + (cache.content, cache.rope, cache.scale, cache.seq_lens)
     for rescale in ("fma", "amla"):
         amla = rescale == "amla"
@@ -609,6 +742,12 @@ def verify_checks(gen, lens, P, q_len, splits_list, scale, *, tag, records):
                       check_close(f"{lbl} lse", lse, lse_r, equal_nan=True, **lse_tol))
             if amla:
                 check_bitwise(f"{lbl} g", parts[2], parts_r[2])
+            timed = S in splits_list[:1] + splits_list[-1:]
+            fold_split(tag, "paged_splitkv_decode_verify" + sfx, "fp8_e4m3", rescale, S,
+                       "paged", q, raw, tuple(pool), dict(kw, num_splits=S), time_it=timed)
+            fold_split(tag, "splitkv_decode_verify" + sfx, "fp8_e4m3", rescale, S,
+                       "contiguous", q, raw, ctg[3:], dict(kw, num_splits=S, block_n=PAGE),
+                       time_it=timed)
             oc, lc, parts_c = K.mla_decode_splitkv_cuda(*ctg, num_splits=S, block_n=PAGE,
                                                         return_partials=True, **kw)
             for a, b in zip((oc, lc) + tuple(parts_c), (o, lse) + tuple(parts)):
@@ -666,8 +805,8 @@ def width_sweep(gen, scale) -> None:
     rows = []
     for tag, lens, P, q_len, S_a, S_v in (("serve_shape", [527, 512, 520, 513], 5, 5, 4, 1),
                                           ("long_32k", [0, PAGE, 32768, 20000], 256, 4, 8, 8)):
-        q, cache, pool = make_case(gen, "fp8_e4m3", lens, P)
-        qv = K._flatten_q(*verify_query(gen, len(lens), q_len))[:3]
+        q, cache, pool, _ = make_case(gen, "fp8_e4m3", lens, P)
+        qv = K._flatten_q(*verify_query(gen, len(lens), q_len)[0])[:3]
         kw = dict(softmax_scale=scale, fmt="fp8_e4m3")
         B = len(lens)
         cases = {
@@ -717,7 +856,7 @@ def no_verify_checks(gen, variant, scale):
         raise AssertionError(f"q_len = 1 register counts differ from the build without "
                              f"the verify code: {diff}")
     verify_only = sorted(set(k for k in main_regs if "decode_kernel" in k) - set(dec))
-    q, cache, pool = make_case(gen, "fp8_e4m3", [527, 512, 520, 513], 5)
+    q, cache, pool, _ = make_case(gen, "fp8_e4m3", [527, 512, 520, 513], 5)
     pgd, ctg = q + tuple(pool), q + (cache.content, cache.rope, cache.scale, cache.seq_lens)
     calls = []
     for rescale in ("fma", "amla"):
@@ -817,12 +956,29 @@ def phase_serve():
 
     refs = {run: serve.generate(cfg_of(run, "ref"), params, prompts, 16, return_logits=True)
             for run in SERVE_RUNS}
-    torch.cuda.synchronize()
-    _lib.reset_launches()                     # the serve path starts here
-    kern = {run: serve.generate(cfg_of(run, "kernel"), params, prompts, 16,
-                                return_logits=True) for run in SERVE_RUNS}
-    torch.cuda.synchronize()
-    launches = dict(_lib.LAUNCHES)            # ... and ends here
+    kern, run_launches, launches = {}, {}, {}
+    for run in SERVE_RUNS:
+        torch.cuda.synchronize()
+        _lib.reset_launches()                 # a counted serve run starts here
+        with _CountDecodeSteps() as steps:
+            kern[run] = serve.generate(cfg_of(run, "kernel"), params, prompts, 16,
+                                       return_logits=True)
+        torch.cuda.synchronize()
+        got = run_launches[run] = dict(_lib.LAUNCHES)   # ... and ends here
+        # one attention launch per layer and decode step: Fused-Q-Quant runs
+        # in the decode kernel's prologue, the FMA combine in its epilogue;
+        # kv_splits 0 plans one split at this capacity (the single pass)
+        paged, splits, rescale, _ = run
+        n = base.n_layers * steps.n
+        name = (("paged_" if paged else "") + ("splitkv_decode" if splits else
+                                               "single_pass_decode")
+                + ("_amla" if rescale == "amla" else ""))
+        want = {name: n, **({"amla_combine": n} if rescale == "amla" and splits else {})}
+        if got != want:
+            raise AssertionError(f"serve {run}: launches {got} != {want} for {steps.n} decode "
+                                 f"steps")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
     for run in SERVE_RUNS:
         toks, tps, logits = kern[run]
         r_toks, r_tps, r_logits = refs[run]
@@ -845,7 +1001,7 @@ def phase_serve():
              layout="paged" if paged else "contiguous", kv_splits=splits, rescale=rescale,
              sink_tokens=sink, tok_per_s=tps, ref_tok_per_s=r_tps,
              greedy_agreement_vs_ref=float((toks == r_toks).float().mean()),
-             first_step_logits_rel_err=first)
+             first_step_logits_rel_err=first, launches=run_launches[run])
     for splits in (0, 4):   # the two layouts: identical greedy tokens
         for rescale in ("fma", "amla"):
             a, b = kern[(False, splits, rescale, 0)], kern[(True, splits, rescale, 0)]
@@ -985,15 +1141,16 @@ def phase_engine(base, params, serve_tps):
 
     def expected_launches(eng, amla=False):
         """One launch per layer of each kernel a dispatch runs: a decode step
-        runs Fused-Q-Quant and the single-pass decode (these spans plan one
-        split), a verify step Fused-Q-Quant, the q_len > 1 split-KV kernel
-        and its combine, a chunk step the fused fetch-dequant."""
+        runs the single-pass decode (these spans plan one split) with
+        Fused-Q-Quant in its prologue, a verify step the q_len > 1 split-KV
+        kernel with Fused-Q-Quant in its prologue and, under FMA, the combine
+        in its epilogue (AMLA: #4 after it), a chunk step the fused
+        fetch-dequant."""
         L, d = base.n_layers, eng.dispatches
         sfx = "_amla" if amla else ""
-        want = {"fused_q_quant": L * (d["decode"] + d["verify"]),
-                "paged_single_pass_decode" + sfx: L * d["decode"],
+        want = {"paged_single_pass_decode" + sfx: L * d["decode"],
                 "paged_splitkv_decode_verify" + sfx: L * d["verify"],
-                ("amla_combine" if amla else "lse_combine"): L * d["verify"],
+                "amla_combine": L * d["verify"] if amla else 0,
                 "paged_fetch_dequant": L * d["chunk"]}
         return {k: v for k, v in want.items() if v}
 
@@ -1278,6 +1435,25 @@ def gqa_bound(cache, pos, window, g, fmt):
     return _bound(nbytes, valid * Hkv * g * 4 * dh, PEAK[fmt])
 
 
+def mla_ptxas() -> None:
+    """Registers and spill bytes of every MLA decode instantiation (format,
+    head-tile width, single pass, AMLA, sink, verify), from the build's
+    -Xptxas -v report: one line (reported, not gated)."""
+    from repro_torch.kernels import _lib
+    rows = {}
+    for block in _lib.BUILD_LOG.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        m = re.search(r"decode_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
+        if m:
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+            rows["".join(m.groups())] = [int(regs[1]) if regs else None,
+                                         int(spill[1]) + int(spill[2]) if spill else None]
+    emit(phase="kernels", check="MLA decode ptxas",
+         key="fmt width single_pass amla sink verify -> [registers, spill bytes]",
+         spilling={k: v for k, v in rows.items() if v[1]}, instantiations=rows)
+
+
 def gqa_ptxas() -> None:
     """Registers and spills of every #7 instantiation (format, head-tile
     width), from the build's -Xptxas -v report: one line; raises on a spill
@@ -1509,7 +1685,7 @@ def summary_line(records, launches, long_tokens):
             launches=launches.get(name, 0), max_abs_err=err, ms=short["ms"],
             plain_ms=short["plain_ms"], bound_ms=short["bound_ms"],
             bound_by=short["bound_by"], library_ms=None, case=tag, splits=S,
-            off_main_path=OFF_PATH.get(name),
+            off_main_path=OFF_PATH.get(name), folded_into=FOLDED_INTO.get(name),
             long_ctx=dict(case=ltag, tokens=long_tokens, splits=lS, ms=longc["ms"],
                           plain_ms=longc["plain_ms"], bound_ms=longc["bound_ms"],
                           bound_by=longc["bound_by"])))
@@ -1524,6 +1700,7 @@ def main() -> int:
         return 2
     import repro_torch  # noqa: F401  (fails without the repository beside this file)
     from repro_torch.kernels import _lib
+    from repro_torch.kernels.mla_decode import kernel as K
 
     # 1. build: the kernels, and beside them (in parallel) a build without the
     # q_len > 1 verify code for the q_len = 1 comparison of phase 2
@@ -1583,7 +1760,12 @@ def main() -> int:
     verify_checks(gen, long_lens, 256, 4, [1, 4, 8], scale, tag="long_32k_verify",
                   records=records)
     no_verify_checks(gen, variant_lib, scale)
+    mla_ptxas()
     width_sweep(gen, scale)
+    timed = [f for f in FOLDS if "folded_ms" in f]
+    emit(phase="kernels", check="folded D / C", widths=list(K.HEAD_WIDTHS), calls=len(FOLDS),
+         mismatches=0, cases=sorted({f["case"] for f in FOLDS}),
+         timed=len(timed), all_no_slower=all(f["no_slower"] for f in timed), times=timed)
     emit(phase="kernels_done", seconds=time.time() - t0)
 
     # 3. one full-width layer, paged and contiguous (a counted main path)

@@ -18,6 +18,9 @@
 // and every decode kernel in both rescale modes of _block_pipeline: "fma"
 // (kAmla = false) and "amla" (kAmla = true, kernel.py:152-177), and the
 // q_len > 1 verify mode of A and #2 (kVerify = true, kernel.py:381-399).
+// Every decode kernel also takes Fused-Q-Quant (D, csrc/q_quant.cu) in its
+// prologue, and the FMA split kernels take C in their epilogue, so a decode
+// step makes one attention launch per layer (below).
 //
 // Design. One block of 512 threads per (head tile of W heads, split, batch
 // row); the block walks its split's KV blocks in order (the sigma_p scale
@@ -47,6 +50,19 @@
 // one block's loads and latencies overlap the other's compute.
 //
 // Per block, on the staged tiles:
+//   0. the prologue, while the first stages load: the tile's query rows into
+//      shared memory as float64 and their sigma_q. A prepared query (q_c8,
+//      q_r, sigma_q from D or prepare_q) is widened as it is; a raw one
+//      (q_lat, q_rope in float32, selected at run time by q_lat != nullptr,
+//      fp8 / int8 only) is quantized here by the whole block with D's
+//      operations (q_quant.cu): sigma_q = max(max|q_lat|, EPS) / qmax (the
+//      max per warp by shuffles, then over the warps by a shared atomicMax
+//      on the bits — a max of non-negative floats is exact in any order),
+//      q = widen(cast(q_lat / sigma_q)), q_r = q_rope / sigma_q, each by an
+//      IEEE division, so the bits are D's. Each split block of a tile
+//      quantizes the same W rows again: W x (d_c + d_r) values, about 1 us
+//      of a width-8 block, which a grid of several waves of width-8 blocks
+//      pays once per wave;
 //   1. s = (q_c8.C + q_r.R) * (sigma_q x sigma_k) * scale, masked to
 //      tok < seq_len with the -1e30 sentinel. A group of lanes per token
 //      widens the token's content once for all heads of the tile. Both dots
@@ -65,7 +81,10 @@
 //      rescale 2^k, k = (i_prev - i_new) + (e_prev - e_new) (0 while l == 0),
 //      applied by an integer add on the exponent bits (exp2_mul);
 //   3. acc = acc*corr + P8.C (AMLA: exp2_mul(acc, k) + P8.C), the
-//      accumulator in registers.
+//      accumulator in registers;
+//   4. the epilogue publishes the split's partial; in FMA split mode with an
+//      output (o != nullptr) the tile's S split blocks then merge their
+//      partials by a last-block reduction (C folded, below).
 // Every product and sum whose rounding the plain version fixes is written
 // with __fmul_rn / __fadd_rn / __fsub_rn, so nvcc cannot contract it into an
 // FMA. Split mode skips dead blocks (g*bn >= seq_len: neither loaded nor
@@ -74,6 +93,30 @@
 // (acc, l, g = i + e). Single-pass mode has no early exit: a dead block runs
 // the sigma_p update with an all-masked block (sigma_p floors at EPS/qmax);
 // its loads are elided because masked entries contribute exact zeros.
+//
+// C folded (the ticket epilogue). Each split block publishes its partial as
+// the unfolded kernel does; after a barrier one thread draws a ticket from
+// the (row, head tile)'s int32 counter by an atomic add with acquire-release
+// semantics at GPU scope (the release covers the block's partial, the
+// acquire the partials of the tickets drawn before). The block that draws
+// S - 1 reads the S partials of its tile back from L2 (ld.cg: L1 is not
+// coherent across SMs), merges them per head and latent column in split
+// order 0 .. S - 1 with C's own routine (lse_merge, which the standalone C
+// kernel calls too, every add and multiply written as __fadd_rn /
+// __fmaf_rn / __fdiv_rn so the two call sites cannot be contracted apart),
+// writes o and lse, and resets its counter to 0 for the next launch. So the
+// folded output is A then C bit for bit. At S = 1 the merge of one partial is
+// the identity (w = exp(0) = 1, den = 1, o * 1 / 1 = o, lse + log 1 = lse; a
+// partial is never -0 or NaN), so the split writes its partial straight into
+// o and lse, whose layout is the partials' at S = 1: no ticket, no merge.
+// Every block reaches the ticket: there is no early return, and a dead split
+// publishes (0, -1e30) and draws its ticket like any other. Why not a thread
+// block cluster merging through distributed shared memory: a cluster barrier
+// would hold a dead or short split's block on its SM until its longest
+// sibling ends, and an explicit split count (ops.resolve_num_splits clamps it
+// only to the block count) can exceed the portable cluster size of 8. AMLA
+// split mode keeps #4 after the kernel, and a caller that wants the partials
+// keeps C after it.
 //
 // q_len > 1 verify mode (split mode only; A and #2 take rank-4 queries
 // [B, q_len, H, .] flattened head-major to R = q_len*H rows, row = t*H + h,
@@ -109,7 +152,8 @@
 // on a one-ulp change of a logit); the fp8 / int8 content dot, exact in
 // float64 in any order, register-blocked over tokens and heads; warp
 // specialisation (a producer warp issuing TMA loads, consumer warpgroups);
-// the combine (C, #4) folded into the split kernel's epilogue.
+// the AMLA combine (#4) folded into the AMLA split epilogue by the same
+// ticket scheme.
 #include "common.cuh"
 
 namespace snap {
@@ -163,7 +207,7 @@ static Layout layout(int d_c, int d_r, int bn, int stages) {
   L.q = take(off, W * d_c * 8);
   L.qr = take(off, W * d_r * 8);
   L.p = take(off, W * bn * 4);
-  L.state = take(off, 4 * W * 4);
+  L.state = take(off, 5 * W * 4);  // m, l, sigma_p, corr, sigma_q per head
   int s = 0;
   L.c = take(s, bn * L.c_row_words * 4);
   L.r = take(s, bn * L.r_row_words * 4);
@@ -267,6 +311,197 @@ __device__ __forceinline__ void qk_word(double (&ac)[W], const double* q, const 
       if (h < nh) ac[h] = fma(q[h * d_c + e], cv[e], ac[h]);
 }
 
+// N (1, 4 or 8) floats at p, read from L2 (ld.global.cg: L1 is not
+// coherent across SMs, and the last block of a tile reads what its siblings
+// wrote, into a buffer reused by every launch); volatile and clobbering
+// memory, so no load moves above the fence and the barrier before it.
+template <int N>
+__device__ __forceinline__ void load_l2(const float* p, float* v) {
+  if constexpr (N == 1) {
+    asm volatile("ld.global.cg.f32 %0, [%1];\n" : "=f"(v[0]) : "l"(p) : "memory");
+  } else {
+    static_assert(N % 4 == 0, "one float or groups of four");
+#pragma unroll
+    for (int k = 0; k < N; k += 4)
+      asm volatile("ld.global.cg.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=f"(v[k]), "=f"(v[k + 1]), "=f"(v[k + 2]), "=f"(v[k + 3])
+                   : "l"(p + k)
+                   : "memory");
+  }
+}
+
+// Draw a ticket: atomically add one to *p and return its old value, with
+// acquire-release semantics at GPU scope — a release of this thread's (and,
+// through the barrier before it, its block's) writes before the ticket, an
+// acquire of the writes released before the tickets it follows.
+__device__ __forceinline__ int draw_ticket(int* p) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n" : "=r"(old) : "l"(p) : "memory");
+  return old;
+}
+
+// C's arithmetic, for one (row, head) and N consecutive latent columns: the
+// S split partials o_s at op + s*o_stride and lse_s at lp + s*l_stride give
+// out = sum_s w_s o_s / sum_s w_s with w_s = exp(lse_s - max_s lse_s), summed
+// in split order; returns lse = max + log(sum_s w_s). The standalone C kernel
+// and the split kernel's ticket epilogue both call it; every add and multiply
+// is explicit (__fadd_rn / __fmaf_rn / __fdiv_rn), so the two call sites
+// round alike and the folded merge is C bit for bit. The loads are issued
+// ahead of the arithmetic: all S at once when S <= C, else C splits at a time
+// (the order of the sums is the split order all the same).
+template <int N, int C>
+__device__ __forceinline__ float lse_merge(const float* op, size_t o_stride, const float* lp,
+                                           size_t l_stride, int S, float (&out)[N]) {
+  float m, den = 0.f, num[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) num[k] = 0.f;
+  if (S <= C) {
+    float l[C], v[C][N];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (j < S) {
+        load_l2<1>(lp + j * l_stride, l + j);
+        load_l2<N>(op + j * o_stride, v[j]);
+      }
+    }
+    m = l[0];
+#pragma unroll
+    for (int j = 1; j < C; ++j)
+      if (j < S) m = fmaxf(m, l[j]);
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (j < S) {
+        const float w = expf(__fsub_rn(l[j], m));
+        den = __fadd_rn(den, w);
+#pragma unroll
+        for (int k = 0; k < N; ++k) num[k] = __fmaf_rn(w, v[j][k], num[k]);
+      }
+    }
+  } else {
+    m = kNegInf;
+    for (int s0 = 0; s0 < S; s0 += C) {
+      float l[C];
+#pragma unroll
+      for (int j = 0; j < C; ++j)
+        if (s0 + j < S) load_l2<1>(lp + (s0 + j) * l_stride, l + j);
+#pragma unroll
+      for (int j = 0; j < C; ++j)
+        if (s0 + j < S) m = s0 + j == 0 ? l[0] : fmaxf(m, l[j]);
+    }
+    for (int s0 = 0; s0 < S; s0 += C) {
+      float l[C], v[C][N];
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        if (s0 + j < S) {
+          load_l2<1>(lp + (s0 + j) * l_stride, l + j);
+          load_l2<N>(op + (s0 + j) * o_stride, v[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        if (s0 + j < S) {
+          const float w = expf(__fsub_rn(l[j], m));
+          den = __fadd_rn(den, w);
+#pragma unroll
+          for (int k = 0; k < N; ++k) num[k] = __fmaf_rn(w, v[j][k], num[k]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) out[k] = __fdiv_rn(num[k], den);
+  return __fadd_rn(m, logf(den));
+}
+
+// The merge of a tile's nh heads (C folded): items of N latent columns of one
+// head, spread over the block's threads, C splits' loads in flight at once
+// (N x C floats of registers per thread). Not inlined (see quantize_query).
+template <int N, int C>
+__device__ __noinline__ void merge_tile(const float* o_part, const float* lse_part,
+                                           float* o_out, float* lse_out, size_t part0,
+                                           size_t row0, int nh, int H, int S, int d_c) {
+  const int per_head = d_c / N;
+  for (int i = threadIdx.x; i < nh * per_head; i += kThreads) {
+    const int h = i / per_head, c = (i - h * per_head) * N;
+    float out[N];
+    const float l = lse_merge<N, C>(o_part + (part0 + h) * d_c + c,
+                                    static_cast<size_t>(H) * d_c, lse_part + part0 + h,
+                                    static_cast<size_t>(H), S, out);
+    float* dst = o_out + (row0 + h) * d_c + c;
+    if constexpr (N == 1) {
+      dst[0] = out[0];
+    } else {
+#pragma unroll
+      for (int k = 0; k < N; k += 4)
+        *reinterpret_cast<float4*>(dst + k) = make_float4(out[k], out[k + 1], out[k + 2],
+                                                          out[k + 3]);
+    }
+    if (c == 0) lse_out[row0 + h] = l;
+  }
+}
+
+// Step 0 on a raw query (D folded) for a narrow tile: the tile's nh rows of
+// q_lat [., d_c] and q_rope [., d_r] from row row0, quantized by the whole
+// block into q_s, qr_s (float64) and sq_s; amax_s is W ints of shared
+// scratch. Not inlined, like merge_tile: code that runs once per block stays
+// out of the register allocation and schedule of the decode loop.
+template <int F, int W>
+__device__ __noinline__ void quantize_query(const float* __restrict__ q_lat,
+                                            const float* __restrict__ q_rope, size_t row0,
+                                            int nh, int d_c, int d_r, double* q_s, double* qr_s,
+                                            float* sq_s, int* amax_s) {
+  using Fm = Format<F>;
+  const int tid = threadIdx.x, lane = tid & 31;
+  // this thread's latent values (columns tid, tid + kThreads of each head)
+  // and the W heads side by side, so their loads, shuffles and divisions
+  // overlap; the warps' maxima meet in a shared atomicMax on their bits
+  // (a non-negative float orders as its int)
+  constexpr int kQCols = kMaxDc / kThreads;
+  float qx[W][kQCols];
+#pragma unroll
+  for (int h = 0; h < W; ++h)
+#pragma unroll
+    for (int j = 0; j < kQCols; ++j) {
+      const int d = tid + j * kThreads;
+      qx[h][j] = h < nh && d < d_c ? q_lat[(row0 + h) * d_c + d] : 0.f;
+    }
+  if (tid < W) amax_s[tid] = 0;
+  float amax[W];
+#pragma unroll
+  for (int h = 0; h < W; ++h) {
+    amax[h] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kQCols; ++j) amax[h] = fmaxf(amax[h], fabsf(qx[h][j]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int h = 0; h < W; ++h) amax[h] = fmaxf(amax[h], __shfl_xor_sync(0xffffffffu, amax[h], o));
+  __syncthreads();   // amax_s is zero
+  if (lane == 0) {
+#pragma unroll
+    for (int h = 0; h < W; ++h)
+      if (h < nh) atomicMax(amax_s + h, __float_as_int(amax[h]));
+  }
+  __syncthreads();
+  float sq[W];
+#pragma unroll
+  for (int h = 0; h < W; ++h) {
+    sq[h] = dynamic_scale<F>(__int_as_float(amax_s[h]));
+    if (tid == h && h < nh) sq_s[h] = sq[h];
+  }
+#pragma unroll
+  for (int h = 0; h < W; ++h)
+#pragma unroll
+    for (int j = 0; j < kQCols; ++j) {
+      const int d = tid + j * kThreads;
+      if (h < nh && d < d_c) q_s[h * d_c + d] = Fm::widen(Fm::cast(__fdiv_rn(qx[h][j], sq[h])));
+    }
+  for (int i = tid; i < nh * d_r; i += kThreads)
+    qr_s[i] = static_cast<double>(__fdiv_rn(q_rope[row0 * d_r + i],
+                                            dynamic_scale<F>(__int_as_float(amax_s[i / d_r]))));
+}
+
 // The sink guard's full-precision content value of row tok (< S_k).
 __device__ __forceinline__ float sink_value(const float* __restrict__ sink, int b, int S_k,
                                             int tok, int d, int d_c, float scale) {
@@ -277,11 +512,13 @@ template <int F, int W, bool kSinglePass, bool kAmla, bool kSink, bool kVerify>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
               const float* __restrict__ q_r, const float* __restrict__ sigma_q,
+              const float* __restrict__ q_lat, const float* __restrict__ q_rope,
               const typename Format<F>::T* __restrict__ content,
               const __nv_bfloat16* __restrict__ rope, const float* __restrict__ scale,
               const int* __restrict__ page_table, const int* __restrict__ seq_lens,
-              const float* __restrict__ sink, int S_k, float* __restrict__ o_part,
-              float* __restrict__ lse_part, float* __restrict__ sp_part, int H, int d_c,
+              const float* __restrict__ sink, int S_k, float* o_part, float* lse_part,
+              float* __restrict__ sp_part, float* __restrict__ o_out,
+              float* __restrict__ lse_out, int* __restrict__ tickets, int H, int d_c,
               int d_r, int bn, int P, int blocks_per_split, float softmax_scale, int q_len,
               Layout L) {
   using Fm = Format<F>;
@@ -296,6 +533,7 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
   float* sp_s = l_s + W;                                   // FMA: sigma_p; AMLA: e
   float* corr_s = sp_s + W;                                // FMA: corr
   int* k_s = reinterpret_cast<int*>(corr_s);               // AMLA: k
+  float* sq_s = corr_s + W;                                // sigma_q
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int d0 = kCols * tid;  // the first latent column of this thread in step 3
@@ -346,9 +584,36 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
   for (int k = 0; k < D - 1; ++k) issue(first + k, block_of(first + k));  // in flight during the set-up
   size_t pid_ahead = block_of(first + D - 1);
 
-  for (int i = tid; i < nh * d_c; i += kThreads) q_s[i] = Fm::widen(q_c8[row0 * d_c + i]);
+  // 0. the tile's query rows and sigma_q: a raw query quantized here with
+  // D's operations (every thread of the block on every head: max|q_lat| per
+  // warp, then over the warps — a max is exact in any order — then the
+  // scaled casts), a prepared one widened
+  if (q_lat != nullptr) {
+    if constexpr (F != kNone && W >= 4) {
+      // a wide tile: one warp per head
+      for (int h = warp; h < nh; h += kWarps) {
+        const float* src = q_lat + (row0 + h) * d_c;
+        float amax = 0.f;
+        for (int d = lane; d < d_c; d += 32) amax = fmaxf(amax, fabsf(src[d]));
+        const float sq = dynamic_scale<F>(warp_max(amax));
+        for (int d = lane; d < d_c; d += 32)
+          q_s[h * d_c + d] = Fm::widen(Fm::cast(__fdiv_rn(src[d], sq)));
+        const float* rsrc = q_rope + (row0 + h) * d_r;
+        for (int k = lane; k < d_r; k += 32)
+          qr_s[h * d_r + k] = static_cast<double>(__fdiv_rn(rsrc[k], sq));
+        if (lane == 0) sq_s[h] = sq;
+      }
+    } else if constexpr (F != kNone) {
+      // a narrow tile: the whole block on its heads
+      quantize_query<F, W>(q_lat, q_rope, row0, nh, d_c, d_r, q_s, qr_s, sq_s,
+                           reinterpret_cast<int*>(p_s));   // p_s is free until step 1
+    }
+  } else {
+    for (int i = tid; i < nh * d_c; i += kThreads) q_s[i] = Fm::widen(q_c8[row0 * d_c + i]);
+    for (int i = tid; i < nh * d_r; i += kThreads) qr_s[i] = static_cast<double>(q_r[row0 * d_r + i]);
+    if (tid < nh) sq_s[tid] = sigma_q[row0 + tid];
+  }
   const int tpt = kThreads / bn;  // lanes per token in step 1 (power of two, <= 32)
-  for (int i = tid; i < nh * d_r; i += kThreads) qr_s[i] = static_cast<double>(q_r[row0 * d_r + i]);
   if (tid < W) {
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
@@ -438,7 +703,7 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
             float s = kNegInf;
             if (kVerify ? tok < limit(h) : valid) {
               s = __fadd_rn(static_cast<float>(ac[h]), static_cast<float>(ar[h]));
-              s = __fmul_rn(__fmul_rn(s, __fmul_rn(sigma_q[row0 + h], sk_s[t])), softmax_scale);
+              s = __fmul_rn(__fmul_rn(s, __fmul_rn(sq_s[h], sk_s[t])), softmax_scale);
             }
             p_s[h * bn + t] = s;
           }
@@ -577,6 +842,13 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
   // raw (acc, l, g = i + e), combined by amla_combine.
   const size_t out0 = (static_cast<size_t>(b) * S + split) * H + h0;
   const bool raw = kAmla && !kSinglePass;
+  // C folded at one split: the merge of a single partial is the identity
+  // (w = exp(0) = 1, den = 1, o * 1 / 1 = o, lse + log 1 = lse; a partial is
+  // never -0 or NaN), so the split writes its partial into o_out, lse_out,
+  // whose layout [B, H, .] is the partials' at S = 1
+  const bool direct = !kSinglePass && !kAmla && o_out != nullptr && S == 1;
+  float* o_dst = direct ? o_out : o_part;
+  float* lse_dst = direct ? lse_out : lse_part;
   if (d0 < d_c) {
 #pragma unroll
     for (int h = 0; h < W; ++h) {
@@ -589,7 +861,7 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
           if (!kSinglePass && !kAmla && !(l > 0.f)) o[k] = 0.f;  // empty split: neutral partial
         }
 #pragma unroll
-        for (int k = 0; k < kCols; ++k) o_part[(out0 + h) * d_c + d0 + k] = o[k];
+        for (int k = 0; k < kCols; ++k) o_dst[(out0 + h) * d_c + d0 + k] = o[k];
       }
     }
   }
@@ -606,20 +878,55 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
     } else {
       float lse = __fadd_rn(m_s[tid], logf(__fmul_rn(sp_s[tid], l)));
       if (!kSinglePass && !(l > 0.f)) lse = kNegInf;
-      lse_part[out0 + tid] = lse;
+      lse_dst[out0 + tid] = lse;
       if (sp_part != nullptr) sp_part[out0 + tid] = sp_s[tid];
+    }
+  }
+
+  // C folded: the block that draws the tile's last ticket merges its S
+  // partials into o_out [B, H, d_c] and lse_out [B, H] (see the design note)
+  if constexpr (!kSinglePass && !kAmla) {
+    if (o_out != nullptr && S > 1) {
+      // the block's partial is written (the barrier) and released with its
+      // ticket
+      __syncthreads();
+      bool last = false;
+      if (tid == 0) {
+        int* ticket = tickets + static_cast<size_t>(b) * gridDim.x + blockIdx.x;
+        last = draw_ticket(ticket) == S - 1;
+        if (last) atomicExch(ticket, 0);   // every split has drawn: reset for the next launch
+      }
+      if (__syncthreads_or(last)) {
+        // items of 8, 4 or 1 latent columns, so the threads share the tile;
+        // a narrow tile (W * kMaxDc < 4 * kThreads columns) compiles the
+        // one-column merge only, which keeps the kernel's registers (the
+        // merge's loads in flight) within what lets two blocks share an SM
+        const size_t part0 = static_cast<size_t>(b) * S * H + h0;
+        const int cols = nh * d_c;
+        if constexpr (W * kMaxDc >= 4 * kThreads) {
+          if (d_c % 8 == 0 && cols >= 8 * kThreads && S <= 4)
+            merge_tile<8, 4>(o_part, lse_part, o_out, lse_out, part0, row0, nh, H, S, d_c);
+          else if (cols >= 4 * kThreads)
+            merge_tile<4, 8>(o_part, lse_part, o_out, lse_out, part0, row0, nh, H, S, d_c);
+          else
+            merge_tile<1, 4>(o_part, lse_part, o_out, lse_out, part0, row0, nh, H, S, d_c);
+        } else {
+          merge_tile<1, 4>(o_part, lse_part, o_out, lse_out, part0, row0, nh, H, S, d_c);
+        }
+      }
     }
   }
 }
 
 template <int F, int W, bool kSinglePass, bool kAmla, bool kSink, bool kVerify>
 static cudaError_t launch_decode(const void* q_c8, const float* q_r, const float* sigma_q,
-                                 const void* content, const void* rope, const float* scale,
-                                 const int* page_table, const int* seq_lens, const float* sink,
-                                 int S_k, float* o_part, float* lse_part, float* sp_part, int B,
-                                 int H, int d_c, int d_r, int bn, int P, int num_splits,
-                                 int blocks_per_split, float softmax_scale, int q_len,
-                                 cudaStream_t stream) {
+                                 const float* q_lat, const float* q_rope, const void* content,
+                                 const void* rope, const float* scale, const int* page_table,
+                                 const int* seq_lens, const float* sink, int S_k, float* o_part,
+                                 float* lse_part, float* sp_part, float* o, float* lse,
+                                 int* tickets, int B, int H, int d_c, int d_r, int bn, int P,
+                                 int num_splits, int blocks_per_split, float softmax_scale,
+                                 int q_len, cudaStream_t stream) {
   using T = typename Format<F>::T;
   auto kern = decode_kernel<F, W, kSinglePass, kAmla, kSink, kVerify>;
   // registers per thread and SMs, read once (outside any graph capture)
@@ -659,37 +966,29 @@ static cudaError_t launch_decode(const void* q_c8, const float* q_r, const float
   }
   const dim3 grid((H + W - 1) / W, num_splits, B);
   kern<<<grid, kThreads, L.total, stream>>>(
-      static_cast<const T*>(q_c8), q_r, sigma_q, static_cast<const T*>(content),
+      static_cast<const T*>(q_c8), q_r, sigma_q, q_lat, q_rope, static_cast<const T*>(content),
       static_cast<const __nv_bfloat16*>(rope), scale, page_table, seq_lens, sink, S_k, o_part,
-      lse_part, sp_part, H, d_c, d_r, bn, P, blocks_per_split, softmax_scale, q_len, L);
+      lse_part, sp_part, o, lse, tickets, H, d_c, d_r, bn, P, blocks_per_split, softmax_scale,
+      q_len, L);
   return cudaGetLastError();
 }
 
-// C: o = sum_s w_s o_s / sum_s w_s with w_s = exp(lse_s - max_s lse),
-// lse = max + log(sum_s w_s); one block per (head, batch row).
-// Bound: it reads S*H*d_c*4 partial bytes and writes H*d_c*4 per row.
+// C, standalone: lse_merge per latent column; one block per (head, batch
+// row). The FMA split kernels run the same merge in their epilogue; this
+// launch serves a caller that keeps the partials. Bound: it reads S*H*d_c*4
+// partial bytes and writes H*d_c*4 per row.
 __global__ void lse_combine_kernel(const float* __restrict__ o_part,
                                    const float* __restrict__ lse_part, float* __restrict__ o,
                                    float* __restrict__ lse, int S, int H, int d_c) {
-  extern __shared__ float w_s[];
   const int h = blockIdx.x, b = blockIdx.y;
-  const float* lp = lse_part + static_cast<size_t>(b) * S * H + h;
-  float m = lp[0];
-  for (int s = 1; s < S; ++s) m = fmaxf(m, lp[static_cast<size_t>(s) * H]);
-  float den = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const float w = expf(lp[static_cast<size_t>(s) * H] - m);
-    den += w;
-    if (threadIdx.x == 0) w_s[s] = w;
-  }
-  __syncthreads();
+  const size_t part0 = static_cast<size_t>(b) * S * H + h;
   for (int d = threadIdx.x; d < d_c; d += blockDim.x) {
-    float num = 0.f;
-    for (int s = 0; s < S; ++s)
-      num += w_s[s] * o_part[((static_cast<size_t>(b) * S + s) * H + h) * d_c + d];
-    o[(static_cast<size_t>(b) * H + h) * d_c + d] = num / den;
+    float out[1];
+    const float l = lse_merge<1, 4>(o_part + part0 * d_c + d, static_cast<size_t>(H) * d_c,
+                                 lse_part + part0, static_cast<size_t>(H), S, out);
+    o[(static_cast<size_t>(b) * H + h) * d_c + d] = out[0];
+    if (d == 0) lse[static_cast<size_t>(b) * H + h] = l;
   }
-  if (threadIdx.x == 0) lse[static_cast<size_t>(b) * H + h] = m + logf(den);
 }
 
 // #4: the combine-free AMLA merge. Split s holds the raw (acc_s, l_s) of
@@ -734,20 +1033,37 @@ __global__ void amla_combine_kernel(const float* __restrict__ acc_part,
 // (content [B, P*block, d_c]); sink (with S_k rows) is the contiguous
 // cache's sink guard shadow or nullptr; q_len > 1 selects the verify mode
 // (split mode, no sink; H is then the row count q_len * heads); width is the
-// head tile (heads per block), kWide or kNarrow.
+// head tile (heads per block), kWide or kNarrow. The query is either
+// prepared (q_c8, q_r, sigma_q) or raw (q_lat [B, H, d_c], q_rope [B, H, d_r]
+// float32, fp8 / int8 only: D runs in the prologue), the other pointers of
+// the query nullptr. o [B, H, d_c], lse [B, H] and tickets (B x head tiles
+// int32 counters, zero before the launch and zero after it) fold C into the
+// FMA split epilogue; nullptr leaves the merge to the caller.
 extern "C" int snapmla_decode(int fmt, int single_pass, int amla, const void* q_c8,
-                              const void* q_r, const void* sigma_q, const void* content,
-                              const void* rope, const void* scale, const void* page_table,
-                              const void* seq_lens, const void* sink, int S_k, void* o_part,
-                              void* lse_part, void* sp_part, int B, int H, int d_c, int d_r,
-                              int block, int P, int num_splits, int blocks_per_split,
-                              float softmax_scale, int q_len, int width, void* stream) {
+                              const void* q_r, const void* sigma_q, const void* q_lat,
+                              const void* q_rope, const void* content, const void* rope,
+                              const void* scale, const void* page_table, const void* seq_lens,
+                              const void* sink, int S_k, void* o_part, void* lse_part,
+                              void* sp_part, void* o, void* lse, void* tickets, int B, int H,
+                              int d_c, int d_r, int block, int P, int num_splits,
+                              int blocks_per_split, float softmax_scale, int q_len, int width,
+                              void* stream) {
   using namespace snap;
+  const bool raw = q_lat != nullptr;
+  const bool fold = o != nullptr;
   if (d_c % 4 || d_r % 2 || block < kThreads / 32 || block > kThreads || kThreads % block ||
       d_c > kMaxDc || num_splits < 1 ||
       (single_pass && num_splits != 1) || S_k < 0 || (S_k > 0 && sink == nullptr) ||
-      q_len < 1 || H % q_len || (q_len > 1 && (single_pass || S_k > 0)))
+      q_len < 1 || H % q_len || (q_len > 1 && (single_pass || S_k > 0)) ||
+      (raw ? (q_rope == nullptr || fmt == kNone)
+           : (q_c8 == nullptr || q_r == nullptr || sigma_q == nullptr)) ||
+      (fold && (single_pass || amla || lse == nullptr || tickets == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto* ql = static_cast<const float*>(q_lat);
+  const auto* qrope = static_cast<const float*>(q_rope);
+  auto* out_o = static_cast<float*>(o);
+  auto* out_lse = static_cast<float*>(lse);
+  auto* tk = static_cast<int*>(tickets);
   const auto* qr = static_cast<const float*>(q_r);
   const auto* sq = static_cast<const float*>(sigma_q);
   const auto* sc = static_cast<const float*>(scale);
@@ -759,9 +1075,10 @@ extern "C" int snapmla_decode(int fmt, int single_pass, int amla, const void* q_
   auto* spp = static_cast<float*>(sp_part);
   auto st = static_cast<cudaStream_t>(stream);
 #define SNAP_LAUNCH_W(F, W, SP, AM, SK, VF)                                                      \
-  launch_decode<F, W, SP, AM, SK, VF>(q_c8, qr, sq, content, rope, sc, pt, sl, sk, S_k, op, lp,   \
-                                      spp, B, H, d_c, d_r, block, P, num_splits,                 \
-                                      blocks_per_split, softmax_scale, q_len, st)
+  launch_decode<F, W, SP, AM, SK, VF>(q_c8, qr, sq, ql, qrope, content, rope, sc, pt, sl, sk,    \
+                                      S_k, op, lp, spp, out_o, out_lse, tk, B, H, d_c, d_r,      \
+                                      block, P, num_splits, blocks_per_split, softmax_scale,     \
+                                      q_len, st)
 #define SNAP_LAUNCH(F, SP, AM, SK, VF)                 \
   (width == kWide     ? SNAP_LAUNCH_W(F, kWide, SP, AM, SK, VF)   \
    : width == kNarrow ? SNAP_LAUNCH_W(F, kNarrow, SP, AM, SK, VF) \
@@ -798,7 +1115,7 @@ extern "C" int snapmla_lse_combine(const void* o_part, const void* lse_part, voi
   using namespace snap;
   if (S < 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(H, B);
-  lse_combine_kernel<<<grid, 128, S * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
+  lse_combine_kernel<<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(o_part), static_cast<const float*>(lse_part),
       static_cast<float*>(o), static_cast<float*>(lse), S, H, d_c);
   return static_cast<int>(cudaGetLastError());

@@ -8,8 +8,11 @@
 //
 // Bound on the H100: bytes — it reads (d_c + d_r) * 4 bytes and writes
 // d_c + d_r * 4 + 4 bytes per (token, head), a few hundred kilobytes per decode
-// step, so its time is launch latency. Left for later: folding it into the
-// decode kernel's query load.
+// step, so its time is launch latency. The model's decode and verify steps
+// therefore do not launch it: every MLA decode kernel takes the raw query and
+// runs these operations in its prologue (mla_decode.cu, step 0), with the
+// same bits. This launch serves the layer API (core/snapmla.decode_step),
+// which mirrors the reference's separate Fused-Q-Quant call.
 #include "common.cuh"
 
 namespace snap {

@@ -44,11 +44,11 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # fmt, single_pass, amla, q_c8, q_r, sigma_q, content, rope, scale,
-    # page_table, seq_lens, sink, S_k, o_part, lse_part, sp_part, B, H, d_c,
-    # d_r, block, P, num_splits, blocks_per_split, softmax_scale, q_len, width,
-    # stream
-    "snapmla_decode": [_I] * 3 + [_P] * 9 + [_I] + [_P] * 3 + [_I] * 8 + [_F, _I, _I, _P],
+    # fmt, single_pass, amla, q_c8, q_r, sigma_q, q_lat, q_rope, content, rope,
+    # scale, page_table, seq_lens, sink, S_k, o_part, lse_part, sp_part, o,
+    # lse, tickets, B, H, d_c, d_r, block, P, num_splits, blocks_per_split,
+    # softmax_scale, q_len, width, stream
+    "snapmla_decode": [_I] * 3 + [_P] * 11 + [_I] + [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P],
     # o_part, lse_part, o, lse, B, S, H, d_c, stream
     "snapmla_lse_combine": [_P] * 4 + [_I] * 4 + [_P],
     # acc_part, l_part, g_part, o, lse, B, S, H, d_c, stream

@@ -36,14 +36,22 @@ from repro_torch.kernels.mla_decode import ops as _ops
 
 
 class DecodeQuery(NamedTuple):
-    """Prepared decode query (after Fused-Q-Quant / ``ref.prepare_q``):
-    rank-3 ``[B, H, .]`` is one token per slot, rank-4 ``[B, q_len, H, .]``
-    the speculative-verify block (the last q_len positions of each
-    sequence, causally masked)."""
+    """Decode query, prepared (after Fused-Q-Quant / ``ref.prepare_q``) or
+    raw (``DecodeQuery.raw``: float32 ``q_lat``, ``q_rope`` in the first two
+    fields, ``sigma_q`` None; fp8 / int8 caches). The kernel backends hand a
+    raw query to the kernels, which quantize it in their prologue (D folded);
+    the reference backends prepare it with ``prepare_q`` first. Rank-3
+    ``[B, H, .]`` is one token per slot, rank-4 ``[B, q_len, H, .]`` the
+    speculative-verify block (the last q_len positions of each sequence,
+    causally masked)."""
 
-    q_c8: torch.Tensor     # [B, (q_len,) H, d_c] quantized content query
-    q_r: torch.Tensor      # [B, (q_len,) H, d_r] rope query, / sigma_q
-    sigma_q: torch.Tensor  # [B, (q_len,) H]
+    q_c8: torch.Tensor     # [B, (q_len,) H, d_c] quantized content query (raw: q_lat f32)
+    q_r: torch.Tensor      # [B, (q_len,) H, d_r] rope query, / sigma_q (raw: q_rope f32)
+    sigma_q: torch.Tensor | None  # [B, (q_len,) H]; None for a raw query
+
+    @classmethod
+    def raw(cls, q_lat: torch.Tensor, q_rope: torch.Tensor) -> "DecodeQuery":
+        return cls(q_lat, q_rope, None)
 
     @property
     def q_len(self) -> int:

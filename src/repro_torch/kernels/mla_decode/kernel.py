@@ -3,12 +3,13 @@
 "amla", the two modes of the reference's ``_block_pipeline``):
 
   * ``mla_decode_paged_splitkv_cuda`` — kernel A (paged split-KV, q_len = 1)
-    then kernel C (FMA) or #4 (AMLA); replaces
+    with kernel C folded into its epilogue (FMA), or A then #4 (AMLA);
+    replaces
     ``repro/kernels/mla_decode/kernel.py::mla_decode_paged_splitkv_pallas``;
   * ``mla_decode_paged_cuda`` — kernel B (the same kernel in single-pass
     mode); replaces ``mla_decode_paged_pallas``;
-  * ``mla_decode_splitkv_cuda`` — #2, kernel A over a contiguous cache, then
-    the combine; replaces ``mla_decode_splitkv_pallas``;
+  * ``mla_decode_splitkv_cuda`` — #2, kernel A over a contiguous cache, with
+    the combine as above; replaces ``mla_decode_splitkv_pallas``;
   * ``mla_decode_cuda`` — #1, kernel B over a contiguous cache; replaces
     ``mla_decode_pallas``;
   * ``lse_combine_cuda`` — kernel C; replaces ``lse_combine_pallas``;
@@ -29,8 +30,19 @@ Each decode launch computes its heads in tiles of ``head_width(...)`` heads
 per CUDA block, one of the two widths the kernel is instantiated for; the
 width changes which block computes a head, never a bit of the result.
 
+The query is prepared ``(q_c8, q_r, sigma_q)``, from Fused-Q-Quant (D) or
+``ref.prepare_q``, or raw ``(q_lat, q_rope, None)`` in float32 (fp8 and int8
+only): the kernel then runs D in its prologue, with D's bits. Under FMA the
+split kernels merge their partials in their epilogue (C folded) unless the
+caller asks for the partials; ``launch_plan`` is that rule. So an FMA decode
+or verify call is one launch. The folded launches share per-device scratch
+(the partials and the ticket counters of the last-block merge), grown on
+demand outside any CUDA-graph capture; it assumes one stream, as the port
+uses: two folded launches in flight on two streams would share it.
+
 A wrapper runs its plain PyTorch version (``ref.py``) only when it is handed
-CPU tensors; for CUDA tensors it launches the kernel or raises.
+CPU tensors; for CUDA tensors it launches the kernel or raises. On the CPU a
+raw query runs ``fused_q_quant_ref`` and then the plain version.
 """
 from __future__ import annotations
 
@@ -39,6 +51,7 @@ import torch
 from repro_torch.core.kvcache import patch_sink_rows
 from repro_torch.kernels import _lib
 from repro_torch.kernels.mla_decode import ref as R
+from repro_torch.kernels.quantize.ref import fused_q_quant_ref
 
 FMT_CODES = {"fp8_e4m3": 0, "int8": 1, "none": 2}
 STORAGE = {"fp8_e4m3": torch.float8_e4m3fn, "int8": torch.int8, "none": torch.bfloat16}
@@ -47,6 +60,69 @@ RESCALES = ("fma", "amla")
 # head-tile widths instantiated in mla_decode.cu (kWide, kNarrow), widest first
 HEAD_WIDTHS = (8, 1)
 _TILES = _lib.HeadTiles("head", HEAD_WIDTHS)
+# the formats whose raw query the kernels quantize in their prologue (D's)
+RAW_FMTS = ("fp8_e4m3", "int8")
+
+
+def _check_raw(fmt: str) -> None:
+    if fmt not in RAW_FMTS:
+        raise ValueError(f"a raw query takes {RAW_FMTS}, not {fmt!r}: prepare it with "
+                         "ref.prepare_q")
+
+
+def launch_plan(*, raw: bool, fmt: str, single_pass: bool, rescale: str,
+                return_partials: bool = False) -> str:
+    """The routing rule of every decode wrapper: how a call merges its split
+    partials — "folded" (C in the FMA split kernel's epilogue), "lse_combine"
+    (C launched after the kernel, for a caller that keeps the partials),
+    "amla_combine" (#4 after the kernel) or "none" (single pass). A raw query
+    (fp8 / int8; a "none" query is prepared by ``prepare_q``) is quantized in
+    the kernel's prologue on every route."""
+    if rescale not in RESCALES:
+        raise ValueError(f"rescale must be one of {RESCALES}, not {rescale!r}")
+    if raw:
+        _check_raw(fmt)
+    if single_pass:
+        return "none"
+    if rescale == "amla":
+        return "amla_combine"
+    return "lse_combine" if return_partials else "folded"
+
+
+class _Scratch:
+    """Per-device buffers of the folded split launches: the partials, which
+    each launch writes and reads back itself, and the int32 ticket counters
+    of the last-block merge, zeroed when allocated and left at zero by every
+    launch. Grown on demand, never inside a CUDA-graph capture (a graph keeps
+    the addresses it captured). One stream: the buffers are reused by the
+    next launch on it."""
+
+    def __init__(self):
+        self._floats: dict = {}
+        self._tickets: dict = {}
+
+    @staticmethod
+    def _grow(store: dict, dev: torch.device, n: int, make):
+        buf = store.get(dev)
+        if buf is None or buf.numel() < n:
+            if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("repro_torch: the folded decode's scratch must grow "
+                                   "outside a CUDA-graph capture; run the call once first")
+            buf = store[dev] = make(n)
+        return buf
+
+    def partials(self, dev, B, S, H, d_c):
+        n_o = B * S * H * d_c
+        buf = self._grow(self._floats, dev, n_o + B * S * H,
+                         lambda n: torch.empty(n, dtype=torch.float32, device=dev))
+        return buf[:n_o], buf[n_o:n_o + B * S * H]
+
+    def tickets(self, dev, n):
+        return self._grow(self._tickets, dev, n,
+                          lambda m: torch.zeros(m, dtype=torch.int32, device=dev))
+
+
+_SCRATCH = _Scratch()
 
 
 def head_width(batch: int, rows: int, splits: int, sms: int) -> int:
@@ -74,12 +150,25 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return dev.type == "cpu"
 
 
+def _cpu_query(q_c8, q_r, sigma_q, fmt):
+    """The prepared query of the plain versions: a raw one (``sigma_q``
+    None) through Fused-Q-Quant's plain version."""
+    if sigma_q is not None:
+        return q_c8, q_r, sigma_q
+    _check_raw(fmt)
+    return fused_q_quant_ref(torch.cat([q_c8, q_r], dim=-1), q_c8.shape[-1], fmt)
+
+
 def _check_common(q_c8, q_r, sigma_q, seq_lens, fmt, B, d_r, block):
     H, d_c = q_c8.shape[1:]
     dev = q_c8.device
-    _lib.check(q_c8, "q_c8", STORAGE[fmt], (B, H, d_c), dev)
-    _lib.check(q_r, "q_r", torch.float32, (B, H, d_r), dev)
-    _lib.check(sigma_q, "sigma_q", torch.float32, (B, H), dev)
+    if sigma_q is None:   # raw: q_lat, q_rope
+        _lib.check(q_c8, "q_lat", torch.float32, (B, H, d_c), dev)
+        _lib.check(q_r, "q_rope", torch.float32, (B, H, d_r), dev)
+    else:
+        _lib.check(q_c8, "q_c8", STORAGE[fmt], (B, H, d_c), dev)
+        _lib.check(q_r, "q_r", torch.float32, (B, H, d_r), dev)
+        _lib.check(sigma_q, "sigma_q", torch.float32, (B, H), dev)
     _lib.check(seq_lens, "seq_lens", torch.int32, (B,), dev)
     if d_c % 4 or d_r % 2 or block not in BLOCK_SIZES:
         raise ValueError(f"the kernel takes d_c % 4 == 0 (got {d_c}), even d_r "
@@ -90,12 +179,13 @@ def _check_common(q_c8, q_r, sigma_q, seq_lens, fmt, B, d_r, block):
 
 def _flatten_q(q_c8, q_r, sigma_q):
     """[B, q_len, H, .] -> head-major rows [B, q_len*H, .], with (q_len, H);
-    a rank-3 query passes through with q_len None (kernel.py:485-497)."""
+    a rank-3 query passes through with q_len None (kernel.py:485-497); a raw
+    query's ``sigma_q`` stays None."""
     if q_c8.dim() == 3:
         return q_c8, q_r, sigma_q, None, q_c8.shape[1]
     B, q_len, H = q_c8.shape[:3]
     return (q_c8.reshape(B, q_len * H, -1), q_r.reshape(B, q_len * H, -1),
-            sigma_q.reshape(B, q_len * H), q_len, H)
+            None if sigma_q is None else sigma_q.reshape(B, q_len * H), q_len, H)
 
 
 def _unflatten_rows(q_len, H, o, lse, partials):
@@ -112,53 +202,55 @@ def _unflatten_rows(q_len, H, o, lse, partials):
     return o, lse, partials
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch_decode(kernel: str, fmt: str, single_pass: bool, rescale: str, q_c8, q_r,
                    sigma_q, content, rope, scale, page_table, seq_lens, sink, *, B, H,
-                   d_c, d_r, block, P, num_splits, softmax_scale, q_len=1):
-    """Allocate the partials and launch one decode kernel: o [B, S, H, d_c],
-    lse [B, S, H] and (split mode) sigma_p or, under AMLA, g [B, S, H]."""
-    if rescale not in RESCALES:
-        raise ValueError(f"rescale must be one of {RESCALES}, not {rescale!r}")
+                   d_c, d_r, block, P, num_splits, softmax_scale, q_len=1, fold=False):
+    """Launch one decode kernel on a prepared or a raw (``sigma_q`` None)
+    query. Returns the partials it allocated, o [B, S, H, d_c], lse [B, S, H]
+    and (split mode) sigma_p or, under AMLA, g [B, S, H]; with ``fold`` (C in
+    the FMA split epilogue) the merged (o [B, H, d_c], lse [B, H], None)."""
     if not 1 <= num_splits <= P:
         raise ValueError(f"num_splits={num_splits} outside [1, {P}]")
     dev = q_c8.device
-    o_p = torch.empty((B, num_splits, H, d_c), dtype=torch.float32, device=dev)
-    lse_p = torch.empty((B, num_splits, H), dtype=torch.float32, device=dev)
-    sp_p = None if single_pass else torch.empty_like(lse_p)
     amla = rescale == "amla"
+    if fold:
+        if single_pass or amla:
+            raise ValueError("C folds into the FMA split kernels only")
+        o_p, lse_p = _SCRATCH.partials(dev, B, num_splits, H, d_c)
+        tickets = _SCRATCH.tickets(dev, B * H)   # B x head tiles at any width
+        sp_p = None
+        o = torch.empty((B, H, d_c), dtype=torch.float32, device=dev)
+        lse = torch.empty((B, H), dtype=torch.float32, device=dev)
+    else:
+        o_p = torch.empty((B, num_splits, H, d_c), dtype=torch.float32, device=dev)
+        lse_p = torch.empty((B, num_splits, H), dtype=torch.float32, device=dev)
+        sp_p = None if single_pass else torch.empty_like(lse_p)
+        o = lse = tickets = None
+    prepared, raw = ((q_c8, q_r, sigma_q), (None, None)) if sigma_q is not None else \
+        ((None, None, None), (q_c8, q_r))
     if q_len > 1:
         kernel += "_verify"
     width = _TILES.forced or head_width(B, H, num_splits, _lib.sm_count(dev.index or 0))
     _lib.launch(
         kernel + ("_amla" if amla else ""), "snapmla_decode", FMT_CODES[fmt],
-        int(single_pass), int(amla), q_c8.data_ptr(), q_r.data_ptr(), sigma_q.data_ptr(),
-        content.data_ptr(), rope.data_ptr(), scale.data_ptr(),
-        None if page_table is None else page_table.data_ptr(), seq_lens.data_ptr(),
-        None if sink is None else sink.data_ptr(), 0 if sink is None else sink.shape[1],
-        o_p.data_ptr(), lse_p.data_ptr(), None if sp_p is None else sp_p.data_ptr(),
+        int(single_pass), int(amla), *map(_ptr, prepared), *map(_ptr, raw),
+        content.data_ptr(), rope.data_ptr(), scale.data_ptr(), _ptr(page_table),
+        seq_lens.data_ptr(), _ptr(sink), 0 if sink is None else sink.shape[1],
+        o_p.data_ptr(), lse_p.data_ptr(), _ptr(sp_p), _ptr(o), _ptr(lse), _ptr(tickets),
         B, H, d_c, d_r, block, P, num_splits, -(-P // num_splits), float(softmax_scale),
         q_len, width)
-    return o_p, lse_p, sp_p
+    return (o, lse, None) if fold else (o_p, lse_p, sp_p)
 
 
-def paged_decode_partials_cuda(q_c8, q_r, sigma_q, content_pool, rope_pool,
-                               scale_pool, page_table, seq_lens, *,
-                               softmax_scale: float, num_splits: int, fmt: str,
-                               single_pass: bool, rescale: str = "fma", q_len: int = 1):
-    """Launch kernel A (``single_pass=False``) or B: per-split partials
-    (o [B, S, H, d_c], lse [B, S, H], sigma_p [B, S, H] — sigma_p only for A;
-    under AMLA, A's partials are the raw (acc, l, g)). ``q_len > 1``: A's
-    verify mode over flattened rows (H is then q_len * heads; CUDA only)."""
-    args = (q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_table,
-            seq_lens)
-    if _on_cpu(*args):
-        if single_pass:
-            o, lse = R.snapmla_decode_paged_ref(*args, softmax_scale=softmax_scale,
-                                                fmt=fmt, rescale=rescale)
-            return o[:, None], lse[:, None], None
-        return R.snapmla_decode_paged_splitkv_ref(
-            *args, softmax_scale=softmax_scale, num_splits=num_splits, fmt=fmt,
-            return_partials=True, rescale=rescale)[2]
+def _paged_launch(q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_table,
+                  seq_lens, *, softmax_scale, num_splits, fmt, single_pass, rescale,
+                  q_len=1, fold=False):
+    """Check a paged call's tensors and launch A or B on the pool."""
+    launch_plan(raw=sigma_q is None, fmt=fmt, single_pass=single_pass, rescale=rescale)
     B, P = page_table.shape
     n_pages, page, _ = content_pool.shape
     d_r = q_r.shape[-1]
@@ -172,28 +264,14 @@ def paged_decode_partials_cuda(q_c8, q_r, sigma_q, content_pool, rope_pool,
         "paged_single_pass_decode" if single_pass else "paged_splitkv_decode", fmt,
         single_pass, rescale, q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool,
         page_table, seq_lens, None, B=B, H=H, d_c=d_c, d_r=d_r, block=page, P=P,
-        num_splits=num_splits, softmax_scale=softmax_scale, q_len=q_len)
+        num_splits=num_splits, softmax_scale=softmax_scale, q_len=q_len, fold=fold)
 
 
-def decode_partials_cuda(q_c8, q_r, sigma_q, content, rope, scale, seq_lens, *,
-                         softmax_scale: float, block_n: int, num_splits: int, fmt: str,
-                         single_pass: bool, rescale: str = "fma",
-                         sink: torch.Tensor | None = None, q_len: int = 1):
-    """Launch #2 (``single_pass=False``) or #1 over a contiguous cache
-    (content [B, N, d_c], rope [B, N, d_r] bf16, scale [B, N]) in blocks of
-    ``block_n`` tokens: per-split partials as ``paged_decode_partials_cuda``."""
-    args = (q_c8, q_r, sigma_q, content, rope, scale, seq_lens)
-    if _on_cpu(*args, sink):
-        ref_args = (q_c8, q_r, sigma_q, patch_sink_rows(content, scale, sink),
-                    rope.float(), scale, seq_lens)
-        if single_pass:
-            o, lse = R.snapmla_decode_pipeline_ref(
-                *ref_args, softmax_scale=softmax_scale, block_n=block_n, fmt=fmt,
-                rescale=rescale)
-            return o[:, None], lse[:, None], None
-        return R.snapmla_decode_splitkv_ref(
-            *ref_args, softmax_scale=softmax_scale, num_splits=num_splits,
-            block_n=block_n, fmt=fmt, return_partials=True, rescale=rescale)[2]
+def _contiguous_launch(q_c8, q_r, sigma_q, content, rope, scale, seq_lens, *,
+                       softmax_scale, block_n, num_splits, fmt, single_pass, rescale,
+                       sink=None, q_len=1, fold=False):
+    """Check a contiguous call's tensors and launch #2 or #1 on the cache."""
+    launch_plan(raw=sigma_q is None, fmt=fmt, single_pass=single_pass, rescale=rescale)
     B, N, _ = content.shape
     d_r = q_r.shape[-1]
     H, d_c = _check_common(q_c8, q_r, sigma_q, seq_lens, fmt, B, d_r, block_n)
@@ -211,7 +289,55 @@ def decode_partials_cuda(q_c8, q_r, sigma_q, content, rope, scale, seq_lens, *,
         "single_pass_decode" if single_pass else "splitkv_decode", fmt, single_pass,
         rescale, q_c8, q_r, sigma_q, content, rope, scale, None, seq_lens, sink, B=B, H=H,
         d_c=d_c, d_r=d_r, block=block_n, P=N // block_n, num_splits=num_splits,
-        softmax_scale=softmax_scale, q_len=q_len)
+        softmax_scale=softmax_scale, q_len=q_len, fold=fold)
+
+
+def paged_decode_partials_cuda(q_c8, q_r, sigma_q, content_pool, rope_pool,
+                               scale_pool, page_table, seq_lens, *,
+                               softmax_scale: float, num_splits: int, fmt: str,
+                               single_pass: bool, rescale: str = "fma", q_len: int = 1):
+    """Launch kernel A (``single_pass=False``) or B: per-split partials
+    (o [B, S, H, d_c], lse [B, S, H], sigma_p [B, S, H] — sigma_p only for A;
+    under AMLA, A's partials are the raw (acc, l, g)). ``q_len > 1``: A's
+    verify mode over flattened rows (H is then q_len * heads; CUDA only).
+    The query may be raw (``sigma_q`` None): D then runs in the prologue."""
+    args = (q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_table,
+            seq_lens)
+    if _on_cpu(*args):
+        args = _cpu_query(q_c8, q_r, sigma_q, fmt) + args[3:]
+        if single_pass:
+            o, lse = R.snapmla_decode_paged_ref(*args, softmax_scale=softmax_scale,
+                                                fmt=fmt, rescale=rescale)
+            return o[:, None], lse[:, None], None
+        return R.snapmla_decode_paged_splitkv_ref(
+            *args, softmax_scale=softmax_scale, num_splits=num_splits, fmt=fmt,
+            return_partials=True, rescale=rescale)[2]
+    return _paged_launch(*args, softmax_scale=softmax_scale, num_splits=num_splits, fmt=fmt,
+                         single_pass=single_pass, rescale=rescale, q_len=q_len)
+
+
+def decode_partials_cuda(q_c8, q_r, sigma_q, content, rope, scale, seq_lens, *,
+                         softmax_scale: float, block_n: int, num_splits: int, fmt: str,
+                         single_pass: bool, rescale: str = "fma",
+                         sink: torch.Tensor | None = None, q_len: int = 1):
+    """Launch #2 (``single_pass=False``) or #1 over a contiguous cache
+    (content [B, N, d_c], rope [B, N, d_r] bf16, scale [B, N]) in blocks of
+    ``block_n`` tokens: per-split partials as ``paged_decode_partials_cuda``."""
+    args = (q_c8, q_r, sigma_q, content, rope, scale, seq_lens)
+    if _on_cpu(*args, sink):
+        ref_args = _cpu_query(q_c8, q_r, sigma_q, fmt) + (
+            patch_sink_rows(content, scale, sink), rope.float(), scale, seq_lens)
+        if single_pass:
+            o, lse = R.snapmla_decode_pipeline_ref(
+                *ref_args, softmax_scale=softmax_scale, block_n=block_n, fmt=fmt,
+                rescale=rescale)
+            return o[:, None], lse[:, None], None
+        return R.snapmla_decode_splitkv_ref(
+            *ref_args, softmax_scale=softmax_scale, num_splits=num_splits,
+            block_n=block_n, fmt=fmt, return_partials=True, rescale=rescale)[2]
+    return _contiguous_launch(*args, softmax_scale=softmax_scale, block_n=block_n,
+                              num_splits=num_splits, fmt=fmt, single_pass=single_pass,
+                              rescale=rescale, sink=sink, q_len=q_len)
 
 
 def lse_combine_cuda(o_partial: torch.Tensor, lse_partial: torch.Tensor):
@@ -257,27 +383,41 @@ def combine_cuda(partials, rescale: str = "fma"):
     return lse_combine_cuda(o_p, lse_p)
 
 
+def _split_decode(launch, q_c8, q_r, sigma_q, cache_args, *, fmt, rescale, return_partials,
+                  **kw):
+    """A split-KV call on the card: flatten a verify block, launch by
+    ``launch_plan`` (C folded, or the kernel then C / #4), unflatten."""
+    route = launch_plan(raw=sigma_q is None, fmt=fmt, single_pass=False, rescale=rescale,
+                        return_partials=return_partials)
+    qc, qr, sq, q_len, H = _flatten_q(q_c8, q_r, sigma_q)
+    kw.update(fmt=fmt, single_pass=False, rescale=rescale, q_len=q_len or 1)
+    if route == "folded":
+        o, lse, parts = launch(qc, qr, sq, *cache_args, fold=True, **kw)
+    else:
+        parts = launch(qc, qr, sq, *cache_args, **kw)
+        o, lse = combine_cuda(parts, rescale)
+    o, lse, parts = _unflatten_rows(q_len, H, o, lse, parts)
+    return (o, lse, parts) if return_partials else (o, lse)
+
+
 def mla_decode_paged_splitkv_cuda(q_c8, q_r, sigma_q, content_pool, rope_pool,
                                   scale_pool, page_table, seq_lens, *,
                                   softmax_scale: float, num_splits: int,
                                   fmt: str = "fp8_e4m3",
                                   return_partials: bool = False, rescale: str = "fma"):
-    """Paged split-KV SnapMLA decode (kernel A, then kernel C or #4). Returns
-    (o [B, (q_len,) H, d_c] f32, lse [B, (q_len,) H]) — plus the partials
-    when ``return_partials``."""
+    """Paged split-KV SnapMLA decode (kernel A with C folded, or A then C or
+    #4, by ``launch_plan``). Returns (o [B, (q_len,) H, d_c] f32, lse
+    [B, (q_len,) H]) — plus the partials when ``return_partials``."""
     args = (q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_table,
             seq_lens)
     if _on_cpu(*args):
         return R.snapmla_decode_paged_splitkv_ref(
-            *args, softmax_scale=softmax_scale, num_splits=num_splits, fmt=fmt,
-            return_partials=return_partials, rescale=rescale)
-    qc, qr, sq, q_len, H = _flatten_q(q_c8, q_r, sigma_q)
-    parts = paged_decode_partials_cuda(
-        qc, qr, sq, *args[3:], softmax_scale=softmax_scale, num_splits=num_splits,
-        fmt=fmt, single_pass=False, rescale=rescale, q_len=q_len or 1)
-    o, lse = combine_cuda(parts, rescale)
-    o, lse, parts = _unflatten_rows(q_len, H, o, lse, parts)
-    return (o, lse, parts) if return_partials else (o, lse)
+            *_cpu_query(q_c8, q_r, sigma_q, fmt), *args[3:], softmax_scale=softmax_scale,
+            num_splits=num_splits, fmt=fmt, return_partials=return_partials,
+            rescale=rescale)
+    return _split_decode(_paged_launch, q_c8, q_r, sigma_q, args[3:], fmt=fmt,
+                         rescale=rescale, return_partials=return_partials,
+                         softmax_scale=softmax_scale, num_splits=num_splits)
 
 
 def mla_decode_paged_cuda(q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool,
@@ -288,7 +428,8 @@ def mla_decode_paged_cuda(q_c8, q_r, sigma_q, content_pool, rope_pool, scale_poo
     args = (q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_table,
             seq_lens)
     if _on_cpu(*args):
-        return R.snapmla_decode_paged_ref(*args, softmax_scale=softmax_scale, fmt=fmt,
+        return R.snapmla_decode_paged_ref(*_cpu_query(q_c8, q_r, sigma_q, fmt), *args[3:],
+                                          softmax_scale=softmax_scale, fmt=fmt,
                                           rescale=rescale)
     o_p, lse_p, _ = paged_decode_partials_cuda(
         *args, softmax_scale=softmax_scale, num_splits=1, fmt=fmt, single_pass=True,
@@ -300,22 +441,20 @@ def mla_decode_splitkv_cuda(q_c8, q_r, sigma_q, content, rope, scale, seq_lens, 
                             softmax_scale: float, num_splits: int, block_n: int = 128,
                             fmt: str = "fp8_e4m3", return_partials: bool = False,
                             rescale: str = "fma", sink: torch.Tensor | None = None):
-    """Contiguous split-KV SnapMLA decode (#2, then kernel C or #4). Returns
-    (o [B, (q_len,) H, d_c] f32, lse [B, (q_len,) H]) — plus the partials
-    when ``return_partials``."""
+    """Contiguous split-KV SnapMLA decode (#2 with C folded, or #2 then C or
+    #4, by ``launch_plan``). Returns (o [B, (q_len,) H, d_c] f32, lse
+    [B, (q_len,) H]) — plus the partials when ``return_partials``."""
     if _on_cpu(q_c8, q_r, sigma_q, content, rope, scale, seq_lens, sink):
         return R.snapmla_decode_splitkv_ref(
-            q_c8, q_r, sigma_q, patch_sink_rows(content, scale, sink), rope.float(), scale,
-            seq_lens, softmax_scale=softmax_scale, num_splits=num_splits, block_n=block_n,
-            fmt=fmt, return_partials=return_partials, rescale=rescale)
-    qc, qr, sq, q_len, H = _flatten_q(q_c8, q_r, sigma_q)
-    parts = decode_partials_cuda(
-        qc, qr, sq, content, rope, scale, seq_lens, softmax_scale=softmax_scale,
-        block_n=block_n, num_splits=num_splits, fmt=fmt, single_pass=False,
-        rescale=rescale, sink=sink, q_len=q_len or 1)
-    o, lse = combine_cuda(parts, rescale)
-    o, lse, parts = _unflatten_rows(q_len, H, o, lse, parts)
-    return (o, lse, parts) if return_partials else (o, lse)
+            *_cpu_query(q_c8, q_r, sigma_q, fmt), patch_sink_rows(content, scale, sink),
+            rope.float(), scale, seq_lens, softmax_scale=softmax_scale,
+            num_splits=num_splits, block_n=block_n, fmt=fmt,
+            return_partials=return_partials, rescale=rescale)
+    return _split_decode(_contiguous_launch, q_c8, q_r, sigma_q, (content, rope, scale,
+                                                                  seq_lens),
+                         fmt=fmt, rescale=rescale, return_partials=return_partials,
+                         softmax_scale=softmax_scale, block_n=block_n,
+                         num_splits=num_splits, sink=sink)
 
 
 def mla_decode_cuda(q_c8, q_r, sigma_q, content, rope, scale, seq_lens, *,

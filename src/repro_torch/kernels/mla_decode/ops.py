@@ -6,9 +6,12 @@ or an explicit count; the port loads no split profile (the reference's is a
 TPU timing), so ``resolve_split_config`` keeps the reference's heuristic and
 fallback rules and drops its ``tuned_*`` lookups. ``splits == 1`` takes the
 single-pass kernel, anything else the split-KV kernel plus the combine
-(ops.py:195-211, 268-283). A rank-4 ``[B, q_len, H, .]`` query (the
-speculative verify) always takes the split-KV kernel, even at one split: it
-carries the per-row causal limit.
+(ops.py:195-211, 268-283; under FMA the combine runs in the split kernel's
+epilogue). A rank-4 ``[B, q_len, H, .]`` query (the speculative verify)
+always takes the split-KV kernel, even at one split: it carries the per-row
+causal limit. A raw query (``sigma_q`` None: float32 ``q_lat``, ``q_rope``)
+goes to the kernels as it is, which quantize it in their prologue, and
+through ``prepare_q`` to the plain path.
 """
 from __future__ import annotations
 
@@ -83,7 +86,16 @@ def _check_alignment(n: int, block_n: int) -> None:
             "page size) so the decode kernel never re-pads the cache per step")
 
 
-def snapmla_decode(q_c8: torch.Tensor, q_r: torch.Tensor, sigma_q: torch.Tensor,
+def _query(q_c8, q_r, sigma_q, fmt: str, use_kernel: bool):
+    """The query as the chosen path takes it (see the module note)."""
+    if sigma_q is None:
+        if use_kernel:
+            return q_c8.float().contiguous(), q_r.float().contiguous(), None
+        q_c8, q_r, sigma_q = _ref.prepare_q(q_c8, q_r, fmt)
+    return q_c8.contiguous(), q_r.float().contiguous(), sigma_q.contiguous()
+
+
+def snapmla_decode(q_c8: torch.Tensor, q_r: torch.Tensor, sigma_q: torch.Tensor | None,
                    cache: MLACache, *, softmax_scale: float, block_n: int = 128,
                    fmt: str = "fp8_e4m3", num_splits: int | None = None,
                    use_kernel: bool = True, rescale: str = "fma"):
@@ -95,7 +107,7 @@ def snapmla_decode(q_c8: torch.Tensor, q_r: torch.Tensor, sigma_q: torch.Tensor,
     N = cache.capacity
     _check_alignment(N, block_n)
     splits = resolve_num_splits(num_splits, N, block_n)
-    q = (q_c8.contiguous(), q_r.float().contiguous(), sigma_q.contiguous())
+    q = _query(q_c8, q_r, sigma_q, fmt, use_kernel)
     kw = dict(softmax_scale=softmax_scale, block_n=block_n, fmt=fmt, rescale=rescale)
     if use_kernel:
         args = q + (cache.content, cache.rope, cache.scale, cache.seq_lens)
@@ -110,7 +122,7 @@ def snapmla_decode(q_c8: torch.Tensor, q_r: torch.Tensor, sigma_q: torch.Tensor,
 
 
 def snapmla_decode_paged(q_c8: torch.Tensor, q_r: torch.Tensor,
-                         sigma_q: torch.Tensor, pool: PagedMLAPool, *,
+                         sigma_q: torch.Tensor | None, pool: PagedMLAPool, *,
                          softmax_scale: float, fmt: str = "fp8_e4m3",
                          num_splits: int | None = None, use_kernel: bool = True,
                          rescale: str = "fma"):
@@ -119,8 +131,8 @@ def snapmla_decode_paged(q_c8: torch.Tensor, q_r: torch.Tensor,
     f32, lse [B, (q_len,) H])."""
     page = pool.page_size
     splits = resolve_num_splits(num_splits, pool.capacity, page)
-    args = (q_c8.contiguous(), q_r.float().contiguous(), sigma_q.contiguous(),
-            pool.content, pool.rope, pool.scale, pool.page_table, pool.seq_lens)
+    args = _query(q_c8, q_r, sigma_q, fmt, use_kernel) + (
+        pool.content, pool.rope, pool.scale, pool.page_table, pool.seq_lens)
     kw = dict(softmax_scale=softmax_scale, fmt=fmt, rescale=rescale)
     if use_kernel:
         if splits == 1 and q_c8.dim() == 3:

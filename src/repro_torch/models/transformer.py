@@ -39,7 +39,6 @@ from repro_torch.kernels.gqa_decode import ops as gqa_ops
 from repro_torch.kernels.mla_decode import backends as BK
 from repro_torch.kernels.mla_decode import ref as mla_kref
 from repro_torch.kernels.quantize import fetch_dequant as FD
-from repro_torch.kernels.quantize.ops import fused_q_quant
 from repro_torch.models import layers as L
 
 PORTED_KINDS = ("attn", "swa", "mla")
@@ -168,9 +167,8 @@ def _mla_decode(p: mla_lib.MLAParams, cfg: ModelConfig, x_t: torch.Tensor, cache
     """SnapMLA decode: cache append + Fused-Q-Quant + backend attention.
 
     The reference runs ``prepare_q`` here (transformer.py:421); on a kernel
-    backend the port sends the query through ``fused_q_quant`` instead,
-    which computes the same function (quantize/ref.py:10-19 and
-    ref.py:528-537 both call ``quantize_rope_aware``)."""
+    backend the port hands the raw query to the decode kernel, whose
+    prologue runs Fused-Q-Quant (``_prepare_query``)."""
     mcfg = _mla_cfg(cfg)
     ccfg = _cache_cfg(cfg)
     backend = BK.resolve_backend(cfg.decode_backend, paged=cfg.kv_paged,
@@ -191,20 +189,15 @@ def _mla_decode(p: mla_lib.MLAParams, cfg: ModelConfig, x_t: torch.Tensor, cache
 
 def _prepare_query(q_lat: torch.Tensor, q_r: torch.Tensor, ccfg: CacheConfig,
                    backend: BK.DecodeBackend) -> BK.DecodeQuery:
-    """Quantize [B, (K,) H, .] queries: Fused-Q-Quant (kernel D) on a kernel
-    backend, ``prepare_q`` otherwise — the same function (quantize/ref.py and
-    ref.py:528-537 both call ``quantize_rope_aware``)."""
+    """The [B, (K,) H, .] decode query: raw on a kernel backend over an fp8 /
+    int8 cache (the decode kernel runs Fused-Q-Quant, kernel D, in its
+    prologue; on CPU tensors its plain version), ``prepare_q`` otherwise —
+    the same function (quantize/ref.py and ref.py:528-537 both call
+    ``quantize_rope_aware``)."""
     fmt = ccfg.fmt if ccfg.quantized else "none"
-    shape = q_lat.shape[:-1]
-    q_lat = q_lat.reshape(shape[0], -1, q_lat.shape[-1])
-    q_r = q_r.reshape(shape[0], -1, q_r.shape[-1])
     if fmt != "none" and backend.kind == "kernel":
-        q_cat = torch.cat([q_lat.float(), q_r.float()], dim=-1)
-        q_c8, q_r_s, sigma_q = fused_q_quant(q_cat, q_lat.shape[-1], fmt=fmt)
-    else:
-        q_c8, q_r_s, sigma_q = mla_kref.prepare_q(q_lat, q_r, fmt)
-    return BK.DecodeQuery(q_c8.reshape(*shape, -1), q_r_s.reshape(*shape, -1),
-                          sigma_q.reshape(shape))
+        return BK.DecodeQuery.raw(q_lat.float(), q_r.float())
+    return BK.DecodeQuery(*mla_kref.prepare_q(q_lat, q_r, fmt))
 
 
 def _backend_cfg(cfg: ModelConfig, mcfg, ccfg: CacheConfig) -> BK.BackendConfig:

@@ -1,9 +1,10 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions
 on the card (phase 2 of chip_smoke.py at small sizes): paged and contiguous
 decode in both rescale modes, the sink guard, both combines, Fused-Q-Quant,
-Fused-K-Append, the fetch-dequant kernel, the q_len > 1 verify mode and the
-GQA decode (#7). Needs an NVIDIA GPU and nvcc; skipped elsewhere. Run on
-the card with
+Fused-K-Append, the fetch-dequant kernel, the q_len > 1 verify mode, the
+decode kernels with Fused-Q-Quant in their prologue and C in their epilogue
+against the launches they replace, and the GQA decode (#7). Needs an NVIDIA
+GPU and nvcc; skipped elsewhere. Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 """
@@ -104,10 +105,21 @@ def test_fused_q_quant_kernel_bit_exact(cuda, fmt, B, H, d_c, d_r):
 def test_launch_counts_and_rejections(cuda):
     args = _case("fp8_e4m3", [20, 40], 4, 16, 4, 32, 16)
     _lib.reset_launches()
-    K.mla_decode_paged_splitkv_cuda(*args, softmax_scale=0.1, num_splits=2)
+    K.mla_decode_paged_splitkv_cuda(*args, softmax_scale=0.1, num_splits=2)   # C folded
     K.mla_decode_paged_cuda(*args, softmax_scale=0.1)
-    assert _lib.LAUNCHES == {"paged_splitkv_decode": 1, "lse_combine": 1,
-                             "paged_single_pass_decode": 1}
+    assert _lib.LAUNCHES == {"paged_splitkv_decode": 1, "paged_single_pass_decode": 1}
+    raw = tuple(torch.randn(2, 4, d, device="cuda") for d in (32, 16)) + (None,)
+    _lib.reset_launches()
+    K.mla_decode_paged_splitkv_cuda(*raw, *args[3:], softmax_scale=0.1, num_splits=2)
+    K.mla_decode_paged_cuda(*raw, *args[3:], softmax_scale=0.1)   # D in the prologue
+    K.mla_decode_paged_splitkv_cuda(*raw, *args[3:], softmax_scale=0.1, num_splits=2,
+                                    return_partials=True)
+    assert _lib.LAUNCHES == {"paged_splitkv_decode": 2, "paged_single_pass_decode": 1,
+                             "lse_combine": 1}
+    with pytest.raises(ValueError, match="raw query"):
+        K.mla_decode_paged_cuda(*raw, *args[3:], softmax_scale=0.1, fmt="none")
+    with pytest.raises(ValueError, match="q_lat"):
+        K.mla_decode_paged_cuda(raw[0].half(), *raw[1:], *args[3:], softmax_scale=0.1)
     with pytest.raises(ValueError, match="dtype"):
         K.mla_decode_paged_cuda(*args, softmax_scale=0.1, fmt="int8")
     with pytest.raises(ValueError, match="several devices"):
@@ -473,3 +485,96 @@ def test_gqa_decode_rejections(cuda):
     with pytest.raises(ValueError, match="dh"):
         GK.gqa_decode_cuda(q[..., :8].contiguous(), cache.k[..., :8].contiguous(),
                            cache.v[..., :8].contiguous(), *args[2:])
+
+
+def _folded_case(fmt, page, H, d_c, d_r, P, q_len, seed):
+    """A paged case over P pages (rows: empty, short, full, ragged) with a
+    raw query (q_lat, q_rope) [B, (q_len,) H, .] float32 and the contiguous
+    twin of its cache."""
+    lens = [0, 37, P * page, P * page - page // 2 - 3]
+    paged = _case(fmt, lens, P, page, q_len * H, d_c, d_r, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    B = len(lens)
+    lead = (B, q_len, H) if q_len > 1 else (B, H)
+    raw = (torch.randn(*lead, d_c, generator=g, device="cuda") * 3,
+           torch.randn(*lead, d_r, generator=g, device="cuda"))
+    raw[0].view(-1, d_c)[0] = 0.0          # the EPS floor of sigma_q
+    return raw, paged, _contiguous(paged, P, page)
+
+
+def _unfolded(raw, fmt):
+    """D as its own launch: the prepared query of a raw one."""
+    if fmt == "none":   # the "none" query is prepare_q's (no D)
+        return R.prepare_q(*raw, fmt)
+    q_lat, q_rope = raw
+    lead, d_c = q_lat.shape[:-1], q_lat.shape[-1]
+    flat = torch.cat([q_lat, q_rope], -1).reshape(lead[0], -1, d_c + q_rope.shape[-1])
+    q8, qr, sq = QK.fused_q_quant_cuda(flat.contiguous(), d_c, fmt=fmt)
+    return (q8.reshape(*lead, d_c), qr.reshape(*lead, -1), sq.reshape(lead))
+
+
+FOLD_SHAPES = [(16, 4, 32, 16, 16), (64, 32, 512, 64, 16)]
+
+
+@pytest.mark.parametrize("width", K.HEAD_WIDTHS)
+@pytest.mark.parametrize("fmt", ["fp8_e4m3", "int8", "none"])
+@pytest.mark.parametrize("page,H,d_c,d_r,P", FOLD_SHAPES)
+def test_folded_launch_bitwise_equal_to_the_launches_it_replaces(cuda, width, fmt, page, H,
+                                                                 d_c, d_r, P):
+    """D in the prologue and C in the epilogue: the one folded launch gives
+    the bits of D, then the kernel, then C (D then B / #1 in single pass) —
+    at widths 8 and 1, 1 to 16 splits (dead splits included), paged and
+    contiguous, the contiguous sink guard, and the verify mode at q_len 4
+    and 5. fmt "none" folds C only (its query is prepare_q's)."""
+    kw = dict(softmax_scale=0.1, fmt=fmt)
+    with K.forced_head_width(width):
+        for q_len in (1, 4, 5):
+            raw, paged, contig = _folded_case(fmt, page, H, d_c, d_r, P, q_len, seed=q_len)
+            query = _unfolded(raw, fmt)
+            fold_q = query if fmt == "none" else raw + (None,)
+            sink = (torch.randn(len(paged[7]), 4, d_c, device="cuda") if q_len == 1
+                    and fmt == "fp8_e4m3" else None)
+            for S in (1, 2, 4, 8, 16):
+                for name, fold, unfold in (
+                        ("paged", lambda q: K.mla_decode_paged_splitkv_cuda(
+                            *q, *paged[3:], num_splits=S, **kw),
+                         lambda q: K.mla_decode_paged_splitkv_cuda(
+                             *q, *paged[3:], num_splits=S, return_partials=True, **kw)),
+                        ("contiguous", lambda q: K.mla_decode_splitkv_cuda(
+                            *q, *contig[3:], num_splits=S, block_n=page, sink=sink, **kw),
+                         lambda q: K.mla_decode_splitkv_cuda(
+                             *q, *contig[3:], num_splits=S, block_n=page, sink=sink,
+                             return_partials=True, **kw))):
+                    _lib.reset_launches()
+                    got = fold(fold_q)
+                    assert sum(_lib.LAUNCHES.values()) == 1, (name, dict(_lib.LAUNCHES))
+                    want = unfold(query)[:2]    # the kernel, then C on its partials
+                    for a, b in zip(got, want):
+                        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+                            (name, q_len, S)
+            if q_len == 1 and fmt != "none":   # single pass: D + B / #1
+                pairs = [(K.mla_decode_paged_cuda(*raw, None, *paged[3:], **kw),
+                          K.mla_decode_paged_cuda(*query, *paged[3:], **kw)),
+                         (K.mla_decode_cuda(*raw, None, *contig[3:], block_n=page,
+                                            sink=sink, **kw),
+                          K.mla_decode_cuda(*query, *contig[3:], block_n=page, sink=sink,
+                                            **kw))]
+                for got, want in pairs:
+                    for a, b in zip(got, want):
+                        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_folded_tickets_return_to_zero_and_launches_repeat(cuda):
+    """After folded launches every ticket counter reads 0 again, and two
+    back-to-back folded launches give the same bits."""
+    raw, paged, contig = _folded_case("fp8_e4m3", 16, 4, 32, 16, 16, 1, seed=9)
+    kw = dict(softmax_scale=0.1, num_splits=8)
+    first = K.mla_decode_paged_splitkv_cuda(*raw, None, *paged[3:], **kw)
+    second = K.mla_decode_paged_splitkv_cuda(*raw, None, *paged[3:], **kw)
+    third = K.mla_decode_splitkv_cuda(*raw, None, *contig[3:], block_n=16, **kw)
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, second, third):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+    tickets = K._SCRATCH.tickets(torch.device("cuda", torch.cuda.current_device()), 1)
+    assert tickets.numel() >= 4 * 4 and int(torch.count_nonzero(tickets)) == 0

@@ -84,7 +84,7 @@ def test_wrapper_passes_the_rule_s_width_for_the_flattened_rows(monkeypatch, q_l
         pass
 
     def launch(kernel, fn_name, *args):
-        seen.update(kernel=kernel, H=args[17], width=args[-1], q_len=args[-2])
+        seen.update(kernel=kernel, H=args[22], width=args[-1], q_len=args[-2])
         raise Launched
 
     monkeypatch.setattr(K, "_on_cpu", lambda *t: False)
