@@ -18,10 +18,11 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                against paged bit for bit at block_n == page; Fused-Q-Quant and
                Fused-K-Append bytes. Kernel median ms, plain ms and bound ms.
                Every decode call is repeated folded — a raw query quantized in
-               the kernel's prologue (D), and under FMA the split partials
-               merged in its epilogue (C) — bitwise against D, the kernel, then
-               C or #4, at every head-tile width, and timed beside the
-               launches it replaces (the "folded D / C" line);
+               the kernel's prologue (D), and the split partials merged in its
+               epilogue (C under FMA, #4 under AMLA) — bitwise against D, the
+               kernel, then C or #4, at every head-tile width, and timed
+               beside the launches it replaces (the "folded D / C / #4"
+               line);
   3. layer   — ``core.snapmla.decode_step``, one full-width layer over a
                ~32k-token cache, paged and contiguous (Fused-K-Append): kernels
                vs the reference backend, cache bytes vs the plain append;
@@ -30,7 +31,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                contiguous and paged caches, FMA and AMLA, kv_splits 0 and 4, a
                sink-guarded run: kernel backend against the reference backend,
                and contiguous against paged greedy tokens; each run one decode
-               launch per layer and step (plus #4 under AMLA split);
+               launch per layer and step (C and #4 folded);
   5. engine  — ``repro_torch.serving.ServingEngine`` on full mla-7b, kernel
                backend, over the shared paged pool: E1 monolithic admission
                with staggered arrivals and a shared prefix through
@@ -45,12 +46,12 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   6. counts  — the launch counters, set to 0 just before and read just after
                each main path (phase 3's kernel steps, phase 4's and phase 5's
                kernel runs): every kernel of the paths launched at least once
-               (C runs folded there, so only phase 2 launches it alone; D
-               alone only in phase 3's layer API);
+               (C and #4 run folded there, so only phase 2 launches them
+               alone; D alone only in phase 3's layer API);
   7. profile — one decode step of the serving run under torch.profiler (paged
-               at kv_splits 0 and 4, contiguous at 0), one chunked-prefill step
-               and one verify step: host wall, device kernel time, the device's
-               idle share, top kernels;
+               at kv_splits 0 and 4, FMA, and at 4 under AMLA; contiguous at
+               0), one chunked-prefill step and one verify step: host wall,
+               device kernel time, the device's idle share, top kernels;
   8. gqa     — the dense GQA family, after mla-7b's weights are freed: the FP8
                GQA decode kernel (#7) against its plain version at llama3.2-3b's
                serving shape (fp8, int8, none), qwen2.5-3b's heads, gemma3-27b's
@@ -69,9 +70,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
 
 Phase 2 also holds the fused fetch-dequant kernel (#11 paged, #10 its
 contiguous mode) bitwise against its plain version at ~32k tokens and at the
-engine's shape, and the q_len > 1 verify mode of the split-KV kernels (#6,
-#2) at a verify shape and at ~32k: against the plain version, each row
-bitwise against the q_len = 1 kernel at its limit, and the q_len = 1
+engine's shape, at every tokens per warp it takes (each one's ms beside the
+pick of ``fetch_geometry``), and the q_len > 1 verify mode of the split-KV
+kernels (#6, #2) at a verify shape and at ~32k: against the plain version,
+each row bitwise against the q_len = 1 kernel at its limit, and the q_len = 1
 launches bitwise against a build without the verify code
 (``-DSNAPMLA_NO_VERIFY``), whose q_len = 1 register counts must match. Every
 decode launch of phase 2 is also repeated at each head-tile width the kernel
@@ -146,11 +148,14 @@ KERNELS = {  # launch-counter name -> (source, the TPU kernel it replaces, mode)
 OFF_PATH = {"fetch_dequant": "its caller chunked_prefill_attention has no model path",
             "lse_combine": "folded into the FMA split kernels' epilogue on every model path; "
                            "a launch only where a caller keeps the partials",
+            "amla_combine": "folded into the AMLA split kernels' epilogue on every model path; "
+                            "a launch only where a caller keeps the partials",
             "splitkv_decode_verify": "the verify step runs on the paged pool only",
             "splitkv_decode_verify_amla": "the verify step runs on the paged pool only"}
 # the kernels whose work the decode kernels also do in the same launch
 FOLDED_INTO = {"fused_q_quant": f"the prologue of every MLA decode kernel ({SRC_DECODE})",
-               "lse_combine": f"the epilogue of the FMA split kernels ({SRC_DECODE})"}
+               "lse_combine": f"the epilogue of the FMA split kernels ({SRC_DECODE})",
+               "amla_combine": f"the epilogue of the AMLA split kernels ({SRC_DECODE})"}
 # the split count each kernel's summary row reports: serving shape, long case
 SUMMARY_SPLITS = {"split": (4, 8), "single": (1, 1), "other": (1, 1)}
 # the (case, splits) of each summary row: main shape, long case
@@ -225,11 +230,11 @@ def width_gate(name, call) -> None:
 FOLDS: list = []   # the folded launches' checks and times (phase 2)
 
 
-def fold_gate(lbl, folded, unfolded, launches: int) -> None:
-    """The folded launch (D in the prologue, C in the FMA split epilogue)
+def fold_gate(lbl, folded, unfolded) -> None:
+    """The folded launch (D in the prologue, C or #4 in the split epilogue)
     at every instantiated head-tile width gives the bits of the launches it
-    replaces (``unfolded``: D, then the kernel, then C or #4), in
-    ``launches`` launches (1; 2 under AMLA, whose #4 stays a launch)."""
+    replaces (``unfolded``: D, then the kernel, then C or #4), in one
+    launch."""
     from repro_torch.kernels import _lib
     from repro_torch.kernels.mla_decode import kernel as K
     want = unfolded()
@@ -238,18 +243,18 @@ def fold_gate(lbl, folded, unfolded, launches: int) -> None:
             _lib.reset_launches()
             got = folded()
             n = sum(_lib.LAUNCHES.values())
-        if n != launches:
+        if n != 1:
             raise AssertionError(f"{lbl}: the folded call made {dict(_lib.LAUNCHES)} launches, "
-                                 f"not {launches}")
+                                 "not 1")
         for a, b in zip(got, want, strict=True):
             check_bitwise(f"{lbl} folded at width {w} vs unfolded", a, b)
 
 
 def fold_time(entry, folded, kernel, replaced, **parts) -> None:
     """Device ms of the folded launch, of the unfolded decode kernel alone
-    and of the launches the folded one replaces (D, the kernel, C), each
-    replayed back to back (kernel_ms), into ``entry``; ``parts`` (name ->
-    call): the kernel with one of the two folds only."""
+    and of the launches the folded one replaces (D, the kernel, C or #4),
+    each replayed back to back (kernel_ms), into ``entry``; ``parts`` (name
+    -> call): the kernel with one of the two folds only."""
     entry.update(folded_ms=kernel_ms(folded), kernel_ms=kernel_ms(kernel),
                  replaced_ms=kernel_ms(replaced),
                  **{f"{k}_ms": kernel_ms(fn) for k, fn in parts.items()})
@@ -520,7 +525,7 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
                 cache_args, call_kw = (pgd[3:], kw) if layout == "paged" else (ctg[3:], ckw)
                 call = K.mla_decode_paged_cuda if layout == "paged" else K.mla_decode_cuda
                 fold_gate(f"{tag} {name}", lambda: call(*raw, None, *cache_args, **call_kw),
-                          lambda: call(*d_query(raw, fmt), *cache_args, **call_kw), 1)
+                          lambda: call(*d_query(raw, fmt), *cache_args, **call_kw))
                 entry = dict(case=tag, kernel=name, fmt=fmt, splits=1, folded="D")
                 if not amla:
                     flat = d_input(raw)
@@ -557,32 +562,31 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
 
 def fold_split(tag, name, fmt, rescale, S, layout, q, raw, cache_args, call_kw, *, time_it):
     """One split call (A, #2 or K2) folded — D in the prologue for fp8 /
-    int8, C in the epilogue under FMA — against D, the split kernel, then C
-    or #4, at every width (``fold_gate``); with ``time_it`` (FMA) its ms
-    beside the unfolded kernel's and the replaced launches' (``fold_time``).
-    ``q`` is the prepared query, ``raw`` the raw one (rank 3 or 4)."""
+    int8, C (FMA) or #4 (AMLA) in the epilogue — against D, the split
+    kernel, then C or #4, at every width (``fold_gate``); with ``time_it``
+    its ms beside the unfolded kernel's and the replaced launches'
+    (``fold_time``). ``q`` is the prepared query, ``raw`` the raw one (rank
+    3 or 4)."""
     from repro_torch.kernels.mla_decode import kernel as K
     amla = rescale == "amla"
-    if fmt == "none" and amla:
-        return                                    # nothing folds there
     paged = layout == "paged"
     call = K.mla_decode_paged_splitkv_cuda if paged else K.mla_decode_splitkv_cuda
     parts_call = K.paged_decode_partials_cuda if paged else K.decode_partials_cuda
     fq = q if fmt == "none" else raw + (None,)
     uq = q if fmt == "none" else d_query(raw, fmt)
     fold_gate(f"{tag} {name} S={S} {layout}", lambda: call(*fq, *cache_args, **call_kw),
-              lambda: call(*uq, *cache_args, return_partials=True, **call_kw)[:2],
-              2 if amla else 1)
+              lambda: call(*uq, *cache_args, return_partials=True, **call_kw)[:2])
+    merge = "#4" if amla else "C"
     entry = dict(case=tag, kernel=name, fmt=fmt, layout=layout, splits=S,
-                 folded="C" if fmt == "none" else "D" if amla else "D + C")
-    if time_it and not amla:
+                 folded=merge if fmt == "none" else f"D + {merge}")
+    if time_it:
         flat = None if fmt == "none" else d_input(raw)
 
-        def kernel_then_c(qq):
+        def kernel_then_merge(qq):
             qc, qr, sq, q_len, _ = K._flatten_q(*qq)
             parts = parts_call(qc, qr, sq, *cache_args, single_pass=False, q_len=q_len or 1,
                                **call_kw)
-            return K.lse_combine_cuda(*parts[:2])
+            return K.combine_cuda(parts, rescale)
 
         def kernel_alone(qq=q):
             qc, qr, sq, q_len, _ = K._flatten_q(*qq)
@@ -590,12 +594,12 @@ def fold_split(tag, name, fmt, rescale, S, layout, q, raw, cache_args, call_kw, 
                               **call_kw)
 
         # the two folds apart: D only (the raw query, the partials kept) and
-        # C only (the prepared query, merged in the epilogue)
-        parts = {"c_only": lambda: call(*q, *cache_args, **call_kw)}
+        # the merge only (the prepared query, merged in the epilogue)
+        parts = {"merge_only": lambda: call(*q, *cache_args, **call_kw)}
         if fmt != "none":
             parts["d_only"] = lambda: kernel_alone(raw + (None,))
         fold_time(entry, lambda: call(*fq, *cache_args, **call_kw), kernel_alone,
-                  lambda: kernel_then_c(q if flat is None else d_query(raw, fmt, flat)),
+                  lambda: kernel_then_merge(q if flat is None else d_query(raw, fmt, flat)),
                   **parts)
     FOLDS.append(entry)
 
@@ -658,26 +662,39 @@ def fetch_checks(gen, records, engine_pages):
     """K1 bitwise against its plain version: paged in full and bounded mode
     (dead pages all zero, live pages equal to the full fetch) and its
     contiguous mode, at ~32k tokens (B = 4, 256 pages of 128, shuffled pool)
-    and at the engine's shape (B = 1, E2's span, its last chunk's start)."""
+    and at the engine's shape (B = 1, E2's span, its last chunk's start), at
+    the pick of ``fetch_geometry`` and at every tokens per warp the kernel
+    takes (each one's ms beside the pick)."""
+    import contextlib
     import torch
+    from repro_torch.kernels import _lib
     from repro_torch.kernels.quantize import fetch_dequant as FD
     cases = (("long_32k", [0, PAGE, 32768, 20000], 256, [0, 1000, 20000, 32768]),
              ("engine_shape", [1000], engine_pages, [768]))
     for tag, lens, P, starts in cases:
         _, cache, pool, _ = make_case(gen, "fp8_e4m3", lens, P)
         cs = torch.tensor(starts, dtype=torch.int32, device="cuda")
-        full = FD.paged_fetch_dequant(pool)
-        check_bitwise(f"{tag} #11 full", full, FD.paged_fetch_dequant_ref(pool))
-        got = FD.paged_fetch_dequant(pool, chunk_start=cs)
-        check_bitwise(f"{tag} #11 bounded", got,
-                      FD.paged_fetch_dequant_ref(pool, chunk_start=cs))
-        for b, c0 in enumerate(starts):
-            dead = -(-c0 // PAGE) * PAGE
-            if torch.count_nonzero(got[b, dead:]):
-                raise AssertionError(f"{tag} #11: dead pages of row {b} not zero")
-            check_bitwise(f"{tag} #11 row {b} live pages", got[b, :dead], full[b, :dead])
-        check_bitwise(f"{tag} #10", FD.fetch_dequant(cache, page=PAGE),
-                      FD.fetch_dequant_ref(cache))
+        full_ref = FD.paged_fetch_dequant_ref(pool)
+        bounded_ref = FD.paged_fetch_dequant_ref(pool, chunk_start=cs)
+        contig_ref = FD.fetch_dequant_ref(cache)
+        ms_by_tpw = {}
+        for tpw in (None,) + FD.TOKENS_PER_WARP:
+            with FD.forced_tokens_per_warp(tpw) if tpw else contextlib.nullcontext():
+                full = FD.paged_fetch_dequant(pool)
+                check_bitwise(f"{tag} #11 full tpw={tpw}", full, full_ref)
+                got = FD.paged_fetch_dequant(pool, chunk_start=cs)
+                check_bitwise(f"{tag} #11 bounded tpw={tpw}", got, bounded_ref)
+                for b, c0 in enumerate(starts):
+                    dead = -(-c0 // PAGE) * PAGE
+                    if torch.count_nonzero(got[b, dead:]):
+                        raise AssertionError(f"{tag} #11: dead pages of row {b} not zero")
+                    check_bitwise(f"{tag} #11 row {b} live pages", got[b, :dead],
+                                  full[b, :dead])
+                check_bitwise(f"{tag} #10 tpw={tpw}", FD.fetch_dequant(cache, page=PAGE),
+                              contig_ref)
+                if tpw:
+                    ms_by_tpw[tpw] = kernel_ms(lambda: FD.paged_fetch_dequant(pool,
+                                                                              chunk_start=cs))
         B = len(lens)
         live = sum(-(-c0 // PAGE) for c0 in starts)
         _record(records, "paged_fetch_dequant", tag, 0, 0.0,
@@ -686,8 +703,11 @@ def fetch_checks(gen, records, engine_pages):
                 fetch_bound(B, P, live, True))
         _record(records, "fetch_dequant", tag, 0, 0.0, lambda: FD.fetch_dequant(cache, page=PAGE),
                 lambda: FD.fetch_dequant_ref(cache), fetch_bound(B, P, B * P, False))
+        tpw, grid = FD.fetch_geometry(B, P, PAGE, _lib.sm_count(0))
         emit(phase="kernels", case=tag, kernel="fetch_dequant", batch=B, pages=P,
              chunk_start=starts, live_pages=live, bitwise=True, dead_pages_zero=True,
+             tokens_per_warp=tpw, grid=grid, bounded_ms_by_tokens_per_warp=ms_by_tpw,
+             ptxas=fetch_ptxas(),
              ms={k[0]: records[k]["ms"] for k in records if k[1] == tag and k[2] == 0})
 
 
@@ -827,17 +847,18 @@ def width_sweep(gen, scale) -> None:
     emit(phase="kernels", check="head-tile widths", sms=sms, widths=rows)
 
 
-def ptxas_registers(log: str) -> dict:
-    """Entry function -> registers, from nvcc's -Xptxas -v report."""
-    regs, cur = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            cur = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and cur:
-            regs[cur] = int(m.group(1))
-    return regs
+def ptxas_entries(log: str) -> dict:
+    """Entry function -> (registers, spill bytes), from nvcc's -Xptxas -v
+    report; the spill bytes (stores and loads) are the entry's own and those
+    of the functions it calls (None where the report gives none)."""
+    rows = {}
+    for block in log.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", block)
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        rows[block.split("'", 1)[0]] = (int(regs[1]) if regs else None,
+                                        sum(int(a) + int(b) for a, b in spills) if spills
+                                        else None)
+    return rows
 
 
 def no_verify_checks(gen, variant, scale):
@@ -846,8 +867,8 @@ def no_verify_checks(gen, variant, scale):
     register counts equal in the two builds."""
     from repro_torch.kernels import _lib
     from repro_torch.kernels.mla_decode import kernel as K
-    main_regs = ptxas_registers(_lib.BUILD_LOG)
-    var_regs = ptxas_registers(_lib.VARIANT_LOGS.get(NO_VERIFY, ""))
+    main_regs = {k: v[0] for k, v in ptxas_entries(_lib.BUILD_LOG).items()}
+    var_regs = {k: v[0] for k, v in ptxas_entries(_lib.VARIANT_LOGS.get(NO_VERIFY, "")).items()}
     dec = {k: v for k, v in var_regs.items() if "decode_kernel" in k}
     if not dec:
         raise AssertionError("no ptxas report of the build without the verify code")
@@ -966,14 +987,14 @@ def phase_serve():
         torch.cuda.synchronize()
         got = run_launches[run] = dict(_lib.LAUNCHES)   # ... and ends here
         # one attention launch per layer and decode step: Fused-Q-Quant runs
-        # in the decode kernel's prologue, the FMA combine in its epilogue;
-        # kv_splits 0 plans one split at this capacity (the single pass)
+        # in the decode kernel's prologue, the combine (C or #4) in its
+        # epilogue; kv_splits 0 plans one split at this capacity (the single
+        # pass)
         paged, splits, rescale, _ = run
-        n = base.n_layers * steps.n
         name = (("paged_" if paged else "") + ("splitkv_decode" if splits else
                                                "single_pass_decode")
                 + ("_amla" if rescale == "amla" else ""))
-        want = {name: n, **({"amla_combine": n} if rescale == "amla" and splits else {})}
+        want = {name: base.n_layers * steps.n}
         if got != want:
             raise AssertionError(f"serve {run}: launches {got} != {want} for {steps.n} decode "
                                  f"steps")
@@ -1021,8 +1042,9 @@ def phase_profile(base, params, prompts):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as T
-    for paged, splits in ((True, 0), (True, 4), (False, 0)):
-        cfg = dataclasses.replace(base, kv_paged=paged, kv_splits=splits,
+    for paged, splits, rescale in ((True, 0, "fma"), (True, 4, "fma"), (True, 4, "amla"),
+                                   (False, 0, "fma")):
+        cfg = dataclasses.replace(base, kv_paged=paged, kv_splits=splits, kv_rescale=rescale,
                                   decode_backend="kernel", use_kernels=True)
         state = T.init_decode_state(cfg, 4, 640, device="cuda")
         logits, state = T.prefill(params, cfg, prompts, state)
@@ -1049,7 +1071,7 @@ def phase_profile(base, params, prompts):
                      key=lambda x: -x[1])
         busy = sum(ms for _, ms, _ in dev)
         emit(phase="profile", layout="paged" if paged else "contiguous", kv_splits=splits,
-             wall_ms_per_step=wall, device_ms_per_step=busy,
+             rescale=rescale, wall_ms_per_step=wall, device_ms_per_step=busy,
              device_idle_share=1.0 - busy / wall,
              aten_ops_per_step=sum(r.count for r in rows if r.key.startswith("aten::")) / 3,
              top=[(k[:80], round(ms, 4), n) for k, ms, n in dev[:8]])
@@ -1143,14 +1165,12 @@ def phase_engine(base, params, serve_tps):
         """One launch per layer of each kernel a dispatch runs: a decode step
         runs the single-pass decode (these spans plan one split) with
         Fused-Q-Quant in its prologue, a verify step the q_len > 1 split-KV
-        kernel with Fused-Q-Quant in its prologue and, under FMA, the combine
-        in its epilogue (AMLA: #4 after it), a chunk step the fused
-        fetch-dequant."""
+        kernel with Fused-Q-Quant in its prologue and the combine (C, or #4
+        under AMLA) in its epilogue, a chunk step the fused fetch-dequant."""
         L, d = base.n_layers, eng.dispatches
         sfx = "_amla" if amla else ""
         want = {"paged_single_pass_decode" + sfx: L * d["decode"],
                 "paged_splitkv_decode_verify" + sfx: L * d["verify"],
-                "amla_combine": L * d["verify"] if amla else 0,
                 "paged_fetch_dequant": L * d["chunk"]}
         return {k: v for k, v in want.items() if v}
 
@@ -1364,8 +1384,8 @@ def _profile(fn, reps=3, match=None):
 
 def phase_profile_engine(gen, base, params, prompts):
     """One chunked-prefill step (B = 1, a 256-token chunk after 768 tokens:
-    E2's last chunk) and one verify step (B = 4, q_len = 5 after 512 tokens:
-    E3's shape), kernel backend."""
+    E2's last chunk; K1's device ms per step beside it) and one verify step
+    (B = 4, q_len = 5 after 512 tokens: E3's shape), kernel backend."""
     import torch
     from repro_torch.models import transformer as T
     cfg = dataclasses.replace(base, kv_paged=True, decode_backend="kernel", use_kernels=True)
@@ -1376,7 +1396,8 @@ def phase_profile_engine(gen, base, params, prompts):
     cs, last = (torch.tensor([768], dtype=torch.int32, device="cuda"),
                 torch.tensor([255], dtype=torch.int32, device="cuda"))
     emit(phase="profile", step="chunked_prefill", batch=1, chunk=256, chunk_start=768,
-         **_profile(lambda: T.chunked_prefill(params, cfg, chunk, state, cs, last)))
+         **_profile(lambda: T.chunked_prefill(params, cfg, chunk, state, cs, last),
+                    match="fetch_dequant_kernel"))
     state = T.init_decode_state(cfg, 4, 640, device="cuda")
     _, state = T.prefill(params, cfg, prompts, state)
     toks = prompts[:, :5].to(torch.int32)
@@ -1441,17 +1462,30 @@ def mla_ptxas() -> None:
     -Xptxas -v report: one line (reported, not gated)."""
     from repro_torch.kernels import _lib
     rows = {}
-    for block in _lib.BUILD_LOG.split("Compiling entry function '")[1:]:
-        name = block.split("'", 1)[0]
+    for name, row in ptxas_entries(_lib.BUILD_LOG).items():
         m = re.search(r"decode_kernelILi(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", name)
         if m:
-            regs = re.search(r"Used (\d+) registers", block)
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
-            rows["".join(m.groups())] = [int(regs[1]) if regs else None,
-                                         int(spill[1]) + int(spill[2]) if spill else None]
+            rows["".join(m.groups())] = list(row)
     emit(phase="kernels", check="MLA decode ptxas",
          key="fmt width single_pass amla sink verify -> [registers, spill bytes]",
          spilling={k: v for k, v in rows.items() if v[1]}, instantiations=rows)
+
+
+def fetch_ptxas() -> dict:
+    """Registers and spills of K1's three instantiations (fp8, int8, bf16
+    content), from the build's -Xptxas -v report; raises on a spill or a
+    missing report."""
+    from repro_torch.kernels import _lib
+    rows = {}
+    for name, (regs, spill) in ptxas_entries(_lib.BUILD_LOG).items():
+        m = re.search(r"fetch_dequant_kernelILi(\d)E", name)
+        if m:
+            rows[f"fmt {m[1]}"] = dict(registers=regs, spill_bytes=spill)
+    if len(rows) != 3 or any(None in r.values() for r in rows.values()):
+        raise AssertionError(f"K1: ptxas report incomplete: {rows}")
+    if any(r["spill_bytes"] for r in rows.values()):
+        raise AssertionError(f"K1: ptxas reports spills: {rows}")
+    return rows
 
 
 def gqa_ptxas() -> None:
@@ -1462,15 +1496,10 @@ def gqa_ptxas() -> None:
     from repro_torch.kernels.gqa_decode import kernel as GK
     fmts = {v: k for k, v in GK.FMT_CODES.items()}
     rows = {}
-    for block in _lib.BUILD_LOG.split("Compiling entry function '")[1:]:
-        name = block.split("'", 1)[0]
+    for name, (regs, spill) in ptxas_entries(_lib.BUILD_LOG).items():
         if "gqa_decode_kernel" in name:
             f, w = re.search(r"ILi(\d+)ELi(\d+)E", name).groups()
-            regs = re.search(r"Used (\d+) registers", block)
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
-            rows[f"{fmts[int(f)]} width {w}"] = dict(
-                registers=int(regs[1]) if regs else None,
-                spill_bytes=int(spill[1]) + int(spill[2]) if spill else None)
+            rows[f"{fmts[int(f)]} width {w}"] = dict(registers=regs, spill_bytes=spill)
     want = {f"{f} width {w}" for f in GK.FMT_CODES for w in GK.GQA_HEAD_WIDTHS}
     if set(rows) != want or any(None in r.values() for r in rows.values()):
         raise AssertionError(f"#7: ptxas report incomplete: {rows}")
@@ -1763,7 +1792,8 @@ def main() -> int:
     mla_ptxas()
     width_sweep(gen, scale)
     timed = [f for f in FOLDS if "folded_ms" in f]
-    emit(phase="kernels", check="folded D / C", widths=list(K.HEAD_WIDTHS), calls=len(FOLDS),
+    emit(phase="kernels", check="folded D / C / #4", widths=list(K.HEAD_WIDTHS),
+         calls=len(FOLDS),
          mismatches=0, cases=sorted({f["case"] for f in FOLDS}),
          timed=len(timed), all_no_slower=all(f["no_slower"] for f in timed), times=timed)
     emit(phase="kernels_done", seconds=time.time() - t0)

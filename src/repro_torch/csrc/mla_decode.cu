@@ -19,8 +19,8 @@
 // (kAmla = false) and "amla" (kAmla = true, kernel.py:152-177), and the
 // q_len > 1 verify mode of A and #2 (kVerify = true, kernel.py:381-399).
 // Every decode kernel also takes Fused-Q-Quant (D, csrc/q_quant.cu) in its
-// prologue, and the FMA split kernels take C in their epilogue, so a decode
-// step makes one attention launch per layer (below).
+// prologue, the FMA split kernels take C in their epilogue and the AMLA split
+// kernels #4, so a decode step makes one attention launch per layer (below).
 //
 // Design. One block of 512 threads per (head tile of W heads, split, batch
 // row); the block walks its split's KV blocks in order (the sigma_p scale
@@ -82,9 +82,9 @@
 //      applied by an integer add on the exponent bits (exp2_mul);
 //   3. acc = acc*corr + P8.C (AMLA: exp2_mul(acc, k) + P8.C), the
 //      accumulator in registers;
-//   4. the epilogue publishes the split's partial; in FMA split mode with an
+//   4. the epilogue publishes the split's partial; in split mode with an
 //      output (o != nullptr) the tile's S split blocks then merge their
-//      partials by a last-block reduction (C folded, below).
+//      partials by a last-block reduction (C or #4 folded, below).
 // Every product and sum whose rounding the plain version fixes is written
 // with __fmul_rn / __fadd_rn / __fsub_rn, so nvcc cannot contract it into an
 // FMA. Split mode skips dead blocks (g*bn >= seq_len: neither loaded nor
@@ -94,29 +94,35 @@
 // the sigma_p update with an all-masked block (sigma_p floors at EPS/qmax);
 // its loads are elided because masked entries contribute exact zeros.
 //
-// C folded (the ticket epilogue). Each split block publishes its partial as
-// the unfolded kernel does; after a barrier one thread draws a ticket from
-// the (row, head tile)'s int32 counter by an atomic add with acquire-release
-// semantics at GPU scope (the release covers the block's partial, the
-// acquire the partials of the tickets drawn before). The block that draws
-// S - 1 reads the S partials of its tile back from L2 (ld.cg: L1 is not
-// coherent across SMs), merges them per head and latent column in split
-// order 0 .. S - 1 with C's own routine (lse_merge, which the standalone C
-// kernel calls too, every add and multiply written as __fadd_rn /
-// __fmaf_rn / __fdiv_rn so the two call sites cannot be contracted apart),
-// writes o and lse, and resets its counter to 0 for the next launch. So the
-// folded output is A then C bit for bit. At S = 1 the merge of one partial is
-// the identity (w = exp(0) = 1, den = 1, o * 1 / 1 = o, lse + log 1 = lse; a
-// partial is never -0 or NaN), so the split writes its partial straight into
-// o and lse, whose layout is the partials' at S = 1: no ticket, no merge.
+// C and #4 folded (the ticket epilogue). Each split block publishes its
+// partial as the unfolded kernel does; after a barrier one thread draws a
+// ticket from the (row, head tile)'s int32 counter by an atomic add with
+// acquire-release semantics at GPU scope (the release covers the block's
+// partial, the acquire the partials of the tickets drawn before). The block
+// that draws S - 1 reads the S partials of its tile back from L2 (ld.cg: L1
+// is not coherent across SMs), merges them per head and latent column in
+// split order 0 .. S - 1 with the standalone combine's own routines — C's
+// lse_merge under FMA; under AMLA #4's amla_head (one warp per head puts the
+// head's K*, den and S shifts in shared memory, which the block no longer
+// needs) and amla_merge (each thread's columns) — every add, multiply and
+// division written as __fadd_rn / __fmaf_rn / __fdiv_rn so the two call
+// sites cannot be contracted apart, writes o and lse, and resets its
+// counter to 0 for the next launch. So the folded output is A then C, or A
+// then #4, bit for bit. At S = 1 no other block holds a partial of the tile:
+// no ticket, and the split writes o and lse straight into the outputs, whose
+// layout is the partials' at S = 1. Under FMA that is the partial itself (C's
+// merge of one partial is the identity: w = exp(0) = 1, den = 1, o * 1 / 1 =
+// o, lse + log 1 = lse; a partial is never -0 or NaN). Under AMLA #4's merge
+// of one partial is not the identity (exp2_mul(x, 0) flushes a subnormal x,
+// and +0 + -0 = +0), so the block runs it on its registers (amla_single).
 // Every block reaches the ticket: there is no early return, and a dead split
-// publishes (0, -1e30) and draws its ticket like any other. Why not a thread
-// block cluster merging through distributed shared memory: a cluster barrier
-// would hold a dead or short split's block on its SM until its longest
-// sibling ends, and an explicit split count (ops.resolve_num_splits clamps it
-// only to the block count) can exceed the portable cluster size of 8. AMLA
-// split mode keeps #4 after the kernel, and a caller that wants the partials
-// keeps C after it.
+// publishes (0, -1e30) (AMLA: (0, 0, 0)) and draws its ticket like any other.
+// Why not a thread block cluster merging through distributed shared memory:
+// a cluster barrier would hold a dead or short split's block on its SM until
+// its longest sibling ends, and an explicit split count
+// (ops.resolve_num_splits clamps it only to the block count) can exceed the
+// portable cluster size of 8. A caller that wants the partials keeps C or #4
+// after the kernel.
 //
 // q_len > 1 verify mode (split mode only; A and #2 take rank-4 queries
 // [B, q_len, H, .] flattened head-major to R = q_len*H rows, row = t*H + h,
@@ -151,9 +157,7 @@
 // and PV with an exactness-preserving accumulation (P's fp8 rounding flips
 // on a one-ulp change of a logit); the fp8 / int8 content dot, exact in
 // float64 in any order, register-blocked over tokens and heads; warp
-// specialisation (a producer warp issuing TMA loads, consumer warpgroups);
-// the AMLA combine (#4) folded into the AMLA split epilogue by the same
-// ticket scheme.
+// specialisation (a producer warp issuing TMA loads, consumer warpgroups).
 #include "common.cuh"
 
 namespace snap {
@@ -173,6 +177,11 @@ constexpr int kRegsPerSm = 65536;
 // wrapper's HEAD_WIDTHS (kernels/mla_decode/kernel.py) lists the same two
 constexpr int kWide = 8;
 constexpr int kNarrow = 1;
+// the most splits a folded AMLA launch takes: its shift table (one int per
+// head and split) must fit one block's shared memory at width 8; the wrapper
+// sends a call with more to the kernel then the standalone #4 (kernel.py:
+// AMLA_FOLD_MAX_SPLITS)
+constexpr int kMaxAmlaFoldSplits = 4096;
 
 // byte offsets into the dynamic shared memory of one block; c, r and sk are
 // offsets inside a stage, the ring's stage i starting at stage + i*stage_bytes
@@ -413,6 +422,139 @@ __device__ __forceinline__ float lse_merge(const float* op, size_t o_stride, con
   return __fadd_rn(m, logf(den));
 }
 
+// #4's arithmetic. Over the S raw split partials (acc_s, l_s, g_s) of one
+// (row, head): K* = the max of g_s over the splits with l_s > 0 (kNegInf if
+// none); the shift k_s = g_s - K* (0 where l_s == 0); den = sum_s
+// exp2_mul(l_s, k_s) and, per latent column, num = sum_s exp2_mul(acc_s,
+// k_s), each summed from +0 in split order; o = num / den and lse = K* ln2 +
+// log(den). K*, den and the shifts are a head's, not a column's: one warp
+// computes them once per head (amla_head) into shared memory, and every
+// thread then merges its columns with them (amla_merge). The standalone #4
+// kernel, the split kernels' ticket epilogue and their one-split path
+// (amla_single) share these routines, so every call site rounds alike.
+
+// The shift of one split with data in it, and 0 for an empty one.
+__device__ __forceinline__ int amla_shift(float l, float g, float k_star) {
+  return l > 0.f ? static_cast<int>(__fsub_rn(g, k_star)) : 0;
+}
+
+__device__ __forceinline__ float amla_lse(float k_star, float den) {
+  return __fadd_rn(__fmul_rn(k_star, kLn2), logf(den));
+}
+
+// num[c] += exp2_mul(v_j[c], k_j) for the first n of C splits, in order.
+template <int N, int C>
+__device__ __forceinline__ void amla_num(float (&num)[N], const float (&v)[C][N],
+                                         const int (&k)[C], int n) {
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    if (j < n)
+#pragma unroll
+      for (int c = 0; c < N; ++c) num[c] = __fadd_rn(num[c], exp2_mul(v[j][c], k[j]));
+}
+
+// K* and den of one head, and its S shifts into k_out[0 .. S): called by a
+// whole warp (every lane returns (K*, den)). Lane s takes splits s, s + 32,
+// ... (the l_s at lp + s*stride, g_s at gp + s*stride, read from L2); K* is
+// a warp max (exact in any order); the terms exp2_mul(l_s, k_s) are added
+// in split order by shuffling them to every lane.
+__device__ __forceinline__ float2 amla_head(const float* lp, const float* gp, size_t stride,
+                                            int S, int* k_out) {
+  const int lane = threadIdx.x & 31;
+  float l0 = 0.f, g0 = 0.f, k_star = kNegInf;
+  if (lane < S) {
+    load_l2<1>(lp + lane * stride, &l0);
+    load_l2<1>(gp + lane * stride, &g0);
+    if (l0 > 0.f) k_star = fmaxf(k_star, g0);
+  }
+  for (int s = lane + 32; s < S; s += 32) {
+    float l, g;
+    load_l2<1>(lp + s * stride, &l);
+    load_l2<1>(gp + s * stride, &g);
+    if (l > 0.f) k_star = fmaxf(k_star, g);
+  }
+  k_star = warp_max(k_star);
+  float den = 0.f;
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    const int s = s0 + lane;
+    float term = 0.f;
+    if (s < S) {
+      float l = l0, g = g0;
+      if (s0 > 0) {
+        load_l2<1>(lp + s * stride, &l);
+        load_l2<1>(gp + s * stride, &g);
+      }
+      const int k = amla_shift(l, g, k_star);
+      k_out[s] = k;
+      term = exp2_mul(l, k);
+    }
+    const int n = min(32, S - s0);
+    for (int j = 0; j < n; ++j) den = __fadd_rn(den, __shfl_sync(0xffffffffu, term, j));
+  }
+  return make_float2(k_star, den);
+}
+
+// #4's merge of N consecutive latent columns of one head, its shifts k[0 ..
+// S) and den from amla_head: the S partials acc_s at ap + s*a_stride, read
+// from L2, C splits' loads in flight at once; writes o to out.
+template <int N, int C>
+__device__ __forceinline__ void amla_merge(const float* ap, size_t a_stride, const int* k, int S,
+                                           float den, float (&out)[N]) {
+  float num[N];
+#pragma unroll
+  for (int c = 0; c < N; ++c) num[c] = 0.f;
+  for (int s0 = 0; s0 < S; s0 += C) {
+    float v[C][N];
+    int kc[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (s0 + j < S) {
+        load_l2<N>(ap + (s0 + j) * a_stride, v[j]);
+        kc[j] = k[s0 + j];
+      }
+    }
+    amla_num<N, C>(num, v, kc, S - s0);
+  }
+#pragma unroll
+  for (int c = 0; c < N; ++c) out[c] = __fdiv_rn(num[c], den);
+}
+
+// #4 on the one raw partial (acc, l, g = i + e) a block holds in registers:
+// the folded merge at S = 1, the arithmetic above over one split. It is not
+// the identity: exp2_mul(x, 0) flushes a subnormal x to zero and +0 + -0 is
+// +0, so o is not acc / l bit for bit (tests/test_torch_amla.py pins the
+// plain version's bits at one split).
+template <int N>
+__device__ __forceinline__ float amla_single(const float (&acc)[N], float l, float g,
+                                             float (&out)[N]) {
+  const float k_star = l > 0.f ? fmaxf(kNegInf, g) : kNegInf;
+  const int k[1] = {amla_shift(l, g, k_star)};
+  const float den = __fadd_rn(0.f, exp2_mul(l, k[0]));
+  float num[N], v[1][N];
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    num[c] = 0.f;
+    v[0][c] = acc[c];
+  }
+  amla_num<N, 1>(num, v, k, 1);
+#pragma unroll
+  for (int c = 0; c < N; ++c) out[c] = __fdiv_rn(num[c], den);
+  return amla_lse(k_star, den);
+}
+
+// out[0 .. N) to dst: one float, or float4 stores (dst 16-byte aligned).
+template <int N>
+__device__ __forceinline__ void store_cols(float* dst, const float (&out)[N]) {
+  if constexpr (N == 1) {
+    dst[0] = out[0];
+  } else {
+#pragma unroll
+    for (int k = 0; k < N; k += 4)
+      *reinterpret_cast<float4*>(dst + k) = make_float4(out[k], out[k + 1], out[k + 2],
+                                                        out[k + 3]);
+  }
+}
+
 // The merge of a tile's nh heads (C folded): items of N latent columns of one
 // head, spread over the block's threads, C splits' loads in flight at once
 // (N x C floats of registers per thread). Not inlined (see quantize_query).
@@ -427,16 +569,36 @@ __device__ __noinline__ void merge_tile(const float* o_part, const float* lse_pa
     const float l = lse_merge<N, C>(o_part + (part0 + h) * d_c + c,
                                     static_cast<size_t>(H) * d_c, lse_part + part0 + h,
                                     static_cast<size_t>(H), S, out);
-    float* dst = o_out + (row0 + h) * d_c + c;
-    if constexpr (N == 1) {
-      dst[0] = out[0];
-    } else {
-#pragma unroll
-      for (int k = 0; k < N; k += 4)
-        *reinterpret_cast<float4*>(dst + k) = make_float4(out[k], out[k + 1], out[k + 2],
-                                                          out[k + 3]);
-    }
+    store_cols<N>(o_out + (row0 + h) * d_c + c, out);
     if (c == 0) lse_out[row0 + h] = l;
+  }
+}
+
+// The merge of a tile's nh heads (#4 folded): one warp per head computes its
+// K*, den and S shifts into shared memory (kd: kWide (K*, den) pairs, then
+// the shifts, S per head), then items of N latent columns of one head are
+// spread over the block's threads as in merge_tile. Not inlined.
+template <int N, int C>
+__device__ __noinline__ void amla_merge_tile(const float* acc_part, const float* l_part,
+                                             const float* g_part, float* o_out, float* lse_out,
+                                             size_t part0, size_t row0, int nh, int H, int S,
+                                             int d_c, float2* kd) {
+  int* shifts = reinterpret_cast<int*>(kd + kWide);
+  const int warp = threadIdx.x >> 5;
+  for (int h = warp; h < nh; h += kWarps) {
+    const float2 r = amla_head(l_part + part0 + h, g_part + part0 + h, H, S, shifts + h * S);
+    if ((threadIdx.x & 31) == 0) kd[h] = r;
+  }
+  __syncthreads();
+  const int per_head = d_c / N;
+  for (int i = threadIdx.x; i < nh * per_head; i += kThreads) {
+    const int h = i / per_head, c = (i - h * per_head) * N;
+    const float2 r = kd[h];
+    float out[N];
+    amla_merge<N, C>(acc_part + (part0 + h) * d_c + c, static_cast<size_t>(H) * d_c,
+                     shifts + h * S, S, r.y, out);
+    store_cols<N>(o_out + (row0 + h) * d_c + c, out);
+    if (c == 0) lse_out[row0 + h] = amla_lse(r.x, r.y);
   }
 }
 
@@ -508,8 +670,13 @@ __device__ __forceinline__ float sink_value(const float* __restrict__ sink, int 
   return __fdiv_rn(sink[(static_cast<size_t>(b) * S_k + tok) * d_c + d], fmaxf(scale, kTiny));
 }
 
+// The narrow tile is compiled for two blocks per SM (at most 64 registers a
+// thread at 512 threads), which launch_decode's two-blocks rule assumes:
+// unbounded, ptxas may give a split kernel more (an AMLA merge that each
+// thread computed whole took the AMLA split kernels to 124 registers, and at
+// one block per SM they ran 21% slower at 32k tokens on the H100).
 template <int F, int W, bool kSinglePass, bool kAmla, bool kSink, bool kVerify>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, W == kNarrow ? 2 : 1)
 decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
               const float* __restrict__ q_r, const float* __restrict__ sigma_q,
               const float* __restrict__ q_lat, const float* __restrict__ q_rope,
@@ -839,14 +1006,16 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
 
   // epilogue. FMA: (acc / l, m + log(sigma_p * l), sigma_p) — sigma_p cancels
   // in o. AMLA single pass: (acc / l, (i + e) ln2 + log l); AMLA split: the
-  // raw (acc, l, g = i + e), combined by amla_combine.
+  // raw (acc, l, g = i + e), merged by #4's arithmetic (amla_merge).
   const size_t out0 = (static_cast<size_t>(b) * S + split) * H + h0;
-  const bool raw = kAmla && !kSinglePass;
-  // C folded at one split: the merge of a single partial is the identity
-  // (w = exp(0) = 1, den = 1, o * 1 / 1 = o, lse + log 1 = lse; a partial is
-  // never -0 or NaN), so the split writes its partial into o_out, lse_out,
-  // whose layout [B, H, .] is the partials' at S = 1
-  const bool direct = !kSinglePass && !kAmla && o_out != nullptr && S == 1;
+  constexpr bool raw = kAmla && !kSinglePass;
+  // folded at one split: the tile's merge needs no other block's partial, so
+  // the split writes o and lse straight into o_out, lse_out, whose layout
+  // [B, H, .] is the partials' at S = 1. FMA: C's merge of one partial is
+  // the identity (w = exp(0) = 1, den = 1, o * 1 / 1 = o, lse + log 1 = lse;
+  // a partial is never -0 or NaN), so the partial itself. AMLA: #4's merge of
+  // one partial is not the identity (amla_single), so the block runs it.
+  const bool direct = !kSinglePass && o_out != nullptr && S == 1;
   float* o_dst = direct ? o_out : o_part;
   float* lse_dst = direct ? lse_out : lse_part;
   if (d0 < d_c) {
@@ -855,10 +1024,14 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
       if (h < nh) {
         const float l = l_s[h];
         float o[kCols];
+        if (raw && direct) {
+          amla_single<kCols>(acc[h], l, __fadd_rn(m_s[h], sp_s[h]), o);
+        } else {
 #pragma unroll
-        for (int k = 0; k < kCols; ++k) {
-          o[k] = raw ? acc[h][k] : acc[h][k] / l;
-          if (!kSinglePass && !kAmla && !(l > 0.f)) o[k] = 0.f;  // empty split: neutral partial
+          for (int k = 0; k < kCols; ++k) {
+            o[k] = raw ? acc[h][k] : acc[h][k] / l;
+            if (!kSinglePass && !kAmla && !(l > 0.f)) o[k] = 0.f;  // empty split: neutral partial
+          }
         }
 #pragma unroll
         for (int k = 0; k < kCols; ++k) o_dst[(out0 + h) * d_c + d0 + k] = o[k];
@@ -869,7 +1042,11 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
     const float l = l_s[tid];
     if constexpr (kAmla) {
       const float g = __fadd_rn(m_s[tid], sp_s[tid]);
-      if (raw) {
+      if (raw && direct) {
+        const float none[1] = {0.f};
+        float unused[1];
+        lse_out[out0 + tid] = amla_single<1>(none, l, g, unused);
+      } else if (raw) {
         lse_part[out0 + tid] = l;
         sp_part[out0 + tid] = l > 0.f ? g : 0.f;
       } else {
@@ -883,9 +1060,10 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
     }
   }
 
-  // C folded: the block that draws the tile's last ticket merges its S
-  // partials into o_out [B, H, d_c] and lse_out [B, H] (see the design note)
-  if constexpr (!kSinglePass && !kAmla) {
+  // C folded (FMA) or #4 folded (AMLA): the block that draws the tile's last
+  // ticket merges its S partials into o_out [B, H, d_c] and lse_out [B, H]
+  // (see the design note)
+  if constexpr (!kSinglePass) {
     if (o_out != nullptr && S > 1) {
       // the block's partial is written (the barrier) and released with its
       // ticket
@@ -903,7 +1081,26 @@ decode_kernel(const typename Format<F>::T* __restrict__ q_c8,
         // merge's loads in flight) within what lets two blocks share an SM
         const size_t part0 = static_cast<size_t>(b) * S * H + h0;
         const int cols = nh * d_c;
-        if constexpr (W * kMaxDc >= 4 * kThreads) {
+        if constexpr (kAmla) {
+          // the shift table: kWide (K*, den) pairs, then S shifts per head, in
+          // the block's shared memory (free once the last block has been
+          // closed; launch_decode sizes it)
+          float2* kd = reinterpret_cast<float2*>(smem);
+          if constexpr (W * kMaxDc >= 4 * kThreads) {
+            if (d_c % 8 == 0 && cols >= 8 * kThreads && S <= 4)
+              amla_merge_tile<8, 4>(o_part, lse_part, sp_part, o_out, lse_out, part0, row0, nh,
+                                    H, S, d_c, kd);
+            else if (cols >= 4 * kThreads)
+              amla_merge_tile<4, 8>(o_part, lse_part, sp_part, o_out, lse_out, part0, row0, nh,
+                                    H, S, d_c, kd);
+            else
+              amla_merge_tile<1, 4>(o_part, lse_part, sp_part, o_out, lse_out, part0, row0, nh,
+                                    H, S, d_c, kd);
+          } else {
+            amla_merge_tile<1, 4>(o_part, lse_part, sp_part, o_out, lse_out, part0, row0, nh, H,
+                                  S, d_c, kd);
+          }
+        } else if constexpr (W * kMaxDc >= 4 * kThreads) {
           if (d_c % 8 == 0 && cols >= 8 * kThreads && S <= 4)
             merge_tile<8, 4>(o_part, lse_part, o_out, lse_out, part0, row0, nh, H, S, d_c);
           else if (cols >= 4 * kThreads)
@@ -950,6 +1147,8 @@ static cudaError_t launch_decode(const void* q_c8, const float* q_r, const float
   Layout L = layout<F, W>(d_c, d_r, bn, kMaxStages);
   for (int D = kMaxStages - 1; D >= 1 && L.total > limit; --D) L = layout<F, W>(d_c, d_r, bn, D);
   if (L.total > limit) L = layout<F, W>(d_c, d_r, bn, 1);
+  if (kAmla && !kSinglePass && o != nullptr)   // #4 folded: its shift table
+    L.total = max(L.total, static_cast<int>(sizeof(float2)) * kWide + 4 * W * num_splits);
   if (L.total > kSmemLimit) return cudaErrorInvalidValue;
   L.c_chunk = chunk_bytes(d_c * static_cast<int>(sizeof(T)), L.c_row_words * 4, content);
   L.r_chunk = chunk_bytes(d_r * 2, L.r_row_words * 4, rope);
@@ -991,39 +1190,41 @@ __global__ void lse_combine_kernel(const float* __restrict__ o_part,
   }
 }
 
-// #4: the combine-free AMLA merge. Split s holds the raw (acc_s, l_s) of
-// scale 2^g_s; shift every split with data onto K* = max g_s by exp2_mul
-// (an integer exponent add), sum, then one division and one log:
+// #4, standalone: the combine-free AMLA merge. Split s holds the raw
+// (acc_s, l_s) of scale 2^g_s; shift every split with data onto K* = max g_s
+// by exp2_mul (an integer exponent add), sum, then one division and one log:
 // o = sum acc_s 2^(g_s - K*) / sum l_s 2^(g_s - K*), lse = K* ln2 + log(den).
-// One block per (head, batch row). Bound: like C, S*H*(d_c + 2)*4 bytes in.
-__global__ void amla_combine_kernel(const float* __restrict__ acc_part,
-                                    const float* __restrict__ l_part,
-                                    const float* __restrict__ g_part, float* __restrict__ o,
-                                    float* __restrict__ lse, int S, int H, int d_c) {
-  extern __shared__ int shift_s[];
+// One block of kCombineThreads per (head, batch row): warp 0 computes the
+// head's K*, den and shifts into shared memory (amla_head), then each thread
+// merges N (4, or 1 where d_c % 4 != 0) latent columns with them
+// (amla_merge), up to 8 splits' loads in flight (the parent walked the S
+// partials one dependent load at a time). The AMLA split kernels run the
+// same routines in their epilogue; this launch serves a caller that keeps the
+// partials. Bound: like C, S*H*(d_c + 2)*4 bytes in.
+constexpr int kCombineThreads = 128;
+
+template <int N>
+__global__ void __launch_bounds__(kCombineThreads)
+amla_combine_kernel(const float* __restrict__ acc_part, const float* __restrict__ l_part,
+                    const float* __restrict__ g_part, float* __restrict__ o,
+                    float* __restrict__ lse, int S, int H, int d_c) {
+  extern __shared__ float2 kd_s[];   // (K*, den), then the S shifts
+  int* shifts = reinterpret_cast<int*>(kd_s + 1);
   const int h = blockIdx.x, b = blockIdx.y;
-  const float* lp = l_part + static_cast<size_t>(b) * S * H + h;
-  const float* gp = g_part + static_cast<size_t>(b) * S * H + h;
-  float k_star = kNegInf;
-  for (int s = 0; s < S; ++s)
-    if (lp[static_cast<size_t>(s) * H] > 0.f) k_star = fmaxf(k_star, gp[static_cast<size_t>(s) * H]);
-  float den = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const float l = lp[static_cast<size_t>(s) * H];
-    const int k = l > 0.f ? static_cast<int>(__fsub_rn(gp[static_cast<size_t>(s) * H], k_star)) : 0;
-    den = __fadd_rn(den, exp2_mul(l, k));
-    if (threadIdx.x == 0) shift_s[s] = k;
+  const size_t part0 = static_cast<size_t>(b) * S * H + h;
+  if (threadIdx.x < 32) {
+    const float2 r = amla_head(l_part + part0, g_part + part0, H, S, shifts);
+    if (threadIdx.x == 0) kd_s[0] = r;
   }
   __syncthreads();
-  for (int d = threadIdx.x; d < d_c; d += blockDim.x) {
-    float num = 0.f;
-    for (int s = 0; s < S; ++s)
-      num = __fadd_rn(num, exp2_mul(acc_part[((static_cast<size_t>(b) * S + s) * H + h) * d_c + d],
-                                    shift_s[s]));
-    o[(static_cast<size_t>(b) * H + h) * d_c + d] = num / den;
+  const float2 r = kd_s[0];
+  for (int c = threadIdx.x * N; c < d_c; c += kCombineThreads * N) {
+    float out[N];
+    amla_merge<N, 8>(acc_part + part0 * d_c + c, static_cast<size_t>(H) * d_c, shifts, S, r.y,
+                     out);
+    store_cols<N>(o + (static_cast<size_t>(b) * H + h) * d_c + c, out);
   }
-  if (threadIdx.x == 0)
-    lse[static_cast<size_t>(b) * H + h] = __fadd_rn(__fmul_rn(k_star, kLn2), logf(den));
+  if (threadIdx.x == 0) lse[static_cast<size_t>(b) * H + h] = amla_lse(r.x, r.y);
 }
 
 }  // namespace snap
@@ -1038,7 +1239,8 @@ __global__ void amla_combine_kernel(const float* __restrict__ acc_part,
 // float32, fp8 / int8 only: D runs in the prologue), the other pointers of
 // the query nullptr. o [B, H, d_c], lse [B, H] and tickets (B x head tiles
 // int32 counters, zero before the launch and zero after it) fold C into the
-// FMA split epilogue; nullptr leaves the merge to the caller.
+// FMA split epilogue and #4 into the AMLA split epilogue (which then needs
+// sp_part, the g partials); nullptr leaves the merge to the caller.
 extern "C" int snapmla_decode(int fmt, int single_pass, int amla, const void* q_c8,
                               const void* q_r, const void* sigma_q, const void* q_lat,
                               const void* q_rope, const void* content, const void* rope,
@@ -1057,7 +1259,8 @@ extern "C" int snapmla_decode(int fmt, int single_pass, int amla, const void* q_
       q_len < 1 || H % q_len || (q_len > 1 && (single_pass || S_k > 0)) ||
       (raw ? (q_rope == nullptr || fmt == kNone)
            : (q_c8 == nullptr || q_r == nullptr || sigma_q == nullptr)) ||
-      (fold && (single_pass || amla || lse == nullptr || tickets == nullptr)))
+      (fold && (single_pass || lse == nullptr || tickets == nullptr ||
+                (amla && (sp_part == nullptr || num_splits > kMaxAmlaFoldSplits)))))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* ql = static_cast<const float*>(q_lat);
   const auto* qrope = static_cast<const float*>(q_rope);
@@ -1127,9 +1330,21 @@ extern "C" int snapmla_amla_combine(const void* acc_part, const void* l_part,
   using namespace snap;
   if (S < 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(H, B);
-  amla_combine_kernel<<<grid, 128, S * sizeof(int), static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(acc_part), static_cast<const float*>(l_part),
-      static_cast<const float*>(g_part), static_cast<float*>(o), static_cast<float*>(lse), S, H,
-      d_c);
+  const auto* ap = static_cast<const float*>(acc_part);
+  const auto* lp = static_cast<const float*>(l_part);
+  const auto* gp = static_cast<const float*>(g_part);
+  auto* out_o = static_cast<float*>(o);
+  auto* out_lse = static_cast<float*>(lse);
+  auto st = static_cast<cudaStream_t>(stream);
+  // four columns per thread where every row of acc and o is 16-byte aligned
+  const bool wide = d_c % 4 == 0 && reinterpret_cast<uintptr_t>(ap) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out_o) % 16 == 0;
+  const size_t smem = sizeof(float2) + 4 * static_cast<size_t>(S);
+  if (wide)
+    amla_combine_kernel<4><<<grid, kCombineThreads, smem, st>>>(ap, lp, gp, out_o, out_lse, S, H,
+                                                                d_c);
+  else
+    amla_combine_kernel<1><<<grid, kCombineThreads, smem, st>>>(ap, lp, gp, out_o, out_lse, S, H,
+                                                                d_c);
   return static_cast<int>(cudaGetLastError());
 }

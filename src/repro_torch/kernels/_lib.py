@@ -15,6 +15,7 @@ the plain version do not count).
 
 ``HeadTiles`` is the head-tile rule the decode wrappers share: of the widths
 a kernel is instantiated for, the widest whose grid covers the card's SMs.
+The fetch-dequant wrapper picks its tokens per warp by the same rule.
 """
 from __future__ import annotations
 
@@ -58,8 +59,8 @@ _SIGNATURES = {
     # fmt, c_kv, k_r, content, rope, scale, seq_lens, B, N, d_c, d_r, stream
     "snapmla_fused_k_append": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     # fmt, content, rope, scale, page_table, chunk_start, out, B, P, page, d_c,
-    # d_r, stream
-    "snapmla_fetch_dequant": [_I] + [_P] * 6 + [_I] * 5 + [_P],
+    # d_r, tokens per warp, stream
+    "snapmla_fetch_dequant": [_I] + [_P] * 6 + [_I] * 6 + [_P],
     # fmt, q, k, v, k_scale, v_scale, slot_pos, positions, o, B, N, Hkv, g, dh,
     # block, window, sm_scale, width, stream
     "snapmla_gqa_decode": [_I] + [_P] * 8 + [_I] * 7 + [_F, _I, _P],

@@ -3,8 +3,7 @@
 "amla", the two modes of the reference's ``_block_pipeline``):
 
   * ``mla_decode_paged_splitkv_cuda`` — kernel A (paged split-KV, q_len = 1)
-    with kernel C folded into its epilogue (FMA), or A then #4 (AMLA);
-    replaces
+    with kernel C (FMA) or #4 (AMLA) folded into its epilogue; replaces
     ``repro/kernels/mla_decode/kernel.py::mla_decode_paged_splitkv_pallas``;
   * ``mla_decode_paged_cuda`` — kernel B (the same kernel in single-pass
     mode); replaces ``mla_decode_paged_pallas``;
@@ -14,6 +13,9 @@
     ``mla_decode_pallas``;
   * ``lse_combine_cuda`` — kernel C; replaces ``lse_combine_pallas``;
   * ``amla_combine_cuda`` — #4; replaces ``amla_combine_pallas``.
+
+C and #4 also run inside the split kernels' epilogue (below); their
+standalone launches serve a caller that keeps the partials.
 
 The contiguous wrappers take the cache's ``sink`` guard shadow: the kernel
 substitutes ``sink / max(scale, tiny)`` on rows below ``S_k``.
@@ -32,13 +34,14 @@ width changes which block computes a head, never a bit of the result.
 
 The query is prepared ``(q_c8, q_r, sigma_q)``, from Fused-Q-Quant (D) or
 ``ref.prepare_q``, or raw ``(q_lat, q_rope, None)`` in float32 (fp8 and int8
-only): the kernel then runs D in its prologue, with D's bits. Under FMA the
-split kernels merge their partials in their epilogue (C folded) unless the
-caller asks for the partials; ``launch_plan`` is that rule. So an FMA decode
-or verify call is one launch. The folded launches share per-device scratch
-(the partials and the ticket counters of the last-block merge), grown on
-demand outside any CUDA-graph capture; it assumes one stream, as the port
-uses: two folded launches in flight on two streams would share it.
+only): the kernel then runs D in its prologue, with D's bits. The split
+kernels merge their partials in their epilogue, with C's bits under FMA and
+#4's under AMLA, unless the caller asks for the partials; ``launch_plan`` is
+that rule. So a decode or verify call is one launch. The folded launches
+share per-device scratch (the partials and the ticket counters of the
+last-block merge), grown on demand outside any CUDA-graph capture; it
+assumes one stream, as the port uses: two folded launches in flight on two
+streams would share it.
 
 A wrapper runs its plain PyTorch version (``ref.py``) only when it is handed
 CPU tensors; for CUDA tensors it launches the kernel or raises. On the CPU a
@@ -62,6 +65,9 @@ HEAD_WIDTHS = (8, 1)
 _TILES = _lib.HeadTiles("head", HEAD_WIDTHS)
 # the formats whose raw query the kernels quantize in their prologue (D's)
 RAW_FMTS = ("fp8_e4m3", "int8")
+# the most splits #4 folds at (mla_decode.cu: kMaxAmlaFoldSplits): its shift
+# table must fit one CUDA block's shared memory
+AMLA_FOLD_MAX_SPLITS = 4096
 
 
 def _check_raw(fmt: str) -> None:
@@ -71,29 +77,31 @@ def _check_raw(fmt: str) -> None:
 
 
 def launch_plan(*, raw: bool, fmt: str, single_pass: bool, rescale: str,
-                return_partials: bool = False) -> str:
+                return_partials: bool = False, num_splits: int = 1) -> str:
     """The routing rule of every decode wrapper: how a call merges its split
-    partials — "folded" (C in the FMA split kernel's epilogue), "lse_combine"
-    (C launched after the kernel, for a caller that keeps the partials),
-    "amla_combine" (#4 after the kernel) or "none" (single pass). A raw query
-    (fp8 / int8; a "none" query is prepared by ``prepare_q``) is quantized in
-    the kernel's prologue on every route."""
+    partials — "folded" (C, or #4 under AMLA, in the split kernel's
+    epilogue), "lse_combine" / "amla_combine" (C / #4 launched after the
+    kernel, for a caller that keeps the partials, and #4 past
+    AMLA_FOLD_MAX_SPLITS splits) or "none" (single pass). A raw query (fp8 /
+    int8; a "none" query is prepared by ``prepare_q``) is quantized in the
+    kernel's prologue on every route."""
     if rescale not in RESCALES:
         raise ValueError(f"rescale must be one of {RESCALES}, not {rescale!r}")
     if raw:
         _check_raw(fmt)
     if single_pass:
         return "none"
-    if rescale == "amla":
-        return "amla_combine"
-    return "lse_combine" if return_partials else "folded"
+    amla = rescale == "amla"
+    if return_partials or (amla and num_splits > AMLA_FOLD_MAX_SPLITS):
+        return "amla_combine" if amla else "lse_combine"
+    return "folded"
 
 
 class _Scratch:
-    """Per-device buffers of the folded split launches: the partials, which
-    each launch writes and reads back itself, and the int32 ticket counters
-    of the last-block merge, zeroed when allocated and left at zero by every
-    launch. Grown on demand, never inside a CUDA-graph capture (a graph keeps
+    """Per-device buffers of the folded split launches: the partials (o and
+    lse; AMLA's acc, l and g), which each launch writes and reads back
+    itself, and the int32 ticket counters of the last-block merge, zeroed
+    when allocated and left at zero by every launch. Grown on demand, never inside a CUDA-graph capture (a graph keeps
     the addresses it captured). One stream: the buffers are reused by the
     next launch on it."""
 
@@ -112,10 +120,11 @@ class _Scratch:
         return buf
 
     def partials(self, dev, B, S, H, d_c):
-        n_o = B * S * H * d_c
-        buf = self._grow(self._floats, dev, n_o + B * S * H,
-                         lambda n: torch.empty(n, dtype=torch.float32, device=dev))
-        return buf[:n_o], buf[n_o:n_o + B * S * H]
+        """Views of o [B*S*H*d_c], lse and g [B*S*H] (g: AMLA only)."""
+        n_o, n = B * S * H * d_c, B * S * H
+        buf = self._grow(self._floats, dev, n_o + 2 * n,
+                         lambda m: torch.empty(m, dtype=torch.float32, device=dev))
+        return buf[:n_o], buf[n_o:n_o + n], buf[n_o + n:n_o + 2 * n]
 
     def tickets(self, dev, n):
         return self._grow(self._tickets, dev, n,
@@ -211,18 +220,18 @@ def _launch_decode(kernel: str, fmt: str, single_pass: bool, rescale: str, q_c8,
                    d_c, d_r, block, P, num_splits, softmax_scale, q_len=1, fold=False):
     """Launch one decode kernel on a prepared or a raw (``sigma_q`` None)
     query. Returns the partials it allocated, o [B, S, H, d_c], lse [B, S, H]
-    and (split mode) sigma_p or, under AMLA, g [B, S, H]; with ``fold`` (C in
-    the FMA split epilogue) the merged (o [B, H, d_c], lse [B, H], None)."""
+    and (split mode) sigma_p or, under AMLA, g [B, S, H]; with ``fold`` (C or
+    #4 in the split epilogue) the merged (o [B, H, d_c], lse [B, H], None)."""
     if not 1 <= num_splits <= P:
         raise ValueError(f"num_splits={num_splits} outside [1, {P}]")
     dev = q_c8.device
     amla = rescale == "amla"
     if fold:
-        if single_pass or amla:
-            raise ValueError("C folds into the FMA split kernels only")
-        o_p, lse_p = _SCRATCH.partials(dev, B, num_splits, H, d_c)
+        if single_pass:
+            raise ValueError("C and #4 fold into the split kernels only")
+        o_p, lse_p, g_p = _SCRATCH.partials(dev, B, num_splits, H, d_c)
         tickets = _SCRATCH.tickets(dev, B * H)   # B x head tiles at any width
-        sp_p = None
+        sp_p = g_p if amla else None
         o = torch.empty((B, H, d_c), dtype=torch.float32, device=dev)
         lse = torch.empty((B, H), dtype=torch.float32, device=dev)
     else:
@@ -386,9 +395,9 @@ def combine_cuda(partials, rescale: str = "fma"):
 def _split_decode(launch, q_c8, q_r, sigma_q, cache_args, *, fmt, rescale, return_partials,
                   **kw):
     """A split-KV call on the card: flatten a verify block, launch by
-    ``launch_plan`` (C folded, or the kernel then C / #4), unflatten."""
+    ``launch_plan`` (C or #4 folded, or the kernel then C / #4), unflatten."""
     route = launch_plan(raw=sigma_q is None, fmt=fmt, single_pass=False, rescale=rescale,
-                        return_partials=return_partials)
+                        return_partials=return_partials, num_splits=kw["num_splits"])
     qc, qr, sq, q_len, H = _flatten_q(q_c8, q_r, sigma_q)
     kw.update(fmt=fmt, single_pass=False, rescale=rescale, q_len=q_len or 1)
     if route == "folded":
@@ -405,8 +414,8 @@ def mla_decode_paged_splitkv_cuda(q_c8, q_r, sigma_q, content_pool, rope_pool,
                                   softmax_scale: float, num_splits: int,
                                   fmt: str = "fp8_e4m3",
                                   return_partials: bool = False, rescale: str = "fma"):
-    """Paged split-KV SnapMLA decode (kernel A with C folded, or A then C or
-    #4, by ``launch_plan``). Returns (o [B, (q_len,) H, d_c] f32, lse
+    """Paged split-KV SnapMLA decode (kernel A with C or #4 folded, or A
+    then C or #4, by ``launch_plan``). Returns (o [B, (q_len,) H, d_c] f32, lse
     [B, (q_len,) H]) — plus the partials when ``return_partials``."""
     args = (q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_table,
             seq_lens)
@@ -441,8 +450,8 @@ def mla_decode_splitkv_cuda(q_c8, q_r, sigma_q, content, rope, scale, seq_lens, 
                             softmax_scale: float, num_splits: int, block_n: int = 128,
                             fmt: str = "fp8_e4m3", return_partials: bool = False,
                             rescale: str = "fma", sink: torch.Tensor | None = None):
-    """Contiguous split-KV SnapMLA decode (#2 with C folded, or #2 then C or
-    #4, by ``launch_plan``). Returns (o [B, (q_len,) H, d_c] f32, lse
+    """Contiguous split-KV SnapMLA decode (#2 with C or #4 folded, or #2
+    then C or #4, by ``launch_plan``). Returns (o [B, (q_len,) H, d_c] f32, lse
     [B, (q_len,) H]) — plus the partials when ``return_partials``."""
     if _on_cpu(q_c8, q_r, sigma_q, content, rope, scale, seq_lens, sink):
         return R.snapmla_decode_splitkv_ref(

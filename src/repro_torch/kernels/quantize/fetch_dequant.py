@@ -6,7 +6,8 @@ read it (port of ``repro/kernels/quantize/fetch_dequant.py``, paper §3.3.1).
     bf16 (content·σ | rope·σ). With ``chunk_start`` only pages holding
     positions below ``chunk_start[b]`` are read; the others come back zero.
     On CUDA tensors it launches the hand-written kernel
-    (``csrc/fetch_dequant.cu``), which replaces ``paged_fetch_dequant_pallas``;
+    (``csrc/fetch_dequant.cu``), which replaces ``paged_fetch_dequant_pallas``,
+    over a grid of token slices that ``fetch_geometry`` sizes to the SMs;
   * ``fetch_dequant`` — the same over a contiguous ``MLACache`` (the kernel's
     contiguous mode), which replaces ``fetch_dequant_pallas``;
   * ``fetch_dequant_ref`` / ``paged_fetch_dequant_ref`` — their plain
@@ -25,6 +26,32 @@ from repro_torch.core.kvcache import MLACache, PagedMLAPool
 from repro_torch.kernels import _lib
 
 FMT_CODES = {torch.float8_e4m3fn: 0, torch.int8: 1, torch.bfloat16: 2}
+# warps per CUDA block of the fetch kernel, and the tokens per warp it takes,
+# most first (fetch_dequant.cu: kFetchWarps, kMaxTokensPerWarp)
+FETCH_WARPS = 4
+TOKENS_PER_WARP = (4, 2, 1)
+_TILES = _lib.HeadTiles("tokens per warp", TOKENS_PER_WARP)
+
+
+def fetch_geometry(B: int, P: int, page: int, sms: int) -> tuple[int, tuple[int, int, int]]:
+    """The launch of one fetch over B rows of P pages of ``page`` tokens:
+    (tokens per warp, grid). A block of FETCH_WARPS warps takes a slice of
+    FETCH_WARPS * tpw consecutive tokens of one page (warp w of block x the
+    tokens from (x * FETCH_WARPS + w) * tpw, cut at the page's end), so the
+    grid is (ceil(page / slice), P, B). tpw is the most tokens per warp (the
+    more loads in flight per lane) whose grid covers the card's ``sms`` SMs,
+    else 1 (the most blocks); ``forced_tokens_per_warp`` overrides it."""
+    def grid(tpw: int) -> tuple[int, int, int]:
+        return -(-page // (FETCH_WARPS * tpw)), P, B
+
+    tpw = _TILES.forced or _TILES.pick(lambda w: grid(w)[0] * P * B, sms)
+    return tpw, grid(tpw)
+
+
+def forced_tokens_per_warp(tpw: int):
+    """Launch every fetch inside the block at ``tpw`` tokens per warp in
+    place of ``fetch_geometry``'s pick (to compare them)."""
+    return _TILES.forcing(tpw)
 
 
 def _dequant(content: torch.Tensor, rope: torch.Tensor, scale: torch.Tensor,
@@ -74,11 +101,12 @@ def _launch(kernel: str, content, rope, scale, page_table, chunk_start, *, B, P,
         if t.data_ptr() % 16:
             raise ValueError("the fetch kernel needs 16-byte aligned content and rope")
     out = torch.empty((B, P * page, d_c + d_r), dtype=torch.bfloat16, device=dev)
+    tpw, _ = fetch_geometry(B, P, page, _lib.sm_count(dev.index or 0))
     _lib.launch(kernel, "snapmla_fetch_dequant", FMT_CODES[content.dtype],
                 content.data_ptr(), rope.data_ptr(), scale.data_ptr(),
                 None if page_table is None else page_table.data_ptr(),
                 None if chunk_start is None else chunk_start.data_ptr(),
-                out.data_ptr(), B, P, page, d_c, d_r)
+                out.data_ptr(), B, P, page, d_c, d_r, tpw)
     return out
 
 

@@ -171,3 +171,48 @@ def test_rescale_is_checked():
     _, t_ops, _ = _setup("fp8_e4m3", lens=[5, 9], seed=11)
     with pytest.raises(ValueError, match="rescale"):
         TR.snapmla_decode_paged_ref(*t_ops, softmax_scale=SCALE, rescale="fast")
+
+
+def _one_split_partials():
+    """Raw AMLA partials of one split (S = 1) on the edges where #4 is not
+    acc / l: -0 and subnormal acc entries, a subnormal l, and a row with no
+    token (acc = l = g = 0)."""
+    acc = np.array([[[[1.5, -0.0, 1e-40, -3e-39, 2.0 ** -126, -7.25, 0.0, 3e38],
+                      [0.5, -2.0, -0.0, 1e-44, 4.0, 1e-30, -1e-39, 2.5],
+                      [0.0] * 8]]], np.float32)                     # [B=1, S=1, H=3, 8]
+    l = np.array([[[3.75, 1e-40, 0.0]]], np.float32)
+    g = np.array([[[-7.0, 12.0, 0.0]]], np.float32)
+    return acc, l, g
+
+
+def test_amla_combine_at_one_split_pins_the_folded_bits():
+    """#4 on one split (what the folded AMLA split kernel computes on its
+    registers at S = 1): the sums start from +0 and exp2_mul(x, 0) flushes a
+    subnormal x, so o = (+0 + flush(acc)) / (+0 + flush(l)) — not acc / l on
+    -0 and subnormal entries — and lse = K* ln2 + log(den), K* = g where
+    l > 0 else -1e30 (a row with no token: NaN and -inf). The plain version
+    gives exactly these bits, and agrees with JAX's combine (oracle and
+    Pallas kernel, interpret mode) where both are finite."""
+    acc, l, g = _one_split_partials()
+    o_t, lse_t = TK.amla_combine_cuda(*(torch.from_numpy(x) for x in (acc, l, g)))
+    zero = torch.zeros((), dtype=torch.float32)
+    k0 = torch.zeros((), dtype=torch.int32)
+    den = zero + TA.exp2_mul(torch.from_numpy(l[:, 0]), k0)
+    o_want = (zero + TA.exp2_mul(torch.from_numpy(acc[:, 0]), k0)) / den[..., None]
+    k_star = torch.where(torch.from_numpy(l[:, 0]) > 0, torch.from_numpy(g[:, 0]),
+                         torch.tensor(TR.NEG_INF))
+    lse_want = k_star * TA.LN2_F32 + torch.log(den)
+    np.testing.assert_array_equal(_bits(o_t), _bits(o_want))
+    np.testing.assert_array_equal(_bits(lse_t), _bits(lse_want))
+    # the edges: +0 for -0 and for subnormals, NaN / -inf for the empty row
+    assert _bits(o_t)[0, 0, 1] == 0 and _bits(o_t)[0, 0, 2] == 0 and _bits(o_t)[0, 0, 3] == 0
+    naive = acc[0, 0, 0] / l[0, 0, 0]
+    assert (_bits(o_t)[0, 0] != _bits(naive)).sum() == 3     # not acc / l there
+    assert np.isnan(o_t[0, 2].numpy()).all() and lse_t[0, 2] == -np.inf
+    assert np.isinf(o_t[0, 1].numpy()).sum() + np.isnan(o_t[0, 1].numpy()).sum() == 8
+    for o_j, lse_j in (JR.amla_combine_ref(acc, l, g),
+                       amla_combine_pallas(jnp.asarray(acc), jnp.asarray(l), jnp.asarray(g))):
+        np.testing.assert_allclose(o_t[0, 0].numpy(), np.asarray(o_j)[0, 0], rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(lse_t[0, ::2].numpy(), np.asarray(lse_j)[0, ::2], rtol=1e-6)
+        assert np.isnan(np.asarray(o_j)[0, 2]).all()

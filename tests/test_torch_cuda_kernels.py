@@ -1,13 +1,16 @@
 """The port's hand-written CUDA kernels against their plain PyTorch versions
 on the card (phase 2 of chip_smoke.py at small sizes): paged and contiguous
 decode in both rescale modes, the sink guard, both combines, Fused-Q-Quant,
-Fused-K-Append, the fetch-dequant kernel, the q_len > 1 verify mode, the
-decode kernels with Fused-Q-Quant in their prologue and C in their epilogue
-against the launches they replace, and the GQA decode (#7). Needs an NVIDIA
+Fused-K-Append, the fetch-dequant kernel at every tokens-per-warp, the
+q_len > 1 verify mode, the decode kernels with Fused-Q-Quant in their
+prologue and C (FMA) or #4 (AMLA) in their epilogue against the launches they
+replace, and the GQA decode (#7). Needs an NVIDIA
 GPU and nvcc; skipped elsewhere. Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 """
+import contextlib
+
 import pytest
 import torch
 
@@ -129,12 +132,33 @@ def test_launch_counts_and_rejections(cuda):
     contig = _contiguous(args, 4, 16)
     _lib.reset_launches()
     K.mla_decode_splitkv_cuda(*contig, softmax_scale=0.1, num_splits=2, block_n=16,
-                              rescale="amla")
+                              rescale="amla")                           # #4 folded
     K.mla_decode_cuda(*contig, softmax_scale=0.1, block_n=16)
-    assert _lib.LAUNCHES == {"splitkv_decode_amla": 1, "amla_combine": 1,
+    assert _lib.LAUNCHES == {"splitkv_decode_amla": 1, "single_pass_decode": 1}
+    K.mla_decode_splitkv_cuda(*contig, softmax_scale=0.1, num_splits=2, block_n=16,
+                              rescale="amla", return_partials=True)      # #4 after it
+    assert _lib.LAUNCHES == {"splitkv_decode_amla": 2, "amla_combine": 1,
                              "single_pass_decode": 1}
     with pytest.raises(ValueError, match="KV block"):
         K.mla_decode_cuda(*contig, softmax_scale=0.1, block_n=8)
+
+
+def test_amla_combine_kernel_at_one_split_gives_the_pinned_bits(cuda):
+    """#4's routine (amla_merge, which the folded AMLA epilogue's one-split
+    path shares) on one split with -0 and subnormal acc entries, a subnormal
+    l and a row with no token: the plain version's bits (pinned on the CPU by
+    tests/test_torch_amla.py), NaN where both are NaN."""
+    acc = torch.tensor([[[[1.5, -0.0, 1e-40, -3e-39, 2.0 ** -126, -7.25, 0.0, 3e38],
+                          [0.5, -2.0, -0.0, 1e-44, 4.0, 1e-30, -1e-39, 2.5],
+                          [0.0] * 8]]])
+    l, g = torch.tensor([[[3.75, 1e-40, 0.0]]]), torch.tensor([[[-7.0, 12.0, 0.0]]])
+    want = R.amla_combine_ref(acc, l, g)
+    got = K.amla_combine_cuda(acc.cuda(), l.cuda(), g.cuda())
+    for a, b in zip(got, want):
+        a = a.cpu()
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        a, b = (torch.where(torch.isnan(x), 7.0, x) for x in (a, b))
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def _contiguous(paged_args, P, page):
@@ -391,26 +415,37 @@ def test_verify_kernel_matches_plain_and_rows(cuda, rescale, q_len, fmt):
 
 
 @pytest.mark.parametrize("fmt", ["fp8_e4m3", "int8", "none"])
-def test_fetch_dequant_kernel_bit_exact(cuda, fmt):
-    """K1 in full, bounded and contiguous mode: bitwise against the plain
-    version, dead pages all zero."""
+@pytest.mark.parametrize("page,d_c,d_r,lens,P,starts", [
+    (16, 32, 16, [3, 40, 80], 5, ([0, 8, 16], [16, 79, 80], [5, 33, 1])),
+    # B = 1 over 3 pages (3 blocks of one page each before the token slices)
+    (16, 512, 64, [40], 3, ([0], [17], [48])),
+    # pages of 10 and 6 tokens: not a multiple of any slice (4 x 1, 2 or 4)
+    (10, 32, 16, [1, 27, 30], 3, ([0, 10, 11], [30, 5, 29])),
+    (6, 64, 8, [5], 4, ([0], [7], [24]))])
+def test_fetch_dequant_kernel_bit_exact(cuda, fmt, page, d_c, d_r, lens, P, starts):
+    """K1 in full, bounded and contiguous mode, at every tokens per warp the
+    kernel takes and at the pick of ``fetch_geometry``: bitwise against the
+    plain version, dead pages all zero."""
     from repro_torch.kernels.quantize import fetch_dequant as FD
-    page, d_c, d_r, P = 16, 32, 16, 5
-    args = _case(fmt, [3, 40, 80], P, page, 4, d_c, d_r, seed=7)
+    B = len(lens)
+    args = _case(fmt, lens, P, page, 4, d_c, d_r, seed=7 + page)
     pool = PagedMLAPool(*args[3:])
-    _lib.reset_launches()
-    _assert_bytes(FD.paged_fetch_dequant(pool), FD.paged_fetch_dequant_ref(pool))
-    for cs in ([0, 8, 16], [16, 79, 80], [5, 33, 1]):
-        cs = torch.tensor(cs, dtype=torch.int32, device="cuda")
-        got = FD.paged_fetch_dequant(pool, chunk_start=cs)
-        _assert_bytes(got, FD.paged_fetch_dequant_ref(pool, chunk_start=cs))
-        for b in range(3):
-            dead = -(-int(cs[b]) // page) * page
-            assert torch.count_nonzero(got[b, dead:]) == 0
     contig = _contiguous(args, P, page)
     cache = MLACache(*contig[3:6], args[7])
-    _assert_bytes(FD.fetch_dequant(cache, page=page), FD.fetch_dequant_ref(cache))
-    assert _lib.LAUNCHES == {"paged_fetch_dequant": 4, "fetch_dequant": 1}
+    want_full = FD.paged_fetch_dequant_ref(pool)
+    for tpw in (None,) + FD.TOKENS_PER_WARP:
+        _lib.reset_launches()
+        with FD.forced_tokens_per_warp(tpw) if tpw else contextlib.nullcontext():
+            _assert_bytes(FD.paged_fetch_dequant(pool), want_full)
+            for cs in starts:
+                cs = torch.tensor(cs, dtype=torch.int32, device="cuda")
+                got = FD.paged_fetch_dequant(pool, chunk_start=cs)
+                _assert_bytes(got, FD.paged_fetch_dequant_ref(pool, chunk_start=cs))
+                for b in range(B):
+                    dead = -(-int(cs[b]) // page) * page
+                    assert torch.count_nonzero(got[b, dead:]) == 0
+            _assert_bytes(FD.fetch_dequant(cache, page=page), FD.fetch_dequant_ref(cache))
+        assert _lib.LAUNCHES == {"paged_fetch_dequant": 1 + len(starts), "fetch_dequant": 1}
 
 
 def _gqa_case(fmt, B, N, Hkv, g, dh, window, page, lens, seed=0):
@@ -516,17 +551,19 @@ def _unfolded(raw, fmt):
 FOLD_SHAPES = [(16, 4, 32, 16, 16), (64, 32, 512, 64, 16)]
 
 
+@pytest.mark.parametrize("rescale", ["fma", "amla"])
 @pytest.mark.parametrize("width", K.HEAD_WIDTHS)
 @pytest.mark.parametrize("fmt", ["fp8_e4m3", "int8", "none"])
 @pytest.mark.parametrize("page,H,d_c,d_r,P", FOLD_SHAPES)
-def test_folded_launch_bitwise_equal_to_the_launches_it_replaces(cuda, width, fmt, page, H,
-                                                                 d_c, d_r, P):
-    """D in the prologue and C in the epilogue: the one folded launch gives
-    the bits of D, then the kernel, then C (D then B / #1 in single pass) —
-    at widths 8 and 1, 1 to 16 splits (dead splits included), paged and
-    contiguous, the contiguous sink guard, and the verify mode at q_len 4
-    and 5. fmt "none" folds C only (its query is prepare_q's)."""
-    kw = dict(softmax_scale=0.1, fmt=fmt)
+def test_folded_launch_bitwise_equal_to_the_launches_it_replaces(cuda, rescale, width, fmt,
+                                                                 page, H, d_c, d_r, P):
+    """D in the prologue and C (FMA) or #4 (AMLA) in the epilogue: the one
+    folded launch gives the bits of D, then the kernel, then C or #4 (D then
+    B / #1 in single pass) — at widths 8 and 1, 1 to 16 splits (dead splits
+    and rows with no token included: NaN / -inf with the same bits), paged
+    and contiguous, the contiguous sink guard, and the verify mode at q_len
+    4 and 5. fmt "none" folds the merge only (its query is prepare_q's)."""
+    kw = dict(softmax_scale=0.1, fmt=fmt, rescale=rescale)
     with K.forced_head_width(width):
         for q_len in (1, 4, 5):
             raw, paged, contig = _folded_case(fmt, page, H, d_c, d_r, P, q_len, seed=q_len)
@@ -565,16 +602,18 @@ def test_folded_launch_bitwise_equal_to_the_launches_it_replaces(cuda, width, fm
 
 
 def test_folded_tickets_return_to_zero_and_launches_repeat(cuda):
-    """After folded launches every ticket counter reads 0 again, and two
-    back-to-back folded launches give the same bits."""
+    """After folded launches (C under FMA, #4 under AMLA) every ticket
+    counter reads 0 again, and two back-to-back folded launches give the
+    same bits."""
     raw, paged, contig = _folded_case("fp8_e4m3", 16, 4, 32, 16, 16, 1, seed=9)
-    kw = dict(softmax_scale=0.1, num_splits=8)
-    first = K.mla_decode_paged_splitkv_cuda(*raw, None, *paged[3:], **kw)
-    second = K.mla_decode_paged_splitkv_cuda(*raw, None, *paged[3:], **kw)
-    third = K.mla_decode_splitkv_cuda(*raw, None, *contig[3:], block_n=16, **kw)
-    torch.cuda.synchronize()
-    for a, b, c in zip(first, second, third):
-        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
-    tickets = K._SCRATCH.tickets(torch.device("cuda", torch.cuda.current_device()), 1)
-    assert tickets.numel() >= 4 * 4 and int(torch.count_nonzero(tickets)) == 0
+    for rescale in ("fma", "amla"):
+        kw = dict(softmax_scale=0.1, num_splits=8, rescale=rescale)
+        first = K.mla_decode_paged_splitkv_cuda(*raw, None, *paged[3:], **kw)
+        second = K.mla_decode_paged_splitkv_cuda(*raw, None, *paged[3:], **kw)
+        third = K.mla_decode_splitkv_cuda(*raw, None, *contig[3:], block_n=16, **kw)
+        torch.cuda.synchronize()
+        for a, b, c in zip(first, second, third):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+        tickets = K._SCRATCH.tickets(torch.device("cuda", torch.cuda.current_device()), 1)
+        assert tickets.numel() >= 4 * 4 and int(torch.count_nonzero(tickets)) == 0, rescale

@@ -11,7 +11,8 @@ prologue) and the combine routing of the decode wrappers, on the CPU:
     kernels (interpret mode) on the same cache bytes, within the 1e-5 of
     tests/test_torch_mla_decode.py and tests/test_torch_qlen_verify.py;
   * ``kernel.launch_plan``, the rule that routes a call to the folded
-    launch, to the kernel then C, or to the kernel then #4.
+    launch (C under FMA, #4 under AMLA, in the split kernel's epilogue), or,
+    for a caller that keeps the partials, to the kernel then C or #4.
 
 That the folded launch gives the unfolded launches' bits is checked on the
 card (tests/test_torch_cuda_kernels.py, chip_smoke.py).
@@ -154,14 +155,30 @@ def test_raw_query_wrappers_match_jax_q_quant_then_pallas_decode(case, rank, spl
     (False, "none", False, "fma", False, "folded"),
     (True, "fp8_e4m3", False, "fma", True, "lse_combine"),
     (False, "fp8_e4m3", False, "fma", True, "lse_combine"),
-    (True, "fp8_e4m3", False, "amla", False, "amla_combine"),
+    (True, "fp8_e4m3", False, "amla", False, "folded"),
+    (False, "none", False, "amla", False, "folded"),
     (False, "none", False, "amla", True, "amla_combine"),
+    (True, "int8", False, "amla", True, "amla_combine"),
     (True, "int8", True, "fma", False, "none"),
     (False, "none", True, "amla", False, "none"),
 ])
 def test_launch_plan_routes_each_call(raw, fmt, single_pass, rescale, return_partials, want):
     assert TK.launch_plan(raw=raw, fmt=fmt, single_pass=single_pass, rescale=rescale,
                           return_partials=return_partials) == want
+
+
+@pytest.mark.parametrize("rescale,num_splits,want", [
+    ("amla", 8, "folded"), ("amla", TK.AMLA_FOLD_MAX_SPLITS, "folded"),
+    ("amla", TK.AMLA_FOLD_MAX_SPLITS + 1, "amla_combine"),
+    ("fma", TK.AMLA_FOLD_MAX_SPLITS + 1, "folded")])
+def test_launch_plan_keeps_the_amla_fold_within_its_shift_table(rescale, num_splits, want):
+    """#4 folds up to the split count whose shift table fits a CUDA block's
+    shared memory (the .cu's kMaxAmlaFoldSplits); past it the kernel then
+    the standalone #4 run it. C folds at any split count."""
+    src = (_lib.CSRC / "mla_decode.cu").read_text()
+    assert f"constexpr int kMaxAmlaFoldSplits = {TK.AMLA_FOLD_MAX_SPLITS};" in src
+    assert TK.launch_plan(raw=True, fmt="fp8_e4m3", single_pass=False, rescale=rescale,
+                          num_splits=num_splits) == want
 
 
 def test_launch_plan_rejects_a_raw_none_query_and_unknown_modes(case):
