@@ -22,7 +22,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                epilogue (C under FMA, #4 under AMLA) — bitwise against D, the
                kernel, then C or #4, at every head-tile width, and timed
                beside the launches it replaces (the "folded D / C / #4"
-               line);
+               line). The MLA cases are repeated at deepseek-v3-mla's 128
+               heads (``serve_shape_h128``, ``long_32k_h128`` and their q_len
+               5 / 4 verify cases, with a head-tile width line);
   3. layer   — ``core.snapmla.decode_step``, one full-width layer over a
                ~32k-token cache, paged and contiguous (Fused-K-Append): kernels
                vs the reference backend, cache bytes vs the plain append;
@@ -66,7 +68,21 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                width cut to one 6-layer superblock (batch 2, prompt 1,200 past
                its 1,024-token window, gen 16, fp8), kernel backend against the
                reference backend, #7's launches exactly one per layer and decode
-               step; one llama decode step under torch.profiler.
+               step; one llama decode step under torch.profiler. #7 is also
+               held at granite-3-2b's d_head 64 (serving shape and ~32k), and
+               ``serve.generate`` runs on full granite-3-2b (40 layers) and
+               on one full-width layer of mixtral-8x7b and of
+               qwen3-moe-30b-a3b (MoE MLPs), #7 once per layer and step;
+  9. deepseek — deepseek-v3-mla at full width (128 heads, q-LoRA, 256
+               experts top-8 + 1 shared) cut to one layer, after every other
+               model is freed: ``serve.generate`` contiguous kv0, paged kv0,
+               paged kv4 FMA and AMLA (the gates of phase 4), the engine with
+               chunked prefill and speculative decoding held to the plain
+               backend forced onto its tokens (its agreement with
+               ``generate`` reported: MoE capacity drops differ between the
+               engine's and ``generate``'s batches, in the reference too), K1
+               and K2 once per layer and step, and its decode step under
+               torch.profiler beside the expert weights' byte bound.
 
 Phase 2 also holds the fused fetch-dequant kernel (#11 paged, #10 its
 contiguous mode) bitwise against its plain version at ~32k tokens and at the
@@ -164,6 +180,14 @@ SUMMARY_CASES = {
     "fetch_dequant": (("engine_shape", 0), ("long_32k", 0)),
     **{k: (("verify_shape", 1), ("long_32k_verify", 8)) for k in KERNELS if "verify" in k},
     "gqa_decode": (("gqa_llama_serve", 0), ("gqa_long_32k", 0)),
+}
+# the cases of each row's extra measurements in the summary line: (main
+# shape, splits), (long case, splits) for a kernel name and its kind's splits
+SUMMARY_EXTRA = {
+    "h128": lambda name, s, ls: (("serve_shape_h128_verify", 1),
+                                 ("long_32k_h128_verify", 8)) if "verify" in name
+    else (("serve_shape_h128", s), ("long_32k_h128", ls)),
+    "dh64": lambda name, s, ls: (("gqa_granite_serve", 0), ("gqa_granite_long_32k", 0)),
 }
 # E1-E3 (phase 5): serve's engine flags
 E1 = ["--batch", "6", "--max-batch", "3", "--prompt-lens", "640,200,384",
@@ -324,11 +348,11 @@ def decode_bound(lens, fmt, splits, table_entries, heads=H, d_c=D_C, d_r=D_R):
     return _bound(nbytes, flops, PEAK[fmt])
 
 
-def combine_bound(B, S, amla: bool):
+def combine_bound(B, S, amla: bool, heads=H):
     """C reads o and lse partials, #4 also g; both write o and lse."""
     per_split = D_C + (2 if amla else 1)
-    return _bound(B * S * H * per_split * 4 + B * H * (D_C + 1) * 4,
-                  2 * B * S * H * D_C, PEAK["f32"])
+    return _bound(B * S * heads * per_split * 4 + B * heads * (D_C + 1) * 4,
+                  2 * B * S * heads * D_C, PEAK["f32"])
 
 
 def _bound(nbytes, flops, peak):
@@ -360,11 +384,12 @@ def d_input(raw):
     return torch.cat(raw, -1).reshape(raw[0].shape[0], -1, D_C + D_R).contiguous()
 
 
-def make_case(gen, fmt, lens, P, *, sink_tokens=0, extra=3):
+def make_case(gen, fmt, lens, P, *, sink_tokens=0, extra=3, heads=H):
     """One random quantized cache held twice on the card: contiguous
     ([B, P*PAGE, .], with the sink guard's shadow when ``sink_tokens``) and as
-    a shuffled page pool; plus a raw query and its prepared form. Returns
-    (prepared query, MLACache, PagedMLAPool, raw query)."""
+    a shuffled page pool; plus a raw query of ``heads`` heads and its
+    prepared form. Returns (prepared query, MLACache, PagedMLAPool, raw
+    query)."""
     import torch
     from repro_torch.core.kvcache import (CacheConfig, MLACache, PagedMLAPool,
                                           mla_quantize_entry)
@@ -384,7 +409,7 @@ def make_case(gen, fmt, lens, P, *, sink_tokens=0, extra=3):
         dst = torch.zeros((n_pool, PAGE) + x.shape[2:], dtype=x.dtype, device=dev)
         dst[table.reshape(-1)] = x.reshape((B * P, PAGE) + x.shape[2:])
         pool.append(dst)
-    raw = raw_query(gen, B, H)
+    raw = raw_query(gen, B, heads)
     q = tuple(t.contiguous() for t in prepare_q(*raw, fmt))
     return q, cache, PagedMLAPool(*pool, table.to(torch.int32).contiguous(), seq_lens), raw
 
@@ -398,16 +423,18 @@ def _record(records, name, tag, S, err, fn=None, plain=None, bound=None):
 
 
 def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records,
-                  layouts=("paged", "contiguous"), rescales=("fma", "amla"), sink_tokens=0):
+                  layouts=("paged", "contiguous"), rescales=("fma", "amla"), sink_tokens=0,
+                  heads=H):
     """Every decode kernel (A, B, #2, #1 in each rescale mode) and both
-    combines (C, #4) against their plain versions on one case; contiguous
-    against paged bit for bit; single pass against one split bit for bit
-    when every block is live; with ``timing``, ms / plain ms / bound ms."""
+    combines (C, #4) against their plain versions on one case of ``heads``
+    query heads; contiguous against paged bit for bit; single pass against
+    one split bit for bit when every block is live; with ``timing``, ms /
+    plain ms / bound ms."""
     import torch
     from repro_torch.core.kvcache import sink_patched_content
     from repro_torch.kernels.mla_decode import kernel as K
     from repro_torch.kernels.mla_decode import ref as R
-    q, cache, pool, raw = make_case(gen, fmt, lens, P, sink_tokens=sink_tokens)
+    q, cache, pool, raw = make_case(gen, fmt, lens, P, sink_tokens=sink_tokens, heads=heads)
     pgd = q + tuple(pool)
     ctg = q + (cache.content, cache.rope, cache.scale, cache.seq_lens)
     ctg_ref = q + (sink_patched_content(cache), cache.rope.float(), cache.scale,
@@ -471,7 +498,7 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
                     check_close(f"{lbl} sigma_p", parts[2], parts_r[2], rtol=1e-6, atol=0.0)
                 timed = timing and S in splits_list[:1] + splits_list[-1:]
                 _record(records, name, tag, S, err, partials if timed else None, plain,
-                        decode_bound(lens, fmt, S, table) if timed else None)
+                        decode_bound(lens, fmt, S, table, heads) if timed else None)
                 outs[layout] = (o, lse) + tuple(parts)
                 # the combine on these partials against its plain version
                 cname = "amla_combine" if amla else "lse_combine"
@@ -488,7 +515,7 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
                 cplain = ((lambda p=parts: R.amla_combine_ref(*p)) if amla
                           else (lambda p=parts: R.lse_combine_ref(*p[:2])))
                 _record(records, cname, tag, S, err_c, cfn if timed else None, cplain,
-                        combine_bound(B, S, amla) if timed else None)
+                        combine_bound(B, S, amla, heads) if timed else None)
             if len(outs) == 2:   # contiguous == paged at block_n == page
                 for a, b in zip(outs["contiguous"], outs["paged"]):
                     check_bitwise(f"{tag} {rescale} S={S} contiguous vs paged", a, b)
@@ -538,7 +565,7 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
             for a, b in zip(single_live, one):
                 check_bitwise(f"{tag} {name} vs one split", a, b)
             _record(records, name, tag, 1, err, fn if timing else None, plain,
-                    decode_bound(lens, fmt, 1, table) if timing else None)
+                    decode_bound(lens, fmt, 1, table, heads) if timing else None)
             outs[layout] = (o, lse)
         if len(outs) == 2:
             for a, b in zip(outs["contiguous"], outs["paged"]):
@@ -549,12 +576,12 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
     if fmt != "none":   # D: bit-identical to its plain version
         from repro_torch.kernels.quantize import kernel as QK
         from repro_torch.kernels.quantize import ref as QR
-        qin = torch.randn(B, H, D_C + D_R, generator=gen, device="cuda") * 3
+        qin = torch.randn(B, heads, D_C + D_R, generator=gen, device="cuda") * 3
         got, want = QK.fused_q_quant_cuda(qin, D_C, fmt=fmt), QR.fused_q_quant_ref(qin, D_C, fmt)
         for nm, g, w in zip(("q_c8", "q_r", "sigma_q"), got, want):
             check_bitwise(f"{tag} D {nm}", g, w)
-        bound = _bound(B * H * ((D_C + D_R) * 4 + D_C + D_R * 4 + 4),
-                       3 * B * H * (D_C + D_R), PEAK["f32"])
+        bound = _bound(B * heads * ((D_C + D_R) * 4 + D_C + D_R * 4 + 4),
+                       3 * B * heads * (D_C + D_R), PEAK["f32"])
         _record(records, "fused_q_quant", tag, 1, 0.0,
                 (lambda: QK.fused_q_quant_cuda(qin, D_C, fmt=fmt)) if timing else None,
                 lambda: QR.fused_q_quant_ref(qin, D_C, fmt), bound)
@@ -711,27 +738,28 @@ def fetch_checks(gen, records, engine_pages):
              ms={k[0]: records[k]["ms"] for k in records if k[1] == tag and k[2] == 0})
 
 
-def verify_bound(lens, q_len, S, table_entries):
+def verify_bound(lens, q_len, S, table_entries, heads=H):
     """Least time for one fp8 verify call: each live token read once, the
-    R = q_len*H query rows and the partials moved once; QK + PV operations
-    for each row over its own limit."""
-    B, R = len(lens), q_len * H
+    R = q_len*heads query rows and the partials moved once; QK + PV
+    operations for each row over its own limit."""
+    B, R = len(lens), q_len * heads
     nbytes = (sum(lens) * (D_C + D_R * 2 + 4) + B * R * (D_C + D_R * 4 + 4)
               + B * (table_entries + 1) * 4 + B * S * R * (D_C * 4 + 8))
     row_tokens = sum(max(0, n - (q_len - 1) + t) for n in lens for t in range(q_len))
-    return _bound(nbytes, row_tokens * H * (2 * (D_C + D_R) + 2 * D_C), PEAK["fp8_e4m3"])
+    return _bound(nbytes, row_tokens * heads * (2 * (D_C + D_R) + 2 * D_C),
+                  PEAK["fp8_e4m3"])
 
 
-def verify_query(gen, B, q_len, fmt="fp8_e4m3"):
-    """A [B, q_len, H, .] verify block: (prepared query, raw query)."""
+def verify_query(gen, B, q_len, fmt="fp8_e4m3", heads=H):
+    """A [B, q_len, heads, .] verify block: (prepared query, raw query)."""
     from repro_torch.kernels.mla_decode.ref import prepare_q
-    raw = raw_query(gen, B, q_len * H)
+    raw = raw_query(gen, B, q_len * heads)
     q = prepare_q(*raw, fmt)
-    return (tuple(t.reshape(B, q_len, H, *t.shape[2:]).contiguous() for t in q),
-            tuple(t.reshape(B, q_len, H, -1) for t in raw))
+    return (tuple(t.reshape(B, q_len, heads, *t.shape[2:]).contiguous() for t in q),
+            tuple(t.reshape(B, q_len, heads, -1) for t in raw))
 
 
-def verify_checks(gen, lens, P, q_len, splits_list, scale, *, tag, records):
+def verify_checks(gen, lens, P, q_len, splits_list, scale, *, tag, records, heads=H):
     """The q_len > 1 mode of A (#6) and #2, FMA and AMLA, against the plain
     version within the reference's gates; contiguous bitwise equal to paged;
     each row bitwise equal to the q_len = 1 kernel at its limit (rows with a
@@ -740,8 +768,8 @@ def verify_checks(gen, lens, P, q_len, splits_list, scale, *, tag, records):
     import torch
     from repro_torch.kernels.mla_decode import kernel as K
     from repro_torch.kernels.mla_decode import ref as R
-    _, cache, pool, _ = make_case(gen, "fp8_e4m3", lens, P)
-    q, raw = verify_query(gen, len(lens), q_len)
+    _, cache, pool, _ = make_case(gen, "fp8_e4m3", lens, P, heads=heads)
+    q, raw = verify_query(gen, len(lens), q_len, heads=heads)
     pgd, ctg = q + tuple(pool), q + (cache.content, cache.rope, cache.scale, cache.seq_lens)
     for rescale in ("fma", "amla"):
         amla = rescale == "amla"
@@ -785,7 +813,7 @@ def verify_checks(gen, lens, P, q_len, splits_list, scale, *, tag, records):
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
             if S in splits_list[:1] + splits_list[-1:]:
                 qf = K._flatten_q(*q)
-                bound = verify_bound(lens, q_len, S, P)
+                bound = verify_bound(lens, q_len, S, P, heads)
                 _record(records, "paged_splitkv_decode_verify" + sfx, tag, S, err,
                         lambda S=S: K.paged_decode_partials_cuda(
                             *qf[:3], *pool, num_splits=S, single_pass=False,
@@ -799,15 +827,16 @@ def verify_checks(gen, lens, P, q_len, splits_list, scale, *, tag, records):
                         lambda S=S: R.snapmla_decode_splitkv_ref(
                             *q, cache.content, cache.rope.float(), cache.scale,
                             cache.seq_lens, num_splits=S, block_n=PAGE,
-                            return_partials=True, **kw), verify_bound(lens, q_len, S, 0))
+                            return_partials=True, **kw), verify_bound(lens, q_len, S, 0, heads))
                 last = tuple(x[:, -1].contiguous() for x in q)   # A, q_len = 1, same cache
                 a_ms = kernel_ms(lambda S=S: K.paged_decode_partials_cuda(
                     *last, *pool, num_splits=S, single_pass=False, **kw))
                 records[("paged_splitkv_decode" + sfx, tag, S)] = {
                     "max_abs_err": 0.0, "ms": a_ms, "plain_ms": None,
-                    "bound_ms": decode_bound(lens, "fp8_e4m3", S, P)[0], "bound_by": "bytes"}
+                    "bound_ms": decode_bound(lens, "fp8_e4m3", S, P, heads)[0],
+                    "bound_by": "bytes"}
             emit(phase="kernels", case=tag, kernel="verify", q_len=q_len, rescale=rescale,
-                 splits=S, lens=lens, rows=q_len * H, max_abs_err=err,
+                 splits=S, lens=lens, rows=q_len * heads, max_abs_err=err,
                  bitwise_contiguous_vs_paged=True, bitwise_rows_vs_q_len_1=True,
                  bitwise_widths=True)
     emit(phase="kernels", case=tag, kernel="verify timing", q_len=q_len,
@@ -815,28 +844,29 @@ def verify_checks(gen, lens, P, q_len, splits_list, scale, *, tag, records):
              if k[1] == tag and v.get("ms") is not None})
 
 
-def width_sweep(gen, scale) -> None:
+def width_sweep(gen, scale, heads=H, sfx="") -> None:
     """Each head-tile width's ms for B (paged single pass), A (paged split)
-    and K2 (the verify mode) at the serving shape and at ~32k, beside the
-    width ``head_width`` picks there: one line."""
+    and K2 (the verify mode) at the serving shape and at ~32k with ``heads``
+    query heads, beside the width ``head_width`` picks there: one line."""
     from repro_torch.kernels import _lib
     from repro_torch.kernels.mla_decode import kernel as K
     sms = _lib.sm_count(0)
     rows = []
     for tag, lens, P, q_len, S_a, S_v in (("serve_shape", [527, 512, 520, 513], 5, 5, 4, 1),
                                           ("long_32k", [0, PAGE, 32768, 20000], 256, 4, 8, 8)):
-        q, cache, pool, _ = make_case(gen, "fp8_e4m3", lens, P)
-        qv = K._flatten_q(*verify_query(gen, len(lens), q_len)[0])[:3]
+        tag += sfx
+        q, cache, pool, _ = make_case(gen, "fp8_e4m3", lens, P, heads=heads)
+        qv = K._flatten_q(*verify_query(gen, len(lens), q_len, heads=heads)[0])[:3]
         kw = dict(softmax_scale=scale, fmt="fp8_e4m3")
         B = len(lens)
         cases = {
             "B": (lambda: K.paged_decode_partials_cuda(*q, *pool, num_splits=1,
-                                                       single_pass=True, **kw), H, 1),
-            f"A S={S_a}": (lambda: K.paged_decode_partials_cuda(*q, *pool, num_splits=S_a,
-                                                                single_pass=False, **kw), H, S_a),
+                                                       single_pass=True, **kw), heads, 1),
+            f"A S={S_a}": (lambda: K.paged_decode_partials_cuda(
+                *q, *pool, num_splits=S_a, single_pass=False, **kw), heads, S_a),
             f"K2 q_len={q_len} S={S_v}": (lambda: K.paged_decode_partials_cuda(
                 *qv, *pool, num_splits=S_v, single_pass=False, q_len=q_len, **kw),
-                q_len * H, S_v)}
+                q_len * heads, S_v)}
         for name, (fn, n_rows, S) in cases.items():
             ms = {}
             for w in K.HEAD_WIDTHS:
@@ -844,7 +874,7 @@ def width_sweep(gen, scale) -> None:
                     ms[w] = kernel_ms(fn)
             rows.append(dict(case=tag, kernel=name, ms_by_width=ms,
                              picked=K.head_width(B, n_rows, S, sms)))
-    emit(phase="kernels", check="head-tile widths", sms=sms, widths=rows)
+    emit(phase="kernels", check="head-tile widths", heads=heads, sms=sms, widths=rows)
 
 
 def ptxas_entries(log: str) -> dict:
@@ -950,24 +980,49 @@ SERVE_RUNS = [  # (paged, kv_splits, rescale, sink_tokens)
     (True, 4, "amla", 0)]
 
 
-def phase_serve():
-    """Full mla-7b through serve.generate: kernel backend vs reference, both
-    cache layouts; the kernel runs are this path's counted run."""
+def init_full(arch, layers=0):
+    """``arch`` at full width (depth cut to ``layers`` when non-zero), float32
+    weights from a seeded generator on the card, and a batch of 4 prompts of
+    512 tokens; one ``serve_init`` line with the parameters held (beside the
+    config's count, which leaves out the norms) and the memory they take."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _lib
-    from repro_torch.launch import serve
     from repro_torch.models import transformer as T
-    base = get_config("mla-7b")
+    base = get_config(arch)
+    if layers:
+        base = dataclasses.replace(base, n_layers=layers)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t0 = time.time()
     params = T.init_model(gen, base, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    emit(phase="serve_init", params=n_params, seconds=time.time() - t0,
+    emit(phase="serve_init", arch=arch, layers=base.n_layers, params=n_params,
+         config_param_count=base.param_count(), active_params=base.active_param_count(),
+         seconds=time.time() - t0,
          gib=torch.cuda.memory_allocated() / 2**30)
     prompts = torch.randint(0, base.vocab_size, (4, 512), generator=gen, device="cuda")
+    return base, params, prompts
+
+
+def phase_serve():
+    """Full mla-7b through serve.generate: kernel backend vs reference, both
+    cache layouts; the kernel runs are this path's counted run."""
+    base, params, prompts = init_full("mla-7b")
+    launches, kern = serve_runs(base, params, prompts, SERVE_RUNS)
+    return launches, base, params, prompts, kern[(True, 0, "fma", 0)][1]
+
+
+def serve_runs(base, params, prompts, runs):
+    """``serve.generate`` (16 new tokens) on each run (paged, kv_splits,
+    rescale, sink_tokens), kernel backend against the reference backend:
+    finite logits, equal prefill tokens, the first decode step within 1e-2 of
+    the largest logit, one attention launch per layer and decode step, and
+    each contiguous run's paged twin bit-identical. The kernel runs are the
+    counted path. Returns (launches, the kernel runs' outputs)."""
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve
 
     def cfg_of(run, backend):
         paged, splits, rescale, sink = run
@@ -976,9 +1031,9 @@ def phase_serve():
                                    use_kernels=backend == "kernel")
 
     refs = {run: serve.generate(cfg_of(run, "ref"), params, prompts, 16, return_logits=True)
-            for run in SERVE_RUNS}
+            for run in runs}
     kern, run_launches, launches = {}, {}, {}
-    for run in SERVE_RUNS:
+    for run in runs:
         torch.cuda.synchronize()
         _lib.reset_launches()                 # a counted serve run starts here
         with _CountDecodeSteps() as steps:
@@ -1000,7 +1055,7 @@ def phase_serve():
                                  f"steps")
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
-    for run in SERVE_RUNS:
+    for run in runs:
         toks, tps, logits = kern[run]
         r_toks, r_tps, r_logits = refs[run]
         paged, splits, rescale, sink = run
@@ -1011,39 +1066,46 @@ def phase_serve():
         # attention agrees to ~1e-6 (phase 3), but the next layer re-quantizes
         # its query and its new latent to fp8, where a one-ulp difference moves
         # a code by a whole fp8 step; over 30 random-weight layers that grows
-        # to a few 1e-3 of the largest logit (measured: 2.7e-3, H100 run)
+        # to a few 1e-3 of the largest logit (measured on mla-7b: 2.7e-3, H100
+        # run)
         first = float((logits[:, 1] - r_logits[:, 1]).abs().max()
                       / r_logits[:, 1].abs().max())
         if first > 1e-2:
             raise AssertionError(f"{lbl}: first-step logits rel err {first}")
         if not torch.equal(toks[:, 0], r_toks[:, 0]):
             raise AssertionError(f"{lbl}: prefill tokens differ")
-        emit(phase="serve", arch="mla-7b", layers=base.n_layers, batch=4, prompt=512, gen=16,
+        emit(phase="serve", arch=base.name, layers=base.n_layers, batch=prompts.shape[0],
+             prompt=prompts.shape[1], gen=16,
              layout="paged" if paged else "contiguous", kv_splits=splits, rescale=rescale,
              sink_tokens=sink, tok_per_s=tps, ref_tok_per_s=r_tps,
              greedy_agreement_vs_ref=float((toks == r_toks).float().mean()),
              first_step_logits_rel_err=first, launches=run_launches[run])
-    for splits in (0, 4):   # the two layouts: identical greedy tokens
-        for rescale in ("fma", "amla"):
-            a, b = kern[(False, splits, rescale, 0)], kern[(True, splits, rescale, 0)]
-            if not torch.equal(a[0], b[0]):
-                raise AssertionError(f"serve kv_splits={splits} {rescale}: contiguous and "
-                                     "paged greedy tokens differ")
-            emit(phase="serve", check="contiguous vs paged", kv_splits=splits, rescale=rescale,
-                 identical_tokens=True,
-                 max_logit_diff=float((a[2] - b[2]).abs().max()))
-    return launches, base, params, prompts, kern[(True, 0, "fma", 0)][1]
+    for paged, splits, rescale, sink in runs:   # the two layouts: bit-identical
+        if paged or sink or (True, splits, rescale, 0) not in kern:
+            continue
+        a, b = kern[(False, splits, rescale, 0)], kern[(True, splits, rescale, 0)]
+        diff = float((a[2] - b[2]).abs().max())
+        if not torch.equal(a[0], b[0]) or diff:
+            raise AssertionError(f"serve {base.name} kv_splits={splits} {rescale}: contiguous "
+                                 f"and paged runs differ (max logit diff {diff})")
+        emit(phase="serve", arch=base.name, check="contiguous vs paged", kv_splits=splits,
+             rescale=rescale, identical_tokens=True, max_logit_diff=diff)
+    return launches, kern
 
 
-def phase_profile(base, params, prompts):
+PROFILE_RUNS = ((True, 0, "fma"), (True, 4, "fma"), (True, 4, "amla"), (False, 0, "fma"))
+
+
+def phase_profile(base, params, prompts, runs=PROFILE_RUNS, **extra):
     """Where one decode step's time goes (kernel backend, batch 4, context
-    ~0.5k): host wall per step, device kernel time per step from
-    torch.profiler, the device's idle share, and the heaviest kernels."""
+    ~0.5k) on each run (paged, kv_splits, rescale): host wall per step,
+    device kernel time per step from torch.profiler, the device's idle
+    share, and the heaviest kernels (``extra``: more fields for the
+    line)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as T
-    for paged, splits, rescale in ((True, 0, "fma"), (True, 4, "fma"), (True, 4, "amla"),
-                                   (False, 0, "fma")):
+    for paged, splits, rescale in runs:
         cfg = dataclasses.replace(base, kv_paged=paged, kv_splits=splits, kv_rescale=rescale,
                                   decode_backend="kernel", use_kernels=True)
         state = T.init_decode_state(cfg, 4, 640, device="cuda")
@@ -1070,26 +1132,28 @@ def phase_profile(base, params, prompts):
                       if r.self_device_time_total > 0 and not r.key.startswith("aten::")),
                      key=lambda x: -x[1])
         busy = sum(ms for _, ms, _ in dev)
-        emit(phase="profile", layout="paged" if paged else "contiguous", kv_splits=splits,
-             rescale=rescale, wall_ms_per_step=wall, device_ms_per_step=busy,
+        emit(phase="profile", arch=base.name, layout="paged" if paged else "contiguous",
+             kv_splits=splits, rescale=rescale, wall_ms_per_step=wall, device_ms_per_step=busy,
              device_idle_share=1.0 - busy / wall,
              aten_ops_per_step=sum(r.count for r in rows if r.key.startswith("aten::")) / 3,
-             top=[(k[:80], round(ms, 4), n) for k, ms, n in dev[:8]])
+             top=[(k[:80], round(ms, 4), n) for k, ms, n in dev[:8]], **extra)
 
 
-def phase_engine(base, params, serve_tps):
-    """E1-E3 on full mla-7b, kernel backend, over the shared paged pool. The
-    counted main path of each kernel-backend run is its ``ServingEngine.run``
-    alone: not the engine's warm-up, not E1's ``generate`` oracle, and not
-    the plain-backend runs the kernel runs are held against."""
+def engine_kit(base, params):
+    """What the engine runs of a pure-MLA model share: the recording engine,
+    ``run`` (one workload from serve's engine flags), ``gate`` (no fault, no
+    leaked page, every request done, the launches one per layer of each
+    kernel a dispatch runs, added into ``launches``) and ``held_to_plain``
+    (the plain backend forced onto a kernel run's tokens). The counted main
+    path of each kernel-backend run is its ``ServingEngine.run`` alone: not
+    the engine's warm-up, not a ``generate`` oracle, and not the
+    plain-backend runs the kernel runs are held against."""
     import collections
-    import numpy as np
+    import types
     import torch
-    import repro_torch.serving.engine as engine_mod
     from repro_torch.core.kvcache import page_aligned_capacity
     from repro_torch.kernels import _lib
     from repro_torch.launch import serve
-    from repro_torch.launch import steps as ST
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.serving.scheduler import Request
 
@@ -1150,7 +1214,7 @@ def phase_engine(base, params, serve_tps):
     def run(cfg, args, forced=None):
         prompts = serve._engine_prompts(cfg, args)
         span = page_aligned_capacity(max(len(x) for x in prompts) + args.gen,
-                                     PAGE) // PAGE
+                                     cfg.page_size) // cfg.page_size
         ecfg = EngineConfig(max_batch=args.max_batch or len(prompts), max_pages_per_seq=span,
                             prefill_budget=args.prefill_budget, spec_draft_len=args.spec_draft)
         eng = Recording(dataclasses.replace(cfg, prefill_chunk=args.prefill_chunk), params,
@@ -1197,6 +1261,20 @@ def phase_engine(base, params, serve_tps):
     def tokens(res):
         return {rid: r.tokens for rid, r in res.items()}
 
+    def oracle(cfg, prompts, gen):
+        """``generate``'s tokens and logits per request, one static batch
+        per prompt length (``run_engine``'s grouping)."""
+        import numpy as np
+        out = {}
+        for n in sorted({len(x) for x in prompts}):
+            rids = [i for i, x in enumerate(prompts) if len(x) == n]
+            batch = torch.from_numpy(np.stack([prompts[i] for i in rids]))
+            toks, _, logits = serve.generate(cfg, params, batch.long().cuda(), gen,
+                                             return_logits=True)
+            for j, rid in enumerate(rids):
+                out[rid] = (toks[j].tolist(), logits[j])
+        return out
+
     def held_to_plain(lbl, a, a_res, cfg, args):
         """The plain backend run forced onto the kernel run's tokens: every
         logits row within 1e-2 of its largest logit of the kernel run's row
@@ -1227,6 +1305,24 @@ def phase_engine(base, params, serve_tps):
                     raise AssertionError(f"{lbl}: greedy picks differ at {key}, not at a "
                                          f"near-tie: {flip}")
         return b, wall, worst, flips
+
+    return types.SimpleNamespace(
+        Recording=Recording, ServingEngine=ServingEngine, kcfg=kcfg, pcfg=pcfg,
+        launches=launches, parse=parse, run=run, gate=gate, tokens=tokens,
+        held_to_plain=held_to_plain, oracle=oracle)
+
+
+def phase_engine(base, params, serve_tps):
+    """E1-E3 on full mla-7b, kernel backend, over the shared paged pool
+    (``engine_kit`` says what each run is held to and what it counts)."""
+    import torch
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as ST
+    kit = engine_kit(base, params)
+    Recording, ServingEngine, kcfg, pcfg = kit.Recording, kit.ServingEngine, kit.kcfg, kit.pcfg
+    parse, run, gate, tokens, held_to_plain = (kit.parse, kit.run, kit.gate, kit.tokens,
+                                               kit.held_to_plain)
 
     # E1: monolithic admission, staggered arrivals, shared prefix, through
     # run_engine and its exact greedy oracle gate; run_engine builds the
@@ -1260,25 +1356,7 @@ def phase_engine(base, params, serve_tps):
     p2, pw2, worst2, flips2 = held_to_plain("E2 kernel vs plain backend", e2, r2, pcfg, a2)
     first = max(float((e2.step_logits[(i, 0)] - p2.step_logits[(i, 0)]).abs().max()
                       / p2.step_logits[(i, 0)].abs().max()) for i in r2)
-    oracle = {}
-    for n in sorted({len(x) for x in prompts2}):
-        rids = [i for i, x in enumerate(prompts2) if len(x) == n]
-        batch = torch.from_numpy(np.stack([prompts2[i] for i in rids]))
-        toks, _, logits = serve.generate(kcfg, params, batch.long().cuda(), a2.gen,
-                                         return_logits=True)
-        for j, rid in enumerate(rids):
-            oracle[rid] = (toks[j].tolist(), logits[j])
-    agree = sum(r2[i].tokens == oracle[i][0] for i in r2)
-    diverge = []
-    for i in sorted(r2):
-        got_t, want_t = r2[i].tokens, oracle[i][0]
-        if got_t != want_t:
-            step = next(k for k, (x, y) in enumerate(zip(got_t, want_t)) if x != y)
-            top2 = torch.topk(oracle[i][1][step].float(), 2).values
-            diverge.append(dict(rid=i, prompt_len=len(prompts2[i]), step=step,
-                                engine=got_t[step], oracle=want_t[step],
-                                oracle_top2_margin=float(top2[0] - top2[1]),
-                                oracle_max_logit=float(oracle[i][1][step].abs().max())))
+    agree, diverge = oracle_agreement(kit.oracle(kcfg, prompts2, a2.gen), r2, prompts2)
     emit(phase="engine", run="E2", flags=E2, seconds=w2, plain_seconds=pw2, steps=m2["steps"],
          tok_per_s=m2["wall"]["decode_tok_per_s"], plain_tok_per_s=p2.metrics()["wall"][
              "decode_tok_per_s"], chunk_widths=m2["prefill"]["traces"], buckets=n_buckets,
@@ -1287,7 +1365,7 @@ def phase_engine(base, params, serve_tps):
          fetch_pages_bounded=m2["fetch_work"]["pages_fetched_bounded"],
          rows_vs_plain=len(e2.step_logits), max_row_rel_err_vs_plain=worst2,
          near_tie_flips_vs_plain=flips2, first_token_logits_rel_err=first,
-         oracle_agreement=f"{agree}/{len(r2)}", oracle_divergence=diverge,
+         oracle_agreement=agree, oracle_divergence=diverge,
          dispatches=dict(e2.dispatches), launches=e2.launches)
 
     # E3: speculative decoding (q_len = 5 verify every step) against the
@@ -1346,7 +1424,25 @@ def phase_engine(base, params, serve_tps):
              len(r.tokens) for r in r3.values()),
          dispatches=dict(e3a.dispatches), launches=e3a.launches,
          non_spec_dispatches=dict(e3an.dispatches), non_spec_launches=e3an.launches)
-    return launches
+    return kit.launches
+
+
+def oracle_agreement(oracle, res, prompts):
+    """How many engine requests equal ``generate``'s tokens ("k/n"), and for
+    each that does not, its first differing step with the oracle's top-2
+    margin there."""
+    import torch
+    diverge = []
+    for i in sorted(res):
+        got_t, want_t = res[i].tokens, oracle[i][0]
+        if got_t != want_t:
+            step = next(k for k, (x, y) in enumerate(zip(got_t, want_t)) if x != y)
+            top2 = torch.topk(oracle[i][1][step].float(), 2).values
+            diverge.append(dict(rid=i, prompt_len=len(prompts[i]), step=step,
+                                engine=got_t[step], oracle=want_t[step],
+                                oracle_top2_margin=float(top2[0] - top2[1]),
+                                oracle_max_logit=float(oracle[i][1][step].abs().max())))
+    return f"{len(res) - len(diverge)}/{len(res)}", diverge
 
 
 def _profile(fn, reps=3, match=None):
@@ -1417,11 +1513,19 @@ GQA_CASES = [  # #7's cases: (tag, fmt, lens, N, Hkv, g, dh, window, block)
     ("gqa_gemma_ring", "fp8_e4m3", [1200, 300], 1024, 16, 2, 128, 1024, PAGE),
     ("gqa_mqa", "fp8_e4m3", [200, 37], 256, 1, 8, 64, 0, 64),
     ("gqa_mha", "int8", [256, 100], 256, 8, 1, 64, 96, 64),
-    ("gqa_long_32k", "fp8_e4m3", GQA_LONG_LENS, 32768, 8, 3, 128, 0, PAGE)]
-GQA_SWEEP = ("gqa_llama_serve", "gqa_qwen_serve", "gqa_long_32k")  # the width line's cases
+    ("gqa_long_32k", "fp8_e4m3", GQA_LONG_LENS, 32768, 8, 3, 128, 0, PAGE),
+    # granite-3-2b's heads: d_head 64, Hkv 8, g 4
+    ("gqa_granite_serve", "fp8_e4m3", GQA_LLAMA_LENS, 640, 8, 4, 64, 0, PAGE),
+    ("gqa_granite_long_32k", "fp8_e4m3", GQA_LONG_LENS, 32768, 8, 4, 64, 0, PAGE)]
+GQA_SWEEP = ("gqa_llama_serve", "gqa_qwen_serve", "gqa_long_32k", "gqa_granite_serve",
+             "gqa_granite_long_32k")  # the width line's cases
 GQA_SERVE = [  # (arch, layers kept (0 = all), batch, prompt, gen, formats)
     ("llama3.2-3b", 0, 4, 512, 16, ("fp8_e4m3", "none")),
-    ("gemma3-27b", 6, 2, 1200, 16, ("fp8_e4m3",))]
+    ("gemma3-27b", 6, 2, 1200, 16, ("fp8_e4m3",)),
+    ("granite-3-2b", 0, 4, 512, 16, ("fp8_e4m3",)),
+    # the MoE GQA models at full width, one superblock (one layer) each
+    ("mixtral-8x7b", 1, 4, 512, 16, ("fp8_e4m3",)),
+    ("qwen3-moe-30b-a3b", 1, 4, 512, 16, ("fp8_e4m3",))]
 
 
 def gqa_case(gen, fmt, lens, N, Hkv, g, dh, window=0, page=PAGE):
@@ -1688,6 +1792,64 @@ def phase_gqa_profile(base, params, prompts):
          context=S, **_profile(one, match="gqa_decode_kernel"))
 
 
+# phase 9: deepseek-v3-mla, full width, one layer
+DS_HEADS = 128
+DS_RUNS = [  # (paged, kv_splits, rescale, sink_tokens)
+    (False, 0, "fma", 0), (True, 0, "fma", 0), (True, 4, "fma", 0), (True, 4, "amla", 0)]
+DS_ENGINE = ["--batch", "4", "--max-batch", "2", "--prompt-len", "512", "--prefill-chunk",
+             "256", "--prefill-budget", "512", "--spec-draft", "4", "--gen", "16"]
+
+
+def phase_deepseek():
+    """deepseek-v3-mla at full width (d_model 7,168, 128 heads, q-LoRA 1,536,
+    256 experts top-8 + 1 shared, vocab 129,280) cut to one layer (12.43 B
+    parameters, ~50 GB in float32; two layers do not fit in 80 GB):
+    ``serve.generate`` on ``DS_RUNS`` (``serve_runs``' gates), then the
+    engine with chunked prefill and speculative decoding, held to the plain
+    backend forced onto its tokens, K1 once per layer per chunk step and K2
+    once per layer per verify step, its agreement with ``generate``
+    reported, not gated: the expert capacity depends on how many tokens
+    share a MoE call, so the engine's batches and ``generate``'s static
+    batch drop different tokens, in the reference too. Then one decode
+    step under torch.profiler beside the expert weights' byte bound: the
+    MoE computes every expert of its [E, C, d] buffer, so a step reads all
+    routed expert weights. Frees the model. Returns the launches."""
+    import torch
+    base, params, prompts = init_full("deepseek-v3-mla", layers=1)
+    launches, _ = serve_runs(base, params, prompts, DS_RUNS)
+    kit = engine_kit(base, params)
+    args = kit.parse(DS_ENGINE)
+    eng, res, wall, e_prompts = kit.run(kit.kcfg, args)
+    m = kit.gate("deepseek engine", eng, res)
+    if not (eng.dispatches["chunk"] and eng.dispatches["verify"]):
+        raise AssertionError(f"deepseek engine: dispatches {dict(eng.dispatches)} lack a "
+                             "chunk or a verify step")
+    plain, p_wall, worst, flips = kit.held_to_plain("deepseek engine kernel vs plain backend",
+                                                    eng, res, kit.pcfg, args)
+    agree, diverge = oracle_agreement(kit.oracle(kit.kcfg, e_prompts, args.gen), res,
+                                      e_prompts)
+    sp = m["speculative"]
+    emit(phase="deepseek_engine", flags=DS_ENGINE, seconds=wall, plain_seconds=p_wall,
+         steps=m["steps"], tok_per_s=m["wall"]["decode_tok_per_s"],
+         verify_steps=sp["verify_steps"], drafted=sp["drafted_tokens"],
+         accepted=sp["accepted_tokens"], chunk_widths=m["prefill"]["traces"],
+         rows_vs_plain=len(eng.step_logits), max_row_rel_err_vs_plain=worst,
+         near_tie_flips_vs_plain=flips, generate_agreement=agree,
+         generate_divergence=diverge, dispatches=dict(eng.dispatches),
+         launches=eng.launches)
+    for k, v in kit.launches.items():
+        launches[k] = launches.get(k, 0) + v
+    m_cfg = base.moe
+    expert_bytes = 4 * base.n_layers * m_cfg.n_experts * 3 * base.d_model * m_cfg.d_ff_expert
+    phase_profile(base, params, prompts, runs=((True, 0, "fma"), (False, 0, "fma")),
+                  expert_weight_bytes=expert_bytes,
+                  expert_weight_bound_ms=expert_bytes / HBM_BYTES_PER_S * 1e3)
+    del params, kit, eng, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1699,9 +1861,16 @@ def _leaves(tree):
         yield tree
 
 
+def _timed(rec, case, splits):
+    return dict(case=case, splits=splits, ms=rec["ms"], plain_ms=rec["plain_ms"],
+                bound_ms=rec["bound_ms"], bound_by=rec["bound_by"])
+
+
 def summary_line(records, launches, long_tokens):
     """One entry per kernel (and AMLA / verify mode): the main-shape
-    measurement, the long case beside it, launches on the main paths."""
+    measurement, the long case beside it, launches on the main paths; the
+    MLA kernels' rows also carry their times at 128 heads (deepseek-v3-mla),
+    #7's at d_head 64 (granite-3-2b)."""
     rows = []
     for name, (source, replaces, mode) in KERNELS.items():
         s_serve, s_long = SUMMARY_SPLITS[_kind(name)]
@@ -1709,6 +1878,13 @@ def summary_line(records, launches, long_tokens):
             name, (("serve_shape", s_serve), ("long_32k", s_long)))
         short, longc = records[(name, tag, S)], records[(name, ltag, lS)]
         err = max(v["max_abs_err"] for k, v in records.items() if k[0] == name)
+        extra = {}
+        for key, cases in SUMMARY_EXTRA.items():
+            (etag, eS), (eltag, elS) = cases(name, s_serve, s_long)
+            if "ms" in records.get((name, etag, eS), {}) and \
+                    "ms" in records.get((name, eltag, elS), {}):
+                extra[key] = dict(_timed(records[(name, etag, eS)], etag, eS),
+                                  long_ctx=_timed(records[(name, eltag, elS)], eltag, elS))
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, mode=mode,
             launches=launches.get(name, 0), max_abs_err=err, ms=short["ms"],
@@ -1717,7 +1893,7 @@ def summary_line(records, launches, long_tokens):
             off_main_path=OFF_PATH.get(name), folded_into=FOLDED_INTO.get(name),
             long_ctx=dict(case=ltag, tokens=long_tokens, splits=lS, ms=longc["ms"],
                           plain_ms=longc["plain_ms"], bound_ms=longc["bound_ms"],
-                          bound_by=longc["bound_by"])))
+                          bound_by=longc["bound_by"]), **extra))
     return json.dumps({"kernels": rows})
 
 
@@ -1788,9 +1964,21 @@ def main() -> int:
                   records=records)
     verify_checks(gen, long_lens, 256, 4, [1, 4, 8], scale, tag="long_32k_verify",
                   records=records)
+    # the same kernels at deepseek-v3-mla's 128 heads (its softmax scale is
+    # mla-7b's: d_head 128, d_rope 64)
+    serve_lens = [527, 512, 520, 513]
+    decode_checks(gen, "fp8_e4m3", serve_lens, 5, [4, 1], scale, tag="serve_shape_h128",
+                  timing=True, records=records, heads=DS_HEADS)
+    decode_checks(gen, "fp8_e4m3", long_lens, 256, [1, 4, 8], scale, tag="long_32k_h128",
+                  timing=True, records=records, heads=DS_HEADS)
+    verify_checks(gen, serve_lens, 5, 5, [1, 4], scale, tag="serve_shape_h128_verify",
+                  records=records, heads=DS_HEADS)
+    verify_checks(gen, long_lens, 256, 4, [1, 4, 8], scale, tag="long_32k_h128_verify",
+                  records=records, heads=DS_HEADS)
     no_verify_checks(gen, variant_lib, scale)
     mla_ptxas()
     width_sweep(gen, scale)
+    width_sweep(gen, scale, heads=DS_HEADS, sfx="_h128")
     timed = [f for f in FOLDS if "folded_ms" in f]
     emit(phase="kernels", check="folded D / C / #4", widths=list(K.HEAD_WIDTHS),
          calls=len(FOLDS),
@@ -1844,6 +2032,14 @@ def main() -> int:
     for part in gqa_launches.values():
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
+
+    # 9. deepseek-v3-mla at full width, one layer: serve.generate and the
+    # engine through the MLA kernels at 128 heads (counted main paths)
+    t0 = time.time()
+    ds_launches = phase_deepseek()
+    emit(phase="deepseek_done", seconds=time.time() - t0, launches=ds_launches)
+    for k, v in ds_launches.items():
+        launches[k] = launches.get(k, 0) + v
     missing = [k for k in KERNELS if k not in OFF_PATH and launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main paths: {missing}")

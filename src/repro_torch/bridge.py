@@ -16,6 +16,7 @@ import torch
 from repro_torch.core.kvcache import GQACache, MLACache, PagedMLAPool
 from repro_torch.core.mla import MLAParams
 from repro_torch.models.layers import AttnParams, MLPParams
+from repro_torch.models.moe import MoEParams
 
 _RAW = {"float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
         "bfloat16": (np.int16, torch.bfloat16)}
@@ -65,17 +66,31 @@ def _attn_params(m: Any, device) -> AttnParams:
 def _mixer_params(m: Any, device) -> AttnParams | MLAParams:
     """The mixer of an ``attn`` / ``swa`` layer (``AttnParams``, which has
     ``wq``) or of an ``mla`` layer (``MLAParams``)."""
-    fields = m.keys() if isinstance(m, dict) else getattr(m, "_fields", ())
-    return _attn_params(m, device) if "wq" in fields else _mla_params(m, device)
+    return _attn_params(m, device) if "wq" in _fields(m) else _mla_params(m, device)
 
 
-def _mlp_params(m: Any, device) -> MLPParams:
-    return MLPParams(**{f: to_torch(_field(m, f), device) for f in MLPParams._fields})
+def _fields(m: Any):
+    return m.keys() if isinstance(m, dict) else getattr(m, "_fields", ())
+
+
+def _mlp_params(m: Any, device) -> MLPParams | MoEParams:
+    """A dense MLP (``MLPParams``) or a MoE layer (``MoEParams``, which has
+    ``w_router``; shared experts None unless the config has them)."""
+    kind = MoEParams if "w_router" in _fields(m) else MLPParams
+    return kind(**{f: to_torch(_field(m, f), device) for f in kind._fields})
+
+
+def _layer_params(lp: dict, device) -> dict[str, Any]:
+    out = {"ln1": to_torch(lp["ln1"], device), "mixer": _mixer_params(lp["mixer"], device)}
+    if "mlp" in lp:
+        out.update(ln2=to_torch(lp["ln2"], device), mlp=_mlp_params(lp["mlp"], device))
+    return out
 
 
 def params_from_jax(np_params: dict, device=None) -> dict[str, Any]:
     """The reference ``init_model`` tree (transformer.py:112-140) of a model
-    whose layers are ``attn``, ``swa`` or ``mla`` -> the port's
+    whose layers are ``attn``, ``swa`` or ``mla`` (q-LoRA included), with a
+    dense or MoE MLP, -> the port's
     ``{"embed", "ln_f", ("unembed",) "layers": [...]}``. ``scanned`` holds
     one entry per pattern slot, each stacked over the superblocks; the port's
     list interleaves them in layer order (superblock i, slot j is layer
@@ -90,10 +105,7 @@ def params_from_jax(np_params: dict, device=None) -> dict[str, Any]:
     out = {
         "embed": to_torch(np_params["embed"], device),
         "ln_f": to_torch(np_params["ln_f"], device),
-        "layers": [{"ln1": to_torch(lp["ln1"], device),
-                    "mixer": _mixer_params(lp["mixer"], device),
-                    "ln2": to_torch(lp["ln2"], device),
-                    "mlp": _mlp_params(lp["mlp"], device)} for lp in layers],
+        "layers": [_layer_params(lp, device) for lp in layers],
     }
     if "unembed" in np_params:
         out["unembed"] = to_torch(np_params["unembed"], device)

@@ -6,12 +6,17 @@ import importlib
 
 from repro_torch.configs.base import MLADims, ModelConfig  # noqa: F401
 
-ARCH_IDS = ["llama3.2-3b", "gemma3-27b", "qwen2.5-3b", "mla-7b"]
+ARCH_IDS = ["llama3.2-3b", "gemma3-27b", "qwen2.5-3b", "granite-3-2b",
+            "qwen3-moe-30b-a3b", "mixtral-8x7b", "deepseek-v3-mla", "mla-7b"]
 
 _MODULES = {
     "llama3.2-3b": "llama32_3b",
     "gemma3-27b": "gemma3_27b",
     "qwen2.5-3b": "qwen25_3b",
+    "granite-3-2b": "granite3_2b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "deepseek-v3-mla": "deepseek_v3_mla",
     "mla-7b": "mla_7b",
 }
 

@@ -1,6 +1,7 @@
 """ModelConfig for the port: the fields of ``repro/configs/base.py`` that the
 ported serving paths read (the reference's module imports its MoE module,
-which imports JAX, so the port keeps its own copy).
+which imports JAX, so the port keeps its own copy, and its own
+``MoEConfig`` in ``models/moe.py``).
 
 Layer heterogeneity is ``layer_pattern``, tiled over ``n_layers`` as in the
 reference: ``n_superblocks`` full tiles of the pattern, then the
@@ -11,6 +12,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Tuple
+
+from repro_torch.models.moe import MoEConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +39,11 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 10000.0
     act: str = "silu"
+    moe: MoEConfig | None = None     # if set, the MLPs are MoE
+    # deepseek: the first k layers dense. The reference passes first_k_dense
+    # itself as every layer's index hint (transformer.py:126, :133), so every
+    # MLP is MoE whenever ``moe`` is set; the port keeps that
+    first_k_dense: int = 0
     mla: MLADims | None = None
     # serving / quantized KV cache (the paper's technique)
     kv_fmt: str = "fp8_e4m3"         # fp8_e4m3 | int8 | none (bf16 baseline)
@@ -79,6 +87,50 @@ class ModelConfig:
     @property
     def remainder_kinds(self) -> Tuple[str, ...]:
         return self.layer_pattern[:self.n_layers % self.pattern_len]
+
+    @property
+    def has_mlp(self) -> bool:
+        return self.d_ff > 0 or self.moe is not None
+
+    def param_count(self) -> int:
+        """Parameters of the ported kinds (``attn``, ``swa``, ``mla``) by the
+        reference's count (base.py:124), embedding included."""
+        d, L = self.d_model, self.n_layers
+        kinds = self.layer_kinds
+        emb = self.vocab_size * d
+        n_attn = sum(k in ("attn", "swa") for k in kinds)
+        n_mla = sum(k == "mla" for k in kinds)
+        total = emb + n_attn * (d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
+                                + self.n_heads * self.d_head * d)
+        if self.mla:
+            m = self.mla
+            q_in = m.q_lora_rank or d
+            total += n_mla * ((d * m.q_lora_rank if m.q_lora_rank else 0)
+                              + q_in * self.n_heads * (self.d_head + m.d_rope)
+                              + d * (m.d_c + m.d_rope)
+                              + 2 * m.d_c * self.n_heads * self.d_head
+                              + self.n_heads * self.d_head * d)
+        n_mlp = L if self.has_mlp else 0
+        if self.moe is not None:
+            dense = min(self.first_k_dense, n_mlp)
+            e = self.moe
+            total += dense * 3 * d * self.d_ff + (n_mlp - dense) * (
+                d * e.n_experts + 3 * d * e.d_ff_expert * (e.n_experts + e.n_shared_experts))
+        elif self.d_ff:
+            total += n_mlp * 3 * d * self.d_ff
+        if not self.tie_embeddings:
+            total += emb
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters one token activates (the top-k experts of each MoE
+        layer in place of all of them)."""
+        if self.moe is None:
+            return self.param_count()
+        moe_layers = self.n_layers - min(self.first_k_dense, self.n_layers)
+        per_expert = 3 * self.d_model * self.moe.d_ff_expert
+        return int(self.param_count()
+                   - moe_layers * per_expert * (self.moe.n_experts - self.moe.top_k))
 
     @property
     def layer_kinds(self) -> Tuple[str, ...]:

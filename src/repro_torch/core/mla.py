@@ -4,7 +4,8 @@ DeepSeek-V2/V3 MLA math (paper §2): low-rank joint KV compression
 ``c_kv = W_DKV h`` (Eq. 1), decoupled RoPE key ``k_r = RoPE(W_KR h)`` shared
 across heads (Eq. 2), V from the latent only (Eq. 4), and the absorbed
 decode form (Eq. 5) ``q~_i = W_UK_i^T q_c_i``. Weights keep the JAX layouts.
-Only the direct-W_Q form (``q_lora_rank == 0``, as in mla-7b) is ported.
+The query takes the direct W_Q (``q_lora_rank == 0``, mla-7b) or DeepSeek's
+q-LoRA (``q_lora_rank > 0``, deepseek-v3-mla): ``W_UQ rmsnorm(W_DQ h)``.
 """
 from __future__ import annotations
 
@@ -51,16 +52,16 @@ class MLAParams(NamedTuple):
 
 def init_mla_params(gen: torch.Generator, cfg: MLAConfig, dtype=torch.float32,
                     device=None) -> MLAParams:
-    if cfg.q_lora_rank:
-        raise NotImplementedError("q-LoRA MLA (deepseek-v3-mla) is not ported yet")
     d, H, dh, dr, dc = cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_rope, cfg.d_c
 
     def init(shape, fan_in):
         return _normal(gen, shape, fan_in ** -0.5, dtype, device)
 
+    r = cfg.q_lora_rank
     return MLAParams(
-        w_dq=None, q_norm=None,
-        w_uq=init((d, H, dh + dr), d),
+        w_dq=init((d, r), d) if r else None,
+        q_norm=torch.ones((r,), dtype=dtype, device=device) if r else None,
+        w_uq=init((r, H, dh + dr), r) if r else init((d, H, dh + dr), d),
         w_dkv=init((d, dc), d),
         kv_norm=torch.ones((dc,), dtype=dtype, device=device),
         w_kr=init((d, dr), d),

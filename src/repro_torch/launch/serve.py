@@ -9,9 +9,12 @@ On the card, with the hand-written kernels:
         --arch mla-7b --backend kernel --batch 4 --prompt-len 512 --gen 16
 
 (add ``--paged``, ``--kv-splits N``, ``--rescale amla``, ``--sink-tokens K`` or
-``--block-n N``; ``--arch llama3.2-3b``, ``qwen2.5-3b`` or ``gemma3-27b`` serve
-the dense GQA family through the FP8 GQA decode kernel, where the MLA-only
-flags do nothing). On the CPU (plain PyTorch versions of every kernel):
+``--block-n N``; ``--arch deepseek-v3-mla`` serves the MLA MoE model with
+q-LoRA through the same MLA kernels; ``--arch llama3.2-3b``, ``qwen2.5-3b``,
+``gemma3-27b``, ``granite-3-2b``, ``qwen3-moe-30b-a3b`` or ``mixtral-8x7b``
+serve the GQA family, dense and MoE, through the FP8 GQA decode kernel, where
+the MLA-only flags do nothing). On the CPU (plain PyTorch versions of every
+kernel):
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch mla-7b --smoke --backend kernel --device cpu
@@ -24,7 +27,10 @@ decoding), gated against the static-batch ``generate`` oracle:
         --prefill-chunk 256 --prefill-budget 512 --gen 16
 
 (``--spec-draft K`` for self-speculative decoding; ``--smoke --device cpu``
-on the CPU). ``--restartable``, ``--ckpt-dir``, ``--ckpt-every``,
+on the CPU; ``--arch`` mla-7b or deepseek-v3-mla, the pure-MLA models). Under
+MoE the expert capacity depends on how many tokens share a call, so the
+engine's batches and ``generate``'s static batch can drop different tokens
+and the oracle gate can fail, as the reference's does on deepseek-v3-mla. ``--restartable``, ``--ckpt-dir``, ``--ckpt-every``,
 ``--inject preempt:...``, ``--trace-out``, ``--trace-clock``,
 ``--host-tier-pages`` and ``--quant-health-every`` need modules that are not
 ported yet and exit with a message, as ``--fused`` does.
@@ -282,7 +288,7 @@ def build_parser() -> argparse.ArgumentParser:
     """The command line of ``serve`` (``main`` parses it)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="mla-7b", choices=ARCH_IDS,
-                    help="model; --engine takes only the pure-MLA mla-7b")
+                    help="model; --engine takes the pure-MLA mla-7b and deepseek-v3-mla")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

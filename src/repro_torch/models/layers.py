@@ -169,8 +169,9 @@ class MLPParams(NamedTuple):
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype, device) -> torch.Tensor:
+    # scaled in place: a full-width expert stack is 15 GB a tensor
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)
 
 
 def init_mlp_params(gen: torch.Generator, d: int, f: int, gated: bool = True,

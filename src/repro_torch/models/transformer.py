@@ -17,11 +17,16 @@ MLA-only fields (``kv_paged``, ``kv_splits``, ``kv_block_n``,
 ``kv_rescale``, ``kv_sink_tokens``) do nothing on GQA layers, as in the
 reference.
 
+Each layer's MLP is dense, or with ``cfg.moe`` the token-choice MoE
+(``models/moe.py``): ``forward`` returns the summed dropped fraction as its
+auxiliary, and the serving paths discard it, as the reference's do.
+
 The reference stacks each pattern slot's layers along a leading ``scanned``
 axis and keeps the remainder in ``tail``; the port keeps one list in layer
 order (``cfg.layer_kinds``): ``params["layers"][i]`` is one layer's
-``{"ln1", "mixer": AttnParams | MLAParams, "ln2", "mlp": MLPParams}`` and
-``state["layers"][i]`` its ``GQACache``, ``MLACache`` or ``PagedMLAPool``.
+``{"ln1", "mixer": AttnParams | MLAParams, "ln2", "mlp": MLPParams |
+MoEParams}`` and ``state["layers"][i]`` its ``GQACache``, ``MLACache`` or
+``PagedMLAPool``.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from repro_torch.kernels.mla_decode import backends as BK
 from repro_torch.kernels.mla_decode import ref as mla_kref
 from repro_torch.kernels.quantize import fetch_dequant as FD
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 PORTED_KINDS = ("attn", "swa", "mla")
 
@@ -81,10 +87,16 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device
         mixer = mla_lib.init_mla_params(gen, _mla_cfg(cfg), dtype, device)
     else:
         mixer = L.init_attn_params(gen, _attn_cfg(cfg, kind), dtype, device)
-    return {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-            "mixer": mixer,
-            "ln2": torch.ones((cfg.d_model,), dtype=dtype, device=device),
-            "mlp": L.init_mlp_params(gen, cfg.d_model, cfg.d_ff, True, dtype, device)}
+    p = {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device), "mixer": mixer}
+    if cfg.has_mlp:
+        p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
+        # every MLP is MoE when cfg.moe is set: the reference hands each layer
+        # first_k_dense itself as its index hint (transformer.py:103-108, :126)
+        if cfg.moe is not None:
+            p["mlp"] = moe_lib.init_moe_params(gen, cfg.d_model, cfg.moe, dtype, device)
+        else:
+            p["mlp"] = L.init_mlp_params(gen, cfg.d_model, cfg.d_ff, True, dtype, device)
+    return p
 
 
 def init_model(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
@@ -122,8 +134,16 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                        for kind in cfg.layer_kinds]}
 
 
-def _apply_mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return x + L.mlp(p["mlp"], L.rms_norm(x, p["ln2"]), cfg.act)
+def _apply_mlp(p, cfg: ModelConfig, x: torch.Tensor):
+    """The residual MLP (transformer.py:152-160): (x, dropped fraction) — a
+    0-d tensor for a MoE layer, 0.0 for a dense one."""
+    if "mlp" not in p:
+        return x, 0.0
+    h = L.rms_norm(x, p["ln2"])
+    if isinstance(p["mlp"], moe_lib.MoEParams):
+        out, dropped = moe_lib.moe_layer(p["mlp"], cfg.moe, h, cfg.act)
+        return x + out, dropped
+    return x + L.mlp(p["mlp"], h, cfg.act), 0.0
 
 
 def _table(params) -> torch.Tensor:
@@ -222,7 +242,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state,
             y, cache = _mla_decode(p["mixer"], cfg, h, cache, pos, active)
         else:
             y, cache = _attn_decode(p["mixer"], cfg, kind, h, cache, pos, active)
-        x_t = _apply_mlp(p, cfg, x_t + y)
+        x_t, _ = _apply_mlp(p, cfg, x_t + y)
         new_layers.append(cache)
     return _logits(params, x_t), {**state, "layers": new_layers}
 
@@ -236,14 +256,17 @@ def _attention_train(p, cfg: ModelConfig, kind: str, h: torch.Tensor,
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor):
     """Training forward (transformer.py:208): tokens [B, S] -> (logits
-    [B, S, V] f32, the MoE auxiliary loss, 0.0 for these dense models)."""
+    [B, S, V] f32, the MoE auxiliary: the dropped fractions summed over the
+    layers, 0.0 for a dense model)."""
     _check_ported(cfg)
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    aux = 0.0
     for p, kind in zip(params["layers"], cfg.layer_kinds):
         x = x + _attention_train(p, cfg, kind, L.rms_norm(x, p["ln1"]), positions)
-        x = _apply_mlp(p, cfg, x)
-    return L.unembed(_table(params), L.rms_norm(x, params["ln_f"])), 0.0
+        x, dropped = _apply_mlp(p, cfg, x)
+        aux = aux + dropped
+    return L.unembed(_table(params), L.rms_norm(x, params["ln_f"])), aux
 
 
 def _prefill_layer(p, cfg: ModelConfig, kind: str, x: torch.Tensor, cache,
@@ -263,7 +286,7 @@ def _prefill_layer(p, cfg: ModelConfig, kind: str, x: torch.Tensor, cache,
         o = L.flash_sdpa(q, k, v, causal=True, window=acfg.window)
         cache = gqa_prefill(cache, _cache_cfg(cfg, kind), k, v)
         x = x + torch.einsum("bshk,hkd->bsd", o, p["mixer"].wo)
-    return _apply_mlp(p, cfg, x), cache
+    return _apply_mlp(p, cfg, x)[0], cache
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state):
@@ -305,7 +328,7 @@ def _chunked_prefill_mla_layer(p, cfg: ModelConfig, x: torch.Tensor, pool,
         mla_lib.absorb_q(m, q_c), q_r, pool, c_kv, k_r, chunk_start, valid,
         softmax_scale=mcfg.softmax_scale, use_kernel=cfg.use_kernels)
     x = x + mla_lib.output_proj(m, o_lat.to(x.dtype))
-    return _apply_mlp(p, cfg, x), pool
+    return _apply_mlp(p, cfg, x)[0], pool
 
 
 def chunked_prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state,
@@ -349,7 +372,7 @@ def _verify_mla_layer(p, cfg: ModelConfig, x: torch.Tensor, pool, start: torch.T
     query = _prepare_query(mla_lib.absorb_q(m, q_c), q_r, ccfg, backend)
     o_lat = backend.decode(query, pool, _backend_cfg(cfg, mcfg, ccfg))   # [B, K, H, d_c]
     x = x + mla_lib.output_proj(m, o_lat.to(x.dtype))
-    return _apply_mlp(p, cfg, x), pool
+    return _apply_mlp(p, cfg, x)[0], pool
 
 
 def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, state,

@@ -110,7 +110,9 @@ def check_teacher_forced(arch, S, bias_scale=0.0):
         np.testing.assert_allclose(lg[0].numpy(), full[0, t].numpy(), rtol=5e-2, atol=5e-2)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2.5-3b", "gemma3-27b", "mla-7b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2.5-3b", "gemma3-27b", "mla-7b",
+                                  "granite-3-2b", "qwen3-moe-30b-a3b", "mixtral-8x7b",
+                                  "deepseek-v3-mla"])
 def test_config_fields_equal_reference(arch):
     fields = [f.name for f in dataclasses.fields(t_config(arch))]
     for jc, tc in ((j_config(arch), t_config(arch)), (j_smoke(arch), t_smoke(arch))):
@@ -128,7 +130,9 @@ def test_config_fields_equal_reference(arch):
 def test_arch_ids_in_reference_order():
     from repro.configs import ARCH_IDS as J_IDS
     assert ARCH_IDS == [a for a in J_IDS if a in ARCH_IDS]
-    assert set(ARCH_IDS) == {"llama3.2-3b", "gemma3-27b", "qwen2.5-3b", "mla-7b"}
+    assert set(ARCH_IDS) == {"llama3.2-3b", "gemma3-27b", "qwen2.5-3b", "granite-3-2b",
+                             "qwen3-moe-30b-a3b", "mixtral-8x7b", "deepseek-v3-mla",
+                             "mla-7b"}
 
 
 @pytest.mark.parametrize("fmt", ["fp8_e4m3", "int8", "none"])

@@ -152,7 +152,7 @@ def test_config_copy_and_unported_paths():
                                                      kv_sink_tokens=3), 1, 16, device="cpu")
     assert isinstance(paged["layers"][0], tkv.PagedMLAPool)
     with pytest.raises(ValueError, match="not ported"):
-        get_config("deepseek-v3-mla")
+        get_config("xlstm-1.3b")
     # the engine's flags whose modules are not ported yet exit at parse time
     for flags in (["--restartable"], ["--trace-out", "t.json"],
                   ["--host-tier-pages", "2", "--prefix-cache-pages", "2"]):

@@ -325,6 +325,77 @@ def test_engine_speculative_greedy_matches_jax(model):
     assert t0[0] == t[0]
 
 
+def _storm_run(model, prompts, gen, spec):
+    """tests/test_serving.py:605's engine: 2 slots of up to 3 pages over a
+    pool of 5 usable pages, prefix sharing on. Returns the results, the
+    prompts ``alloc_prompt`` registered, the proposer states right after
+    each requeue, and the engine."""
+    _, tcfg, _, tparams = model
+    eng = tengine.ServingEngine(tcfg, tparams, tengine.EngineConfig(
+        max_batch=2, max_pages_per_seq=3, n_pages=6, prefix_sharing=True,
+        spec_draft_len=spec), device="cpu")
+    seen, after_requeue = [], []
+    alloc, requeue = eng.allocator.alloc_prompt, eng._requeue
+
+    def spy_alloc(prompt):
+        seen.append(np.asarray(prompt).copy())
+        return alloc(prompt)
+
+    def spy_requeue(req):
+        requeue(req)
+        after_requeue.append((req.rid, eng.proposer.export_state()
+                              if eng.proposer is not None else {}))
+
+    eng.allocator.alloc_prompt = spy_alloc
+    eng._requeue = spy_requeue
+    res = eng.run([tsched.Request(rid=i, prompt=p, max_new=gen, arrival=0.0)
+                   for i, p in enumerate(prompts)])
+    return res, seen, after_requeue, eng
+
+
+@pytest.mark.parametrize("gen,spec_evicts", [(14, False), (20, True)])
+def test_engine_spec_eviction_storm_never_registers_draft_bytes(model, gen, spec_evicts):
+    """tests/test_serving.py:605's workload (2 random prompts of 20 tokens
+    from PRNGKey(13) and one repetitive one), held to that test's own
+    assertions: only prompt + committed tokens are ever registered with the
+    allocator (never a rejected draft byte), the proposer's state for a
+    request is gone once it is requeued and nothing lingers after the drain,
+    every request completes with its full count, token-identical to the
+    non-speculative engine under the same pressure, and the drain is clean.
+
+    At the reference test's 14 new tokens its first assertion fails in both
+    packages alike: under speculation the first request's accepted drafts
+    finish it before the second needs a third page, so that run does not
+    evict (the non-speculative one does). At 20 new tokens both runs evict
+    mid-speculation, and every assertion holds."""
+    jcfg = model[0]
+    rand = np.asarray(jax.random.randint(jax.random.PRNGKey(13), (2, 20), 0,
+                                         jcfg.vocab_size, jax.numpy.int32))
+    prompts = list(rand) + [np.asarray(([5, 9, 2, 7] * 20)[:20], np.int32)]
+    runs = {}
+    for spec in (3, 0):
+        res, seen, after_requeue, eng = _storm_run(model, prompts, gen, spec)
+        assert eng.evictions > 0 if (spec_evicts or not spec) else eng.evictions == 0
+        assert [r.status for r in res] == ["done"] * len(prompts)
+        assert all(len(r.tokens) == gen for r in res)
+        m = eng.metrics()
+        assert m["pages"]["free"] == m["pages"]["capacity"]
+        final = {r.rid: np.concatenate([prompts[r.rid], np.asarray(r.tokens, np.int32)])
+                 for r in res}
+        for reg in seen:
+            assert any(len(reg) <= len(f) and np.array_equal(reg, f[:len(reg)])
+                       for f in final.values()), "alloc_prompt saw bytes outside a " \
+                                                  "committed stream"
+        assert len(after_requeue) == m["requeues"] == eng.evictions
+        for rid, state in after_requeue:
+            assert str(rid) not in state
+        if spec:
+            assert eng.proposer.export_state() == {}
+            assert m["speculative"]["accepted_tokens"] > 0
+        runs[spec] = {r.rid: r.tokens for r in res}
+    assert runs[3] == runs[0]
+
+
 # ---------------------------------------------------------------------------
 # the port's own contracts
 # ---------------------------------------------------------------------------
