@@ -33,7 +33,13 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                contiguous and paged caches, FMA and AMLA, kv_splits 0 and 4, a
                sink-guarded run: kernel backend against the reference backend,
                and contiguous against paged greedy tokens; each run one decode
-               launch per layer and step (C and #4 folded);
+               launch per layer and step (C and #4 folded); then
+               ``launch.serve.generate_fused`` (one decode step captured once
+               as a CUDA graph and replayed per token) on paged kv0, paged kv4
+               FMA and AMLA and contiguous kv0: the step loop's tokens, every
+               step's logits bitwise equal to the step loop's, the plain
+               backend's gates, and one decode launch per layer and step
+               (eager plus captured times replays);
   5. engine  — ``repro_torch.serving.ServingEngine`` on full mla-7b, kernel
                backend, over the shared paged pool: E1 monolithic admission
                with staggered arrivals and a shared prefix through
@@ -47,13 +53,18 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                Every run: fault counters 0, no leaked page;
   6. counts  — the launch counters, set to 0 just before and read just after
                each main path (phase 3's kernel steps, phase 4's and phase 5's
-               kernel runs): every kernel of the paths launched at least once
+               kernel and fused runs; a launch recorded into a CUDA graph
+               counts once per replay): every kernel of the paths launched at
+               least once
                (C and #4 run folded there, so only phase 2 launches them
                alone; D alone only in phase 3's layer API);
   7. profile — one decode step of the serving run under torch.profiler (paged
                at kv_splits 0 and 4, FMA, and at 4 under AMLA; contiguous at
-               0), one chunked-prefill step and one verify step: host wall,
-               device kernel time, the device's idle share, top kernels;
+               0), run eagerly (the step loop) and as the captured graph's
+               replay (the fused loop, ``fused``) on one state, one
+               chunked-prefill step and one verify step: host wall, device
+               kernel time, the device's idle share, top kernels, and the
+               capture's seconds;
   8. gqa     — the dense GQA family, after mla-7b's weights are freed: the FP8
                GQA decode kernel (#7) against its plain version at llama3.2-3b's
                serving shape (fp8, int8, none), qwen2.5-3b's heads, gemma3-27b's
@@ -68,7 +79,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                width cut to one 6-layer superblock (batch 2, prompt 1,200 past
                its 1,024-token window, gen 16, fp8), kernel backend against the
                reference backend, #7's launches exactly one per layer and decode
-               step; one llama decode step under torch.profiler. #7 is also
+               step; llama3.2-3b fp8 also through ``generate_fused`` (the gates
+               of phase 4); one llama decode step under torch.profiler, eager
+               and replayed. #7 is also
                held at granite-3-2b's d_head 64 (serving shape and ~32k), and
                ``serve.generate`` runs on full granite-3-2b (40 layers) and
                on one full-width layer of mixtral-8x7b and of
@@ -76,13 +89,17 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   9. deepseek — deepseek-v3-mla at full width (128 heads, q-LoRA, 256
                experts top-8 + 1 shared) cut to one layer, after every other
                model is freed: ``serve.generate`` contiguous kv0, paged kv0,
-               paged kv4 FMA and AMLA (the gates of phase 4), the engine with
+               paged kv4 FMA and AMLA (the gates of phase 4), ``generate_fused``
+               on paged and contiguous kv0, both loops again at batch 64,
+               prompt 128 (two rows per expert in the decode MoE calls), held
+               to the plain backend, the engine with
                chunked prefill and speculative decoding held to the plain
                backend forced onto its tokens (its agreement with
                ``generate`` reported: MoE capacity drops differ between the
                engine's and ``generate``'s batches, in the reference too), K1
                and K2 once per layer and step, and its decode step under
-               torch.profiler beside the expert weights' byte bound.
+               torch.profiler, eager and replayed, beside the expert weights'
+               byte bound.
 
 Phase 2 also holds the fused fetch-dequant kernel (#11 paged, #10 its
 contiguous mode) bitwise against its plain version at ~32k tokens and at the
@@ -978,6 +995,9 @@ SERVE_RUNS = [  # (paged, kv_splits, rescale, sink_tokens)
     (False, 0, "fma", 0), (False, 4, "fma", 0), (False, 4, "amla", 0), (False, 0, "fma", 4),
     (False, 0, "amla", 0), (True, 0, "fma", 0), (True, 4, "fma", 0), (True, 0, "amla", 0),
     (True, 4, "amla", 0)]
+# the serve runs repeated through serve.generate_fused (phases 4 and 9)
+FUSED_RUNS = [(True, 0, "fma", 0), (True, 4, "fma", 0), (True, 4, "amla", 0),
+              (False, 0, "fma", 0)]
 
 
 def init_full(arch, layers=0):
@@ -1007,10 +1027,92 @@ def init_full(arch, layers=0):
 
 def phase_serve():
     """Full mla-7b through serve.generate: kernel backend vs reference, both
-    cache layouts; the kernel runs are this path's counted run."""
+    cache layouts; then serve.generate_fused on ``FUSED_RUNS`` against the
+    step loop's kernel runs. The kernel runs and the fused runs are this
+    path's counted runs."""
     base, params, prompts = init_full("mla-7b")
-    launches, kern = serve_runs(base, params, prompts, SERVE_RUNS)
+    launches, kern, refs = serve_runs(base, params, prompts, SERVE_RUNS)
+    for run in FUSED_RUNS:
+        _add(launches, fused_gate(f"mla-7b {run}", serve_cfg(base, run, "kernel"), params,
+                                  prompts, kern[run], refs[run], decode_kernel(run)))
     return launches, base, params, prompts, kern[(True, 0, "fma", 0)][1]
+
+
+def serve_cfg(base, run, backend):
+    """``base`` on a serve run (paged, kv_splits, rescale, sink_tokens) and
+    backend."""
+    paged, splits, rescale, sink = run
+    return dataclasses.replace(base, kv_paged=paged, kv_splits=splits, kv_rescale=rescale,
+                               kv_sink_tokens=sink, decode_backend=backend,
+                               use_kernels=backend == "kernel")
+
+
+def decode_kernel(run) -> str:
+    """The one attention launch of an MLA decode step on a serve run:
+    Fused-Q-Quant runs in the decode kernel's prologue, the combine (C or
+    #4) in its epilogue; kv_splits 0 plans one split at this capacity (the
+    single pass)."""
+    paged, splits, rescale, _ = run
+    return (("paged_" if paged else "") + ("splitkv_decode" if splits else
+                                           "single_pass_decode")
+            + ("_amla" if rescale == "amla" else ""))
+
+
+def _add(total: dict, part: dict) -> None:
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+
+
+def fused_gate(lbl, cfg, params, prompts, loop, plain, kernel, gen_steps=16) -> dict:
+    """``serve.generate_fused`` on ``cfg`` against ``generate``'s kernel run
+    ``loop`` and its plain-backend run ``plain`` (each (tokens, tok/s,
+    logits)) on the same weights and prompts: finite logits; the step
+    loop's tokens; every step's logits bitwise equal to the step loop's
+    (else the largest difference is reported, and fails past the serve
+    gate's 1e-2 of the largest logit); against the plain backend the serve
+    gates (prefill tokens equal, first decode step within 1e-2); and
+    ``kernel`` launched once per layer and decode step and nothing else (D,
+    C and #4 stay folded), counted as the launches made eagerly (the first
+    decode step) plus those recorded into the graph times its replays. A
+    counted main path. Returns its launches."""
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve
+    torch.cuda.synchronize()
+    _lib.reset_launches()                       # a counted fused run starts here
+    stats: dict = {}
+    toks, tps, logits = serve.generate_fused(cfg, params, prompts, gen_steps,
+                                             return_logits=True, stats=stats)
+    torch.cuda.synchronize()
+    eager, captured = dict(_lib.LAUNCHES), dict(_lib.CAPTURED)   # ... and ends here
+    replays = stats["replays"]
+    launches = {k: eager.get(k, 0) + captured.get(k, 0) * replays for k in eager | captured}
+    want = {kernel: cfg.n_layers * (gen_steps - 1)}
+    if replays != gen_steps - 2 or captured != {kernel: cfg.n_layers} or launches != want:
+        raise AssertionError(f"fused {lbl}: launches {eager} + {captured} x {replays} replays "
+                             f"!= {want}")
+    l_toks, l_tps, l_logits = loop
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"fused {lbl}: non-finite logits")
+    if not torch.equal(toks, l_toks):
+        raise AssertionError(f"fused {lbl}: tokens differ from the step loop's")
+    bitwise = torch.equal(logits, l_logits)
+    rel = float((logits - l_logits).abs().max() / l_logits.abs().max())
+    if rel > 1e-2:
+        raise AssertionError(f"fused {lbl}: logits rel diff {rel} from the step loop's")
+    first = float((logits[:, 1] - plain[2][:, 1]).abs().max() / plain[2][:, 1].abs().max())
+    if first > 1e-2 or not torch.equal(toks[:, 0], plain[0][:, 0]):
+        raise AssertionError(f"fused {lbl}: first-step logits rel err {first} against the "
+                             "plain backend, or other prefill tokens")
+    emit(phase="fused", run=lbl, layers=cfg.n_layers, batch=prompts.shape[0],
+         prompt=prompts.shape[1], gen=gen_steps, tokens_equal_step_loop=True,
+         logits_bitwise_step_loop=bitwise, max_logit_rel_diff_step_loop=rel,
+         first_step_logits_rel_err_vs_plain=first,
+         greedy_agreement_vs_plain=float((toks == plain[0]).float().mean()),
+         tok_per_s=tps, step_loop_tok_per_s=l_tps, capture_s=stats["capture_s"],
+         decode_s=stats["decode_s"], replays=replays, launches_eager=eager,
+         launches_captured=captured, launches=launches)
+    return launches
 
 
 def serve_runs(base, params, prompts, runs):
@@ -1019,37 +1121,25 @@ def serve_runs(base, params, prompts, runs):
     finite logits, equal prefill tokens, the first decode step within 1e-2 of
     the largest logit, one attention launch per layer and decode step, and
     each contiguous run's paged twin bit-identical. The kernel runs are the
-    counted path. Returns (launches, the kernel runs' outputs)."""
+    counted path. Returns (launches, the kernel runs' outputs, the plain
+    runs' outputs)."""
     import torch
     from repro_torch.kernels import _lib
     from repro_torch.launch import serve
 
-    def cfg_of(run, backend):
-        paged, splits, rescale, sink = run
-        return dataclasses.replace(base, kv_paged=paged, kv_splits=splits, kv_rescale=rescale,
-                                   kv_sink_tokens=sink, decode_backend=backend,
-                                   use_kernels=backend == "kernel")
-
-    refs = {run: serve.generate(cfg_of(run, "ref"), params, prompts, 16, return_logits=True)
+    refs = {run: serve.generate(serve_cfg(base, run, "ref"), params, prompts, 16,
+                                return_logits=True)
             for run in runs}
     kern, run_launches, launches = {}, {}, {}
     for run in runs:
         torch.cuda.synchronize()
         _lib.reset_launches()                 # a counted serve run starts here
         with _CountDecodeSteps() as steps:
-            kern[run] = serve.generate(cfg_of(run, "kernel"), params, prompts, 16,
+            kern[run] = serve.generate(serve_cfg(base, run, "kernel"), params, prompts, 16,
                                        return_logits=True)
         torch.cuda.synchronize()
         got = run_launches[run] = dict(_lib.LAUNCHES)   # ... and ends here
-        # one attention launch per layer and decode step: Fused-Q-Quant runs
-        # in the decode kernel's prologue, the combine (C or #4) in its
-        # epilogue; kv_splits 0 plans one split at this capacity (the single
-        # pass)
-        paged, splits, rescale, _ = run
-        name = (("paged_" if paged else "") + ("splitkv_decode" if splits else
-                                               "single_pass_decode")
-                + ("_amla" if rescale == "amla" else ""))
-        want = {name: base.n_layers * steps.n}
+        want = {decode_kernel(run): base.n_layers * steps.n}
         if got != want:
             raise AssertionError(f"serve {run}: launches {got} != {want} for {steps.n} decode "
                                  f"steps")
@@ -1090,53 +1180,58 @@ def serve_runs(base, params, prompts, runs):
                                  f"and paged runs differ (max logit diff {diff})")
         emit(phase="serve", arch=base.name, check="contiguous vs paged", kv_splits=splits,
              rescale=rescale, identical_tokens=True, max_logit_diff=diff)
-    return launches, kern
+    return launches, kern, refs
 
 
 PROFILE_RUNS = ((True, 0, "fma"), (True, 4, "fma"), (True, 4, "amla"), (False, 0, "fma"))
 
 
-def phase_profile(base, params, prompts, runs=PROFILE_RUNS, **extra):
-    """Where one decode step's time goes (kernel backend, batch 4, context
-    ~0.5k) on each run (paged, kv_splits, rescale): host wall per step,
-    device kernel time per step from torch.profiler, the device's idle
-    share, and the heaviest kernels (``extra``: more fields for the
-    line)."""
+def phase_profile(base, params, prompts, runs=PROFILE_RUNS, match=None, **extra):
+    """Where one decode step's time goes (kernel backend, context
+    ``prompts``' length) on each run (paged, kv_splits, rescale), in the step
+    loop and in the fused loop, on one state: ``steps.DecodeGraph.step`` run
+    eagerly (the step loop's step: decode, pick, bookkeeping), then captured
+    as a CUDA graph and replayed (``fused``). Each: host wall per step,
+    device ms per step under torch.profiler (which lists each kernel node of
+    a replayed graph), the device's idle share, aten ops per step, the
+    heaviest kernels (``match``: also the device ms of the kernels whose name
+    holds it); the capture's host seconds and the replays' ms on CUDA events
+    (``extra``: more fields for the line)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import steps as ST
     from repro_torch.models import transformer as T
+    B, S = prompts.shape
     for paged, splits, rescale in runs:
         cfg = dataclasses.replace(base, kv_paged=paged, kv_splits=splits, kv_rescale=rescale,
                                   decode_backend="kernel", use_kernels=True)
-        state = T.init_decode_state(cfg, 4, 640, device="cuda")
+        state = T.init_decode_state(cfg, B, S + 64, device="cuda")
         logits, state = T.prefill(params, cfg, prompts, state)
-        tok = logits.argmax(-1).to(torch.int32)
-
-        def steps(first, n=3):
-            nonlocal state
-            for i in range(first, first + n):
-                pos = torch.full((4,), 512 + i, dtype=torch.int32, device="cuda")
-                _, state = T.decode_step(params, cfg, tok, state, pos)
-            torch.cuda.synchronize()
-
-        steps(0)
+        loop = ST.DecodeGraph(cfg, params, logits.argmax(-1).to(torch.int32), state,
+                              torch.full((B,), S, dtype=torch.int32, device="cuda"))
+        eager = _profile(loop.step, match=match)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        steps(3)
-        wall = (time.perf_counter() - t0) / 3 * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            steps(6)
-        rows = prof.key_averages()
-        # device rows are the kernels and copies themselves, not the aten ops
-        # that launched them (those carry the same time again)
-        dev = sorted(((r.key, r.self_device_time_total / 3e3, r.count / 3) for r in rows
-                      if r.self_device_time_total > 0 and not r.key.startswith("aten::")),
-                     key=lambda x: -x[1])
-        busy = sum(ms for _, ms, _ in dev)
-        emit(phase="profile", arch=base.name, layout="paged" if paged else "contiguous",
-             kv_splits=splits, rescale=rescale, wall_ms_per_step=wall, device_ms_per_step=busy,
-             device_idle_share=1.0 - busy / wall,
-             aten_ops_per_step=sum(r.count for r in rows if r.key.startswith("aten::")) / 3,
-             top=[(k[:80], round(ms, 4), n) for k, ms, n in dev[:8]], **extra)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        loop.capture(side)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        fused = _profile(loop.replay, match=match)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            loop.replay()
+        end.record()
+        torch.cuda.synchronize()
+        if not bool(loop.ok):
+            raise AssertionError(f"profile {base.name} {paged, splits, rescale}: non-finite "
+                                 "logits")
+        emit(phase="profile", step="decode", arch=base.name, layers=base.n_layers, batch=B,
+             context=S, layout="paged" if paged else "contiguous", kv_splits=splits,
+             rescale=rescale, **eager, fused=fused, capture_s=capture_s,
+             replay_event_ms=start.elapsed_time(end) / 5, **extra)
+        del loop, state
 
 
 def engine_kit(base, params):
@@ -1707,12 +1802,14 @@ class _CountDecodeSteps:
         self.T.decode_step = self.orig
 
 
-def phase_gqa_serve(arch, layers, batch, prompt_len, gen_steps, fmts):
+def phase_gqa_serve(arch, layers, batch, prompt_len, gen_steps, fmts, fused=False):
     """``serve.generate`` on one GQA model at full width (depth cut to
     ``layers`` when non-zero), weights from a seeded generator: the kernel
-    backend against the reference backend per format. The kernel runs are
-    this path's counted run: #7 launches exactly once per layer and decode
-    step. Returns (launches, cfg, params, prompts)."""
+    backend against the reference backend per format; with ``fused``, the
+    fp8 kernel run repeated through ``serve.generate_fused`` (``fused_gate``).
+    The kernel runs and the fused run are this path's counted runs: #7
+    launches exactly once per layer and decode step. Returns (launches, cfg,
+    params, prompts)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
@@ -1758,8 +1855,11 @@ def phase_gqa_serve(arch, layers, batch, prompt_len, gen_steps, fmts):
         if run_launches.get("gqa_decode", 0) != want:
             raise AssertionError(f"{lbl}: #7 launches {run_launches} != {base.n_layers} "
                                  f"layers x {steps.n} decode steps")
-        for k, v in run_launches.items():
-            launches[k] = launches.get(k, 0) + v
+        _add(launches, run_launches)
+        if fused and fmt == "fp8_e4m3":
+            _add(launches, fused_gate(f"{arch} fmt={fmt}", cfg_of("kernel"), params, prompts,
+                                      (toks, tps, logits), (r_toks, r_tps, r_logits),
+                                      "gqa_decode", gen_steps))
         emit(phase="gqa_serve", arch=arch, layers=base.n_layers, batch=batch,
              prompt=prompt_len, gen=gen_steps, fmt=fmt, window=base.window,
              decode_steps=steps.n, launches=run_launches, tok_per_s=tps,
@@ -1769,33 +1869,14 @@ def phase_gqa_serve(arch, layers, batch, prompt_len, gen_steps, fmts):
     return launches, base, params, prompts
 
 
-def phase_gqa_profile(base, params, prompts):
-    """Where one llama3.2-3b decode step's time goes (kernel backend, fp8,
-    batch 4, context ~0.5k): host wall, device ms, idle share, the heaviest
-    kernels and #7's device ms per step."""
-    import torch
-    from repro_torch.models import transformer as T
-    cfg = dataclasses.replace(base, decode_backend="kernel", use_kernels=True)
-    B, S = prompts.shape
-    state = T.init_decode_state(cfg, B, S + 128, device="cuda")
-    logits, state = T.prefill(params, cfg, prompts, state)
-    tok = logits.argmax(-1).to(torch.int32)
-    step = [0]
-
-    def one():
-        nonlocal state
-        pos = torch.full((B,), S + step[0], dtype=torch.int32, device="cuda")
-        step[0] += 1
-        _, state = T.decode_step(params, cfg, tok, state, pos)
-
-    emit(phase="profile", step="decode", arch=base.name, layers=base.n_layers, batch=B,
-         context=S, **_profile(one, match="gqa_decode_kernel"))
-
-
 # phase 9: deepseek-v3-mla, full width, one layer
 DS_HEADS = 128
 DS_RUNS = [  # (paged, kv_splits, rescale, sink_tokens)
     (False, 0, "fma", 0), (True, 0, "fma", 0), (True, 4, "fma", 0), (True, 4, "amla", 0)]
+DS_FUSED = [(True, 0, "fma", 0), (False, 0, "fma", 0)]
+# a decode batch whose MoE calls take C = max(1, int(64 * 8 * 1.25 / 256)) = 2
+# rows per expert (prompt 128 keeps its prefill small)
+DS_WIDE = (64, 128)
 DS_ENGINE = ["--batch", "4", "--max-batch", "2", "--prompt-len", "512", "--prefill-chunk",
              "256", "--prefill-budget", "512", "--spec-draft", "4", "--gen", "16"]
 
@@ -1804,19 +1885,39 @@ def phase_deepseek():
     """deepseek-v3-mla at full width (d_model 7,168, 128 heads, q-LoRA 1,536,
     256 experts top-8 + 1 shared, vocab 129,280) cut to one layer (12.43 B
     parameters, ~50 GB in float32; two layers do not fit in 80 GB):
-    ``serve.generate`` on ``DS_RUNS`` (``serve_runs``' gates), then the
+    ``serve.generate`` on ``DS_RUNS`` (``serve_runs``' gates) and
+    ``serve.generate_fused`` on ``DS_FUSED`` (``fused_gate``), both again at
+    ``DS_WIDE`` (batch 64, where the decode MoE calls take two rows per
+    expert) on paged kv0, held to the plain backend; then the
     engine with chunked prefill and speculative decoding, held to the plain
     backend forced onto its tokens, K1 once per layer per chunk step and K2
     once per layer per verify step, its agreement with ``generate``
     reported, not gated: the expert capacity depends on how many tokens
     share a MoE call, so the engine's batches and ``generate``'s static
     batch drop different tokens, in the reference too. Then one decode
-    step under torch.profiler beside the expert weights' byte bound: the
+    step, eager and through the captured graph, under torch.profiler beside
+    the expert weights' byte bound: the
     MoE computes every expert of its [E, C, d] buffer, so a step reads all
     routed expert weights. Frees the model. Returns the launches."""
     import torch
     base, params, prompts = init_full("deepseek-v3-mla", layers=1)
-    launches, _ = serve_runs(base, params, prompts, DS_RUNS)
+    launches, kern, refs = serve_runs(base, params, prompts, DS_RUNS)
+    for run in DS_FUSED:
+        _add(launches, fused_gate(f"deepseek {run}", serve_cfg(base, run, "kernel"), params,
+                                  prompts, kern[run], refs[run], decode_kernel(run)))
+    batch, plen = DS_WIDE
+    wide = torch.randint(0, base.vocab_size, (batch, plen),
+                         generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    m_cfg = base.moe
+    cap = max(1, int(batch * m_cfg.top_k * m_cfg.capacity_factor / m_cfg.n_experts))
+    run = DS_FUSED[0]
+    got, kern, refs = serve_runs(base, params, wide, [run])
+    _add(launches, got)
+    _add(launches, fused_gate(f"deepseek {run} batch {batch}", serve_cfg(base, run, "kernel"),
+                              params, wide, kern[run], refs[run], decode_kernel(run)))
+    emit(phase="deepseek_wide", batch=batch, prompt=plen, decode_capacity_per_expert=cap,
+         held_to_plain=["generate", "generate_fused"])
+    del kern, refs, wide
     kit = engine_kit(base, params)
     args = kit.parse(DS_ENGINE)
     eng, res, wall, e_prompts = kit.run(kit.kcfg, args)
@@ -1839,7 +1940,6 @@ def phase_deepseek():
          launches=eng.launches)
     for k, v in kit.launches.items():
         launches[k] = launches.get(k, 0) + v
-    m_cfg = base.moe
     expert_bytes = 4 * base.n_layers * m_cfg.n_experts * 3 * base.d_model * m_cfg.d_ff_expert
     phase_profile(base, params, prompts, runs=((True, 0, "fma"), (False, 0, "fma")),
                   expert_weight_bytes=expert_bytes,
@@ -2006,7 +2106,8 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the main paths: {missing}")
 
-    # 7. where a step's time goes (after the counted main paths)
+    # 7. where a step's time goes (after the counted main paths), in the
+    # step loop and in the fused loop
     phase_profile(base, params, prompts)
     phase_profile_engine(gen, base, params, prompts)
     del params                                  # free mla-7b (22 GiB) for the next models
@@ -2020,11 +2121,13 @@ def main() -> int:
     gqa_checks(gen, records)
     gqa_launches = {}
     for arch, layers, batch, plen, gsteps, fmts in GQA_SERVE:
+        llama = arch == "llama3.2-3b"
         got, g_base, g_params, g_prompts = phase_gqa_serve(arch, layers, batch, plen, gsteps,
-                                                           fmts)
+                                                           fmts, fused=llama)
         gqa_launches[arch] = got
-        if arch == "llama3.2-3b":
-            phase_gqa_profile(g_base, g_params, g_prompts)
+        if llama:
+            phase_profile(g_base, g_params, g_prompts, runs=((False, 0, "fma"),),
+                          match="gqa_decode_kernel")
         del g_params
         gc.collect()
         torch.cuda.empty_cache()

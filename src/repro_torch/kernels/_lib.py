@@ -11,7 +11,10 @@ plain PyTorch versions.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made; a wrapper
 adds one where it launches its kernel and nowhere else (CPU calls that take
-the plain version do not count).
+the plain version do not count). A launch made while the current stream is
+being captured into a CUDA graph runs only when the graph is replayed, so it
+counts in ``CAPTURED`` instead: the kernels of a graph launch ``CAPTURED``
+times its replays.
 
 ``HeadTiles`` is the head-tile rule the decode wrappers share: of the widths
 a kernel is instantiated for, the widest whose grid covers the card's SMs.
@@ -42,6 +45,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: collections.Counter = collections.Counter()
+# kernel name -> launches recorded into CUDA graphs since the last reset
+CAPTURED: collections.Counter = collections.Counter()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -74,6 +79,7 @@ VARIANT_LOGS: dict = {}              # defines -> nvcc's messages of a variant's
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    CAPTURED.clear()
 
 
 def _nvcc() -> str:
@@ -182,12 +188,13 @@ def using(handle: ctypes.CDLL):
 
 def launch(kernel: str, fn_name: str, *args) -> None:
     """Call one C entry point on the current stream; raise on a non-zero
-    ``cudaError_t`` and count the launch under ``kernel``."""
+    ``cudaError_t`` and count the launch under ``kernel`` (in ``CAPTURED``
+    when the stream is capturing a CUDA graph)."""
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(lib(), fn_name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"repro_torch: {fn_name} failed with cudaError_t {rc}")
-    LAUNCHES[kernel] += 1
+    (CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES)[kernel] += 1
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,8 @@
 """Serving launcher of the port: batched prefill + per-step decode against the
 FP8 latent cache — the contiguous per-slot cache by default, the paged pool
-with ``--paged`` — and, with ``--engine``, the continuous-batching serving
+with ``--paged`` — with ``--fused``, the whole decode as one decode step
+captured once as a CUDA graph and replayed per token (``generate_fused``;
+eager on the CPU), and, with ``--engine``, the continuous-batching serving
 engine over the shared paged pool (port of ``repro/launch/serve.py``).
 
 On the card, with the hand-written kernels:
@@ -9,7 +11,7 @@ On the card, with the hand-written kernels:
         --arch mla-7b --backend kernel --batch 4 --prompt-len 512 --gen 16
 
 (add ``--paged``, ``--kv-splits N``, ``--rescale amla``, ``--sink-tokens K`` or
-``--block-n N``; ``--arch deepseek-v3-mla`` serves the MLA MoE model with
+``--block-n N``; ``--fused`` for the captured loop; ``--arch deepseek-v3-mla`` serves the MLA MoE model with
 q-LoRA through the same MLA kernels; ``--arch llama3.2-3b``, ``qwen2.5-3b``,
 ``gemma3-27b``, ``granite-3-2b``, ``qwen3-moe-30b-a3b`` or ``mixtral-8x7b``
 serve the GQA family, dense and MoE, through the FP8 GQA decode kernel, where
@@ -30,10 +32,11 @@ decoding), gated against the static-batch ``generate`` oracle:
 on the CPU; ``--arch`` mla-7b or deepseek-v3-mla, the pure-MLA models). Under
 MoE the expert capacity depends on how many tokens share a call, so the
 engine's batches and ``generate``'s static batch can drop different tokens
-and the oracle gate can fail, as the reference's does on deepseek-v3-mla. ``--restartable``, ``--ckpt-dir``, ``--ckpt-every``,
-``--inject preempt:...``, ``--trace-out``, ``--trace-clock``,
-``--host-tier-pages`` and ``--quant-health-every`` need modules that are not
-ported yet and exit with a message, as ``--fused`` does.
+and the oracle gate can fail, as the reference's does on deepseek-v3-mla.
+``--engine --fused`` exits, as the reference's does. ``--restartable``,
+``--ckpt-dir``, ``--ckpt-every``, ``--inject preempt:...``, ``--trace-out``,
+``--trace-clock``, ``--host-tier-pages`` and ``--quant-health-every`` need
+modules that are not ported yet and exit with a message.
 """
 from __future__ import annotations
 
@@ -134,6 +137,51 @@ def generate(cfg, params, prompts: torch.Tensor, gen_steps: int, *,
     while len(outs) < gen_steps:    # EOS-stopped early: pad to [B, gen_steps]
         outs.append(torch.full((B,), eos_id, dtype=torch.int32, device=device))
     return finish(B * steps_run / max(dt, 1e-9) if steps_run else 0.0)
+
+
+def generate_fused(cfg, params, prompts: torch.Tensor, gen_steps: int, *,
+                   temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+                   eos_id: int | None = None, seed: int = 0, return_logits: bool = False,
+                   stats: dict | None = None):
+    """Prefill, then the whole decode as ``make_fused_decode``: on the card
+    one decode step captured once as a CUDA graph and replayed per token
+    (serve.py:121-174). Returns what ``generate`` returns: (tokens
+    [B, gen_steps], decode tok/s), plus the logits of every step
+    [B, gen_steps, V] when ``return_logits``.
+
+    Greedy runs give ``generate``'s tokens; sampling draws from one
+    ``torch.Generator`` seeded with ``seed`` in ``generate``'s order;
+    ``eos_id`` pins finished rows to ``eos_id`` and freezes their caches.
+    tok/s counts the steps after the first decode step over their wall (the
+    first step and the capture are timed apart, as ``stats["capture_s"]``,
+    as ``generate`` leaves out its warm-up step); ``stats`` (a dict)
+    receives ``make_fused_decode``'s."""
+    device = prompts.device
+    B, S = prompts.shape
+    prefill_fn = ST.make_prefill_step(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    state = T.init_decode_state(cfg, B, _decode_capacity(cfg, S, gen_steps), device=device)
+    logits, state = prefill_fn(params, prompts, state)
+    _check_finite(logits, "prefill")
+    tok = ST.sample_logits(logits, gen, temperature, top_k, top_p)
+    if gen_steps <= 1:
+        toks = tok[:, None][:, :gen_steps]
+        return (toks, 0.0, logits[:, None][:, :gen_steps]) if return_logits else (toks, 0.0)
+    fused_fn = ST.make_fused_decode(cfg, gen_steps - 1, temperature=temperature,
+                                    top_k=top_k, top_p=top_p, eos_id=eos_id,
+                                    return_logits=return_logits)
+    info: dict = {}
+    out = fused_fn(params, tok, state, torch.full((B,), S, dtype=torch.int32, device=device),
+                   generator=gen, stats=info)
+    _check_finite(out[2], "fused decode (any step)")
+    if stats is not None:
+        stats.update(info)
+    tps = B * info["steps_timed"] / max(info["decode_s"], 1e-9) if info["steps_timed"] else 0.0
+    toks = torch.cat([tok[:, None], out[0]], dim=1)
+    if return_logits:
+        return toks, tps, torch.cat([logits[:, None], out[3]], dim=1)
+    return toks, tps
 
 
 def _engine_prompts(cfg, args) -> list[np.ndarray]:
@@ -325,7 +373,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="seed of the weights, prompts and sampling")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    ap.add_argument("--fused", action="store_true", help="not ported yet")
+    ap.add_argument("--fused", action="store_true",
+                    help="generate_fused: one decode step captured once as a CUDA graph "
+                         "and replayed per token (eager on the CPU) instead of the "
+                         "per-step loop")
     ap.add_argument("--engine", action="store_true",
                     help="continuous-batching serving engine over one shared paged "
                          "pool (allocator with prefix sharing, FCFS slots, staggered "
@@ -381,8 +432,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.fused:
-        ap.error("--fused is not ported yet")
+    if args.engine and args.fused:
+        ap.error("--engine has no fused mode (it steps the decode loop "
+                 "per engine tick); drop --fused or --engine")
     unported = [f for f, v in (("--restartable", args.restartable),
                                ("--ckpt-dir", args.ckpt_dir),
                                ("--ckpt-every", args.ckpt_every),
@@ -419,14 +471,16 @@ def main(argv=None):
                             generator=gen, device=device, dtype=torch.int64)
     sample_kw = dict(temperature=args.temperature, top_k=args.top_k,
                      top_p=args.top_p, eos_id=args.eos_id, seed=args.seed)
-    toks, tps = generate(cfg, params, prompts, args.gen, **sample_kw)
+    gen_fn = generate_fused if args.fused else generate
+    toks, tps = gen_fn(cfg, params, prompts, args.gen, **sample_kw)
+    mode = "fused-graph" if args.fused else "step-loop"
     cache_kind = "paged" if args.paged else "contiguous"
     print(f"[serve] {cfg.name} fmt={args.fmt} backend={args.backend} "
-          f"rescale={args.rescale} (step-loop, {cache_kind} cache, {device}): "
+          f"rescale={args.rescale} ({mode}, {cache_kind} cache, {device}): "
           f"generated {tuple(toks.shape)} at {tps:.1f} tok/s (decode)")
     if args.fmt != "none":
         cfg_b = dataclasses.replace(cfg, kv_fmt="none")
-        toks_b, _ = generate(cfg_b, params, prompts, args.gen, **sample_kw)
+        toks_b, _ = gen_fn(cfg_b, params, prompts, args.gen, **sample_kw)
         agree = float(torch.mean((toks == toks_b).float()))
         print(f"[serve] token agreement vs BF16 pipeline: {agree * 100:.1f}%")
 

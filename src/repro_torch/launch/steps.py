@@ -1,12 +1,21 @@
-"""Prefill / decode / chunked-prefill / verify steps and sampling (port of
-the serving half of ``repro/launch/steps.py``)."""
+"""Prefill / decode / chunked-prefill / verify steps, sampling and the fused
+decode loop (port of the serving half of ``repro/launch/steps.py``).
+
+``make_fused_decode`` is the reference's one-dispatch decode (a ``lax.scan``
+over the steps with the caches donated): here ``DecodeGraph`` runs one decode
+step in place over static buffers, and on the card the loop runs that step
+once, captures it as a CUDA graph and replays the graph for every later
+token, with no host sync in between."""
 from __future__ import annotations
 
+import collections
 import dataclasses
+import time
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import _lib
 from repro_torch.models import transformer as T
 
 
@@ -105,11 +114,15 @@ def sample_logits(logits: torch.Tensor, generator: torch.Generator | None,
                   top_p: float = 0.0) -> torch.Tensor:
     """Next-token selection from [B, V] logits: ``temperature <= 0`` is greedy
     argmax (generator unused), otherwise a categorical draw from
-    ``masked_logits`` with ``generator``."""
+    ``masked_logits`` with ``generator``: the argmax of ``p / Exp(1)``, which
+    is how ``torch.multinomial`` draws one sample (the same draws from the
+    same generator), without its host-side check of ``p``, so it can run
+    inside a CUDA graph."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(masked_logits(logits, temperature, top_k, top_p), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / race, dim=-1).to(torch.int32)
 
 
 def apply_eos(tok: torch.Tensor, done: torch.Tensor, eos_id: int | None):
@@ -119,3 +132,173 @@ def apply_eos(tok: torch.Tensor, done: torch.Tensor, eos_id: int | None):
         return tok, done
     tok = torch.where(done, torch.full_like(tok, eos_id), tok)
     return tok, done | (tok == eos_id)
+
+
+def _copy_back(static, new, where: str = "state") -> None:
+    """Write a step's returned state ``new`` into the ``static`` one it was
+    given, leaf by leaf: a tensor leaf the step replaced (``seq_lens``, which
+    every append returns anew) is copied into the static tensor; one written
+    in place is left alone. A leaf whose shape, dtype or kind changed
+    raises."""
+    if isinstance(static, torch.Tensor):
+        if not isinstance(new, torch.Tensor) or new.shape != static.shape \
+                or new.dtype != static.dtype:
+            raise ValueError(f"{where}: a decode step changed {tuple(static.shape)} "
+                             f"{static.dtype} into {new!r:.80}")
+        if new.data_ptr() != static.data_ptr():
+            static.copy_(new)
+    elif isinstance(static, dict):
+        if static.keys() != new.keys():
+            raise ValueError(f"{where}: keys {sorted(static)} became {sorted(new)}")
+        for k in static:
+            _copy_back(static[k], new[k], f"{where}[{k!r}]")
+    elif isinstance(static, (list, tuple)):
+        if type(new) is not type(static) or len(new) != len(static):
+            raise ValueError(f"{where}: {type(static).__name__} of {len(static)} became "
+                             f"{type(new).__name__}")
+        names = getattr(static, "_fields", range(len(static)))
+        for name, a, b in zip(names, static, new):
+            _copy_back(a, b, f"{where}.{name}" if isinstance(name, str) else f"{where}[{name}]")
+    elif static is not new:
+        raise ValueError(f"{where}: {static!r} became {new!r:.80}")
+
+
+class DecodeGraph:
+    """One decode step of ``cfg`` over static buffers — the token ``tok``
+    [B] int32, the position ``pos`` [B], the finished mask ``done`` [B], the
+    all-finite flag ``ok`` and the decode ``state`` (prefill's, updated in
+    place) — with ``make_fused_decode``'s sampling and EOS rules.
+
+    ``step()`` runs it eagerly and returns its logits [B, V]; on the card,
+    after one ``step()`` has grown every buffer the step allocates outside
+    PyTorch's pool (the decode kernels' scratch), ``capture(stream)`` records
+    it into a CUDA graph (its kernel launches in ``graph_launches``) and
+    ``replay()`` runs the graph: the next step, one launch."""
+
+    def __init__(self, cfg: ModelConfig, params, token: torch.Tensor, state,
+                 start_pos: torch.Tensor, *, temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 0.0, eos_id: int | None = None,
+                 gate_finished: bool = True, generator: torch.Generator | None = None):
+        if temperature > 0.0 and generator is None:
+            raise ValueError("temperature > 0 needs a torch.Generator")
+        self.cfg, self.params, self.state = cfg, params, state
+        self.sample = dict(temperature=temperature, top_k=top_k, top_p=top_p)
+        self.generator = generator if temperature > 0.0 else None
+        self.eos_id = eos_id
+        self.gated = gate_finished and eos_id is not None
+        dev = token.device
+        self.tok = token.to(torch.int32).clone()
+        self.pos = start_pos.to(device=dev, dtype=torch.int32).clone()
+        # a row whose incoming token is already EOS is born finished
+        self.done = (self.tok == eos_id) if eos_id is not None \
+            else torch.zeros(self.tok.shape, dtype=torch.bool, device=dev)
+        self.ok = torch.ones((), dtype=torch.bool, device=dev)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.graph_launches: dict = {}
+        self._logits: torch.Tensor | None = None
+
+    def step(self) -> torch.Tensor:
+        logits, new = T.decode_step(self.params, self.cfg, self.tok, self.state, self.pos,
+                                    active=~self.done if self.gated else None)
+        self.ok.logical_and_(torch.all(torch.isfinite(logits)))
+        nxt, done = apply_eos(sample_logits(logits, self.generator, **self.sample),
+                              self.done, self.eos_id)
+        self.tok.copy_(nxt)
+        if done is not self.done:
+            self.done.copy_(done)
+        self.pos.add_(1)
+        _copy_back(self.state, new)
+        return logits
+
+    def capture(self, stream: torch.cuda.Stream | None = None) -> None:
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        before = collections.Counter(_lib.CAPTURED)
+        with torch.cuda.graph(graph, stream=stream):
+            self._logits = self.step()
+        self.graph_launches = dict(_lib.CAPTURED - before)
+        self.graph = graph
+
+    def replay(self) -> torch.Tensor:
+        """The next step through the captured graph; its logits [B, V] (the
+        graph's own buffer, rewritten by the next replay)."""
+        self.graph.replay()
+        return self._logits
+
+
+def make_fused_decode(cfg: ModelConfig, n_steps: int, *, temperature: float = 0.0,
+                      top_k: int = 0, top_p: float = 0.0, eos_id: int | None = None,
+                      gate_finished: bool = True, return_logits: bool = False):
+    """Multi-token decode with a static trip count (steps.py:188-262).
+
+    Returns fused(params, token [B], state, start_pos [B], generator=None,
+    stats=None) -> (tokens [B, n_steps] int32, state, ok) — plus every step's
+    logits [B, n_steps, V] when ``return_logits``. ``state`` is updated in
+    place (the reference donates it) and returned; ``ok`` is a 0-d bool
+    tensor, the AND of an all-finite check over every step's logits.
+
+    The loop never stops early and never reads ``done`` on the host. With
+    ``eos_id``, finished rows are pinned to ``eos_id``, and with
+    ``gate_finished`` they run ``decode_step(..., active=~done)``: their
+    ``seq_lens`` freeze. ``temperature > 0`` draws from ``generator`` (one
+    is required); ``temperature <= 0`` is greedy.
+
+    On CUDA tensors the first step runs eagerly on a side stream (it is real
+    work, and it grows every buffer a capture must not allocate), that step
+    is captured once as a CUDA graph, and the graph is replayed for steps
+    2..n; after each replay the host only enqueues the copies of the token
+    (and the logits) into their output slots, and it synchronizes once at
+    the end. A failed capture raises. On CPU tensors, which only a caller
+    can ask for, the same step runs eagerly n times.
+
+    ``stats`` (a dict) receives ``capture_s`` (the first step and the
+    capture, on the host clock), ``steps_timed`` and ``decode_s`` (the steps
+    after the first and their wall), ``replays`` and ``graph_launches`` (the
+    kernel launches recorded into the graph; they run at every replay)."""
+    def fused_decode(params, token, state, start_pos, generator=None, stats=None):
+        loop = DecodeGraph(cfg, params, token, state, start_pos, temperature=temperature,
+                           top_k=top_k, top_p=top_p, eos_id=eos_id,
+                           gate_finished=gate_finished, generator=generator)
+        dev = loop.tok.device
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {dev}")
+        B = loop.tok.shape[0]
+        toks = torch.empty((B, n_steps), dtype=torch.int32, device=dev)
+        all_logits = torch.empty((B, n_steps, cfg.vocab_size), dtype=torch.float32,
+                                 device=dev) if return_logits else None
+
+        def keep(i, logits):
+            toks[:, i].copy_(loop.tok)
+            if all_logits is not None:
+                all_logits[:, i].copy_(logits)
+
+        on_card = dev.type == "cuda"
+        info = dict(capture_s=0.0, steps_timed=max(n_steps - 1, 0), decode_s=0.0,
+                    replays=max(n_steps - 1, 0) if on_card else 0, graph_launches={})
+        if n_steps:
+            t0 = time.perf_counter()
+            if on_card:
+                side = torch.cuda.Stream(device=dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    keep(0, loop.step())
+                if n_steps > 1:
+                    loop.capture(side)
+                torch.cuda.current_stream(dev).wait_stream(side)
+                torch.cuda.synchronize(dev)
+            else:
+                keep(0, loop.step())
+            t1 = time.perf_counter()
+            for i in range(1, n_steps):
+                keep(i, loop.replay() if on_card else loop.step())
+            if on_card:
+                torch.cuda.synchronize(dev)
+            info.update(capture_s=t1 - t0, decode_s=time.perf_counter() - t1,
+                        graph_launches=loop.graph_launches)
+        if stats is not None:
+            stats.update(info)
+        out = (toks, loop.state, loop.ok)
+        return out + (all_logits,) if return_logits else out
+
+    return fused_decode

@@ -131,7 +131,7 @@ def test_eos_early_stop_pads(setup):
         assert all(t == eos for t in row[cut:])
 
 
-def test_config_copy_and_unported_paths():
+def test_config_copy_and_unported_paths(capsys):
     from repro.configs import get_config as j_get
     jc, tc = j_get("mla-7b"), get_config("mla-7b")
     assert jc.tie_embeddings                      # the port's unembedding is tied
@@ -158,8 +158,11 @@ def test_config_copy_and_unported_paths():
                   ["--host-tier-pages", "2", "--prefix-cache-pages", "2"]):
         with pytest.raises(SystemExit):
             tserve.main(["--smoke", "--engine", "--device", "cpu", *flags])
+    # --fused is ported (eager on the CPU); the engine has no fused mode
+    tserve.main(["--smoke", "--fused", "--device", "cpu", "--gen", "3"])
+    assert "fused-graph" in capsys.readouterr().out
     with pytest.raises(SystemExit):
-        tserve.main(["--smoke", "--fused", "--device", "cpu"])
+        tserve.main(["--smoke", "--engine", "--fused", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("kv_splits,sink_tokens,rescale", [
