@@ -49,7 +49,20 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                speculative decoding (the q_len > 1 split-KV kernel) against the
                non-speculative engine and the plain backend, and its AMLA mode
                against the non-speculative AMLA engine and the plain AMLA
-               backend.
+               backend. Then the engine's state off the card: E4 (three
+               requests sharing a 2-page prefix, arrivals 24 steps apart, chunk
+               128, a prefix cache of 1 page and a host tier of 8) against the
+               same run cold (tokens equal, at least one offload and one host
+               restore), with the tier's offload / upload microseconds per page
+               beside the page's bytes over the pinned copy rates measured in
+               the call; E4 restartable (through ``serve.run_restartable``,
+               preempted two steps after the first offload: the snapshot
+               carries the populated tier) and E5 (E1
+               through ``run_engine`` with ``--restartable --ckpt-every 4
+               --inject preempt:6 --trace-out --quant-health-every 4``: E1's
+               tokens, the trace validated with one track per request, the
+               probe's resident pages and finite scale range), each with one
+               preemption and one restore, the snapshot's bytes and seconds.
                Every run: fault counters 0, no leaked page;
   6. counts  — the launch counters, set to 0 just before and read just after
                each main path (phase 3's kernel steps, phase 4's and phase 5's
@@ -213,6 +226,16 @@ E2 = ["--batch", "4", "--max-batch", "2", "--prompt-lens", "1000,130,513,256",
       "--prefill-chunk", "256", "--prefill-budget", "512", "--gen", "16"]
 E3 = ["--batch", "4", "--max-batch", "4", "--prompt-len", "512", "--gen", "24",
       "--spec-draft", "4"]
+# E4 (phase 5b): tests/test_prefix_cache.py:307-329's workload at mla-7b's page
+# of 128: a 2-page shared prefix + 64 tokens of each request's own, arrivals
+# past each request's lifetime, so reuse comes from retained pages; the
+# prefix cache keeps 1 page and the host tier takes the other
+E4 = ["--batch", "3", "--max-batch", "2", "--prompt-len", "320", "--shared-prefix", "256",
+      "--gen", "6", "--arrival-gap", "24", "--prefill-chunk", "128"]
+E4_TIER = ["--prefix-cache-pages", "1", "--host-tier-pages", "8"]
+# E5 (phase 5b): E1 restartable, traced and probed (--ckpt-dir, --trace-out added)
+E5_STATE = ["--restartable", "--ckpt-every", "4", "--inject", "preempt:6",
+            "--quant-health-every", "4"]
 NO_VERIFY = ("SNAPMLA_NO_VERIFY",)
 
 
@@ -1236,7 +1259,9 @@ def phase_profile(base, params, prompts, runs=PROFILE_RUNS, match=None, **extra)
 
 def engine_kit(base, params):
     """What the engine runs of a pure-MLA model share: the recording engine,
-    ``run`` (one workload from serve's engine flags), ``gate`` (no fault, no
+    ``run`` (one workload from serve's engine flags), ``served`` (the same
+    through ``serve.run_engine``, restartable runs too), ``restartable``
+    (``run``'s workload through serve's restartable loop), ``gate`` (no fault, no
     leaked page, every request done, the launches one per layer of each
     kernel a dispatch runs, added into ``launches``) and ``held_to_plain``
     (the plain backend forced onto a kernel run's tokens). The counted main
@@ -1257,20 +1282,31 @@ def engine_kit(base, params):
         row (a speculative row recomputed at a later step replaces the
         earlier one, so the kept row is the one whose token was committed).
         Counts the decode, verify, chunk and prefill dispatches and the kernel
-        launches of ``run``. With ``forced`` (rid -> tokens) it emits those
-        tokens in place of its own greedy picks, which it keeps in ``own``:
-        a plain-backend run forced onto a kernel run's tokens sees the same
-        history at every row, so every row of the two runs can be compared."""
+        launches of ``run`` (also of a run a preemption ends). With ``forced``
+        (rid -> tokens) it emits those tokens in place of its own greedy
+        picks, which it keeps in ``own``: a plain-backend run forced onto a
+        kernel run's tokens sees the same history at every row, so every row
+        of the two runs can be compared. Every instance is kept in
+        ``instances``; it times its snapshots (seconds, bytes on disk), its
+        restore and its quant-health samples, and notes the step of each
+        host-tier offload."""
+
+        instances: list = []
 
         def __init__(self, *a, forced=None, **kw):
             self.step_logits, self.own, self.forced = {}, {}, forced
+            self.snapshots, self.restored, self.probe_ms, self.offload_steps = [], None, [], []
+            self.launches = {}
             super().__init__(*a, **kw)
+            Recording.instances.append(self)
             self.dispatches = collections.Counter()
             for attr, kind in (("_decode_fn", "decode"), ("_verify_fn", "verify"),
                                ("_chunk_fn", "chunk"), ("_prefill_fn", "prefill")):
                 fn = getattr(self, attr)
                 if fn is not None:
                     setattr(self, attr, self._counting(fn, kind))
+            if self.quant_probe is not None:
+                self.quant_probe.sample = self._timed_probe(self.quant_probe.sample)
 
         def _counting(self, fn, kind):
             def call(*args):
@@ -1278,13 +1314,44 @@ def engine_kit(base, params):
                 return fn(*args)
             return call
 
-        def run(self, requests):
+        def _timed_probe(self, sample):
+            def call(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = sample(*args, **kw)
+                torch.cuda.synchronize()
+                self.probe_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
+            return call
+
+        def run(self, requests, **kw):
             torch.cuda.synchronize()
             _lib.reset_launches()              # a counted main path starts here
-            out = super().run(requests)
+            try:
+                return super().run(requests, **kw)
+            finally:
+                torch.cuda.synchronize()
+                self.launches = dict(_lib.LAUNCHES)   # ... and ends here
+
+        def _drain_tier_ops(self):
+            if any(kind == "offload" for kind, _, _ in self.allocator._pending):
+                self.offload_steps.append(self.step_idx)
+            super()._drain_tier_ops()
+
+        def snapshot(self, directory, **kw):
+            t0 = time.perf_counter()
+            path = super().snapshot(directory, **kw)
+            size = sum(f.stat().st_size for f in Path(path).iterdir())
+            self.snapshots.append(dict(step=self.step_idx, seconds=time.perf_counter() - t0,
+                                       bytes=size, tier_slots=self.tier.num_used
+                                       if self.tier is not None else 0))
+            return path
+
+        def restore(self, path):
+            t0 = time.perf_counter()
+            super().restore(path)
             torch.cuda.synchronize()
-            self.launches = dict(_lib.LAUNCHES)   # ... and ends here
-            return out
+            self.restored = dict(step=self.step_idx, seconds=time.perf_counter() - t0)
 
         def _postprocess(self, rows, reqs, counts=None):
             cs = counts if counts is not None else [len(r.out_tokens) for r in reqs]
@@ -1306,19 +1373,63 @@ def engine_kit(base, params):
             setattr(args, k, v)
         return args
 
-    def run(cfg, args, forced=None):
+    def setup(cfg, args):
         prompts = serve._engine_prompts(cfg, args)
         span = page_aligned_capacity(max(len(x) for x in prompts) + args.gen,
                                      cfg.page_size) // cfg.page_size
         ecfg = EngineConfig(max_batch=args.max_batch or len(prompts), max_pages_per_seq=span,
+                            n_pages=args.pool_pages, prefix_cache_pages=args.prefix_cache_pages,
+                            host_tier_pages=args.host_tier_pages,
                             prefill_budget=args.prefill_budget, spec_draft_len=args.spec_draft)
-        eng = Recording(dataclasses.replace(cfg, prefill_chunk=args.prefill_chunk), params,
-                        ecfg, device="cuda", forced=forced)
-        reqs = [Request(rid=i, prompt=x, max_new=args.gen, arrival=float(i * args.arrival_gap))
-                for i, x in enumerate(prompts)]
+        reqs = lambda: [Request(rid=i, prompt=x, max_new=args.gen,  # noqa: E731
+                                arrival=float(i * args.arrival_gap))
+                        for i, x in enumerate(prompts)]
+        return dataclasses.replace(cfg, prefill_chunk=args.prefill_chunk), ecfg, reqs, prompts
+
+    def run(cfg, args, forced=None):
+        cfg, ecfg, reqs, prompts = setup(cfg, args)
+        eng = Recording(cfg, params, ecfg, device="cuda", forced=forced)
         t0 = time.time()
-        res = eng.run(reqs)
+        res = eng.run(reqs())
         return eng, {r.rid: r for r in res}, time.time() - t0, prompts
+
+    def served(flags):
+        """``serve.run_engine`` (its gates and exact oracle) on the kernel
+        backend with ``Recording`` as its engine: ``run_engine``'s output,
+        the engine of every attempt (one per restart) and the wall
+        seconds."""
+        import repro_torch.serving.engine as engine_mod
+        Recording.instances.clear()
+        engine_mod.ServingEngine = Recording
+        t0 = time.time()
+        try:
+            out = serve.run_engine(kcfg, params, parse(flags, backend="kernel"))
+        finally:
+            engine_mod.ServingEngine = ServingEngine
+        engines = list(Recording.instances)
+        Recording.instances.clear()             # the engines hold the model's weights
+        return out, engines, time.time() - t0
+
+    def restartable(cfg, args, ckpt_dir):
+        """``run``'s workload through ``serve.run_restartable`` (``serve
+        --restartable``'s loop) on the recording engine, without
+        ``run_engine``'s ``generate`` oracle: chunked prefill and a reused
+        prefix read earlier pages from the FP8 pool, so near-ties can pick
+        other tokens than ``generate``'s (E2's oracle agreement). The engine
+        of every attempt, the results and the wall seconds."""
+        from repro_torch.serving.faults import FaultPlan
+        cfg, ecfg, reqs, _ = setup(cfg, args)
+        plan = FaultPlan.parse(args.inject)
+        engines = []
+
+        def new_engine(handler):
+            engines.append(Recording(cfg, params, ecfg, device="cuda", fault_plan=plan,
+                                     preemption=handler))
+            return engines[-1]
+
+        t0 = time.time()
+        _, res = serve.run_restartable(new_engine, reqs(), args, ckpt_dir)
+        return engines, {r.rid: r for r in res}, time.time() - t0
 
     def expected_launches(eng, amla=False):
         """One launch per layer of each kernel a dispatch runs: a decode step
@@ -1333,7 +1444,9 @@ def engine_kit(base, params):
                 "paged_fetch_dequant": L * d["chunk"]}
         return {k: v for k, v in want.items() if v}
 
-    def gate(lbl, eng, res, amla=False):
+    def gate(lbl, eng, res, amla=False, attempts=None):
+        """``attempts``: every engine of a restartable run (``eng`` its last),
+        whose launches and dispatches are summed."""
         m = eng.metrics()
         f = m["faults"]
         bad = {k: f[k] for k in ("backend_faults", "ref_fallback_steps", "nonfinite_rows")
@@ -1345,12 +1458,14 @@ def engine_kit(base, params):
         if any(r.status != "done" for r in res.values()):
             raise AssertionError(f"{lbl}: requests not done: "
                                  f"{[(r.rid, r.status) for r in res.values()]}")
-        want = expected_launches(eng, amla)
-        if eng.launches != want:
-            raise AssertionError(f"{lbl}: launches {eng.launches} != {want} for "
-                                 f"dispatches {dict(eng.dispatches)}")
-        for k, v in eng.launches.items():
-            launches[k] = launches.get(k, 0) + v
+        got, want = {}, {}
+        for e in attempts or [eng]:
+            _add(got, e.launches)
+            _add(want, expected_launches(e, amla))
+        if got != want:
+            raise AssertionError(f"{lbl}: launches {got} != {want} for dispatches "
+                                 f"{[dict(e.dispatches) for e in attempts or [eng]]}")
+        _add(launches, got)
         return m
 
     def tokens(res):
@@ -1402,38 +1517,28 @@ def engine_kit(base, params):
         return b, wall, worst, flips
 
     return types.SimpleNamespace(
-        Recording=Recording, ServingEngine=ServingEngine, kcfg=kcfg, pcfg=pcfg,
-        launches=launches, parse=parse, run=run, gate=gate, tokens=tokens,
-        held_to_plain=held_to_plain, oracle=oracle)
+        kcfg=kcfg, pcfg=pcfg, launches=launches, parse=parse, run=run, served=served,
+        restartable=restartable, gate=gate, tokens=tokens, held_to_plain=held_to_plain, oracle=oracle)
 
 
 def phase_engine(base, params, serve_tps):
     """E1-E3 on full mla-7b, kernel backend, over the shared paged pool
     (``engine_kit`` says what each run is held to and what it counts)."""
-    import torch
-    import repro_torch.serving.engine as engine_mod
-    from repro_torch.launch import serve
     from repro_torch.launch import steps as ST
     kit = engine_kit(base, params)
-    Recording, ServingEngine, kcfg, pcfg = kit.Recording, kit.ServingEngine, kit.kcfg, kit.pcfg
+    kcfg, pcfg = kit.kcfg, kit.pcfg
     parse, run, gate, tokens, held_to_plain = (kit.parse, kit.run, kit.gate, kit.tokens,
                                                kit.held_to_plain)
 
     # E1: monolithic admission, staggered arrivals, shared prefix, through
     # run_engine and its exact greedy oracle gate; run_engine builds the
     # recording engine, so only its run() is counted
-    a1 = parse(E1, backend="kernel")
-    t0 = time.time()
-    engine_mod.ServingEngine = Recording
-    try:
-        out1 = serve.run_engine(kcfg, params, a1)
-    finally:
-        engine_mod.ServingEngine = ServingEngine
+    out1, _, w1 = kit.served(E1)
     e1 = out1["engine"]
     m1 = gate("E1", e1, {r.rid: r for r in out1["results"]})
     if m1["pages"]["saved_by_sharing"] <= 0:
         raise AssertionError("E1: no page saved by prefix sharing")
-    emit(phase="engine", run="E1", flags=E1, seconds=time.time() - t0, steps=m1["steps"],
+    emit(phase="engine", run="E1", flags=E1, seconds=w1, steps=m1["steps"],
          tok_per_s=m1["wall"]["decode_tok_per_s"], saved_by_sharing=m1["pages"]["saved_by_sharing"],
          peak_pages=m1["pages"]["peak_in_use"], oracle="exact",
          dispatches=dict(e1.dispatches), launches=e1.launches)
@@ -1519,6 +1624,179 @@ def phase_engine(base, params, serve_tps):
              len(r.tokens) for r in r3.values()),
          dispatches=dict(e3a.dispatches), launches=e3a.launches,
          non_spec_dispatches=dict(e3an.dispatches), non_spec_launches=e3an.launches)
+    return kit, {r.rid: r.tokens for r in out1["results"]}
+
+
+def tier_copies(eng, reps=6):
+    """The host tier's page moves on E4's pool through the engine's own
+    hooks (``_gather_page``: the layers' page stacked on the compute stream,
+    then ``HostTier.store``; ``HostTier.prefetch``, then ``take`` and
+    ``_write_page``), timed with CUDA events on the tier's side stream over
+    ``reps`` pages after one untimed round that fills the pinned-memory
+    cache: offload and upload microseconds per page, beside the page's bytes
+    over the pinned copy rates measured here (one 32-page copy each way),
+    and the host wall of each. The restored pages are checked byte for
+    byte."""
+    import torch
+    from repro_torch.core.kvcache import pool_read_page
+    from repro_torch.serving.tiering import HostTier
+    pools = eng.state["layers"]
+    n_pages = pools[0].content.shape[0]
+    pids = [1 + i % (n_pages - 1) for i in range(reps)]
+    page_bytes = sum(t.nbytes for p in pools for t in pool_read_page(p, 0))
+    tier = HostTier(reps, device="cuda")
+
+    def offload():
+        slots = [tier.alloc_slot() for _ in pids]
+        for slot, pid in zip(slots, pids):
+            tier.store(slot, eng._gather_page(pid))
+        return slots
+
+    for slot in offload():                      # untimed: fills the pinned cache
+        tier.drop(slot)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pid in pids:                            # the stack alone, on the compute stream
+        eng._gather_page(pid)
+    torch.cuda.synchronize()
+    gather_wall = time.perf_counter() - t0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    t0 = time.perf_counter()
+    ev[0].record(tier.stream)
+    slots = offload()
+    ev[1].record(tier.stream)
+    torch.cuda.synchronize()
+    off_wall = time.perf_counter() - t0
+    want = [[t.clone() for p in pools for t in pool_read_page(p, pid)] for pid in pids]
+    for p in pools:                             # the pages are free again: reused
+        for pid in pids:
+            p.content.view(torch.uint8)[pid].zero_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[2].record(tier.stream)
+    for slot in slots:
+        tier.prefetch(slot)
+    ev[3].record(tier.stream)
+    payloads = [tier.take(slot) for slot in slots]
+    t1 = time.perf_counter()
+    for pid, payload in zip(pids, payloads):
+        eng._write_page(pid, payload)
+    torch.cuda.synchronize()
+    up_wall, write_wall = time.perf_counter() - t0, time.perf_counter() - t1
+    for pid, w in zip(pids, want):
+        got = [t for p in pools for t in pool_read_page(p, pid)]
+        if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8)) for a, b in zip(got, w)):
+            raise AssertionError("host tier: a restored page differs from the offloaded one")
+    n = 32 * page_bytes
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    rates = {}
+    for name, dst, src in (("d2h", host, dev), ("h2d", dev, host)):
+        dst.copy_(src, non_blocking=True)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(3):
+            dst.copy_(src, non_blocking=True)
+        b.record()
+        torch.cuda.synchronize()
+        rates[name] = 3 * n / (a.elapsed_time(b) * 1e-3)
+    off_us = ev[0].elapsed_time(ev[1]) * 1e3 / reps
+    up_us = ev[2].elapsed_time(ev[3]) * 1e3 / reps
+    return dict(page_bytes=page_bytes, host_copies_per_page=3, pages=reps,
+                offload_us_per_page=off_us, upload_us_per_page=up_us,
+                offload_host_wall_us_per_page=off_wall * 1e6 / reps,
+                restore_host_wall_us_per_page=up_wall * 1e6 / reps,
+                gather_host_wall_us_per_page=gather_wall * 1e6 / reps,
+                write_host_wall_us_per_page=write_wall * 1e6 / reps,
+                pinned_d2h_bytes_per_s=rates["d2h"], pinned_h2d_bytes_per_s=rates["h2d"],
+                offload_bound_us=page_bytes / rates["d2h"] * 1e6,
+                upload_bound_us=page_bytes / rates["h2d"] * 1e6)
+
+
+def phase_engine_state(kit, params, e1_tokens):
+    """E4, E4 restartable and E5 on full mla-7b, kernel backend, over the
+    shared paged pool: the engine's state off the card (the host tier,
+    snapshot / restore after a preemption, the span tracer, the quant-health
+    probe), each run held to the launch rule of E1-E3 (``engine_kit``)."""
+    import tempfile
+    from repro_torch.obs.trace import validate_chrome_trace
+    kcfg, parse, run, gate, tokens = kit.kcfg, kit.parse, kit.run, kit.gate, kit.tokens
+
+    # E4: the cold run, then the cache of 1 page and the host tier of 8
+    e4c, r4c, w4c, _ = run(kcfg, parse(E4))
+    gate("E4 cold", e4c, r4c)
+    e4, r4, w4, _ = run(kcfg, parse(E4 + E4_TIER))
+    m4 = gate("E4", e4, r4)
+    pc = m4["prefix_cache"]
+    if tokens(r4) != tokens(r4c):
+        raise AssertionError(f"E4: tiered tokens differ from the cold run's: {tokens(r4)} vs "
+                             f"{tokens(r4c)}")
+    if pc["offloads"] < 1 or pc["restored_host"] < 1:
+        raise AssertionError(f"E4: no host-tier round trip: {pc}")
+    emit(phase="engine", run="E4", flags=E4 + E4_TIER, seconds=w4, cold_seconds=w4c,
+         steps=m4["steps"], cold_steps=e4c.metrics()["steps"], prefix_cache=pc,
+         prefill_tokens=m4["prefill"]["tokens"],
+         cold_prefill_tokens=e4c.metrics()["prefill"]["tokens"],
+         offload_steps=e4.offload_steps, tokens_equal_cold=True,
+         dispatches=dict(e4.dispatches), launches=e4.launches,
+         tier_copies=tier_copies(e4))
+
+    # E4 restartable, through serve's restartable loop: preempted two steps
+    # after the first offload, so the snapshot carries a populated tier
+    preempt_at = e4.offload_steps[0] + 2
+    flags = E4 + E4_TIER + ["--restartable", "--ckpt-every", "2", "--inject",
+                            f"preempt:{preempt_at}"]
+    with tempfile.TemporaryDirectory() as d:
+        engines, r4r, w4r = kit.restartable(kcfg, parse(flags), d)
+    m4r = gate("E4 restartable", engines[-1], r4r, attempts=engines)
+    f = m4r["faults"]
+    if tokens(r4r) != tokens(r4c):
+        raise AssertionError("E4 restartable: tokens differ from the cold run's")
+    if len(engines) != 2 or f["preemptions"] != 1 or f["restores"] != 1:
+        raise AssertionError(f"E4 restartable: {len(engines)} attempts, faults {f}")
+    carried = engines[0].snapshots[-1]
+    if not carried["tier_slots"]:
+        raise AssertionError("E4 restartable: the preemption snapshot carried an empty tier")
+    emit(phase="engine", run="E4 restartable", flags=flags, seconds=w4r,
+         steps=m4r["steps"], preempted_at_step=preempt_at, snapshots=engines[0].snapshots,
+         restore=engines[-1].restored, prefix_cache=m4r["prefix_cache"],
+         tokens_equal_cold=True,
+         dispatches=[dict(e.dispatches) for e in engines],
+         launches=[e.launches for e in engines])
+
+    # E5: E1 through serve.run_engine (its exact oracle gate) restartable,
+    # traced and probed
+    with tempfile.TemporaryDirectory() as d:
+        trace = Path(d) / "trace.json"
+        flags = E1 + E5_STATE + ["--ckpt-dir", f"{d}/ckpt", "--trace-out", str(trace)]
+        out5, engines, w5 = kit.served(flags)
+        payload = json.loads(trace.read_text())
+    res5 = {r.rid: r for r in out5["results"]}
+    m5 = gate("E5", engines[-1], res5, attempts=engines)
+    f = m5["faults"]
+    if tokens(res5) != e1_tokens:
+        raise AssertionError("E5: restored tokens differ from E1's uninterrupted tokens")
+    if len(engines) != 2 or f["preemptions"] != 1 or f["restores"] != 1:
+        raise AssertionError(f"E5: {len(engines)} attempts, faults {f}")
+    stats = validate_chrome_trace(payload, expect_requests=6)
+    names = [e.get("name") for e in payload["traceEvents"]]
+    if names.count("preemption") != 1:
+        raise AssertionError("E5: the trace does not hold one preemption instant")
+    samples = [s for e in engines for s in e.quant_probe.samples]
+    live = [s for s in samples if s["resident_pages"] > 0]
+    if not live or not all(0 < s["scale_min"] <= s["scale_max"] < float("inf") for s in live):
+        raise AssertionError(f"E5: the probe saw no resident page with a finite scale range: "
+                             f"{samples}")
+    probe_ms = [ms for e in engines for ms in e.probe_ms]
+    emit(phase="engine", run="E5", flags=flags, seconds=w5, steps=m5["steps"],
+         tokens_equal_e1=True, oracle="exact", snapshots=engines[0].snapshots,
+         restore=engines[-1].restored, trace=stats,
+         trace_counts={k: sum(1 for e in payload["traceEvents"] if e.get("ph") == k)
+                       for k in ("X", "i", "C", "M")},
+         probe_samples=len(samples), probe_ms_per_sample=statistics.median(probe_ms),
+         probe_ms=probe_ms, probe_last=samples[-1],
+         dispatches=[dict(e.dispatches) for e in engines],
+         launches=[e.launches for e in engines])
     return kit.launches
 
 
@@ -1998,6 +2276,7 @@ def summary_line(records, launches, long_tokens):
 
 
 def main() -> int:
+    t_start = time.time()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -2092,10 +2371,16 @@ def main() -> int:
     # 4. serve.generate on full mla-7b (a counted main path)
     serve_launches, base, params, prompts, serve_tps = phase_serve()
 
-    # 5. the serving engine on full mla-7b (counted main paths)
+    # 5. the serving engine on full mla-7b (counted main paths); then its
+    # state off the card: E4 (host tier), E4 restartable, E5 (restartable,
+    # traced, probed)
     t0 = time.time()
-    engine_launches = phase_engine(base, params, serve_tps)
+    kit, e1_tokens = phase_engine(base, params, serve_tps)
     emit(phase="engine_done", seconds=time.time() - t0)
+    t0 = time.time()
+    engine_launches = phase_engine_state(kit, params, e1_tokens)
+    del kit                                     # its closures hold mla-7b's weights
+    emit(phase="engine_state_done", seconds=time.time() - t0)
 
     # 6. every kernel of the paths launched in the main paths
     parts = (layer_launches, serve_launches, engine_launches)
@@ -2147,6 +2432,7 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels not launched on the main paths: {missing}")
 
+    emit(phase="total", seconds=time.time() - t_start)
     print(summary_line(records, launches, sum(long_lens)), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

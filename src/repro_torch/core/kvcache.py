@@ -17,8 +17,8 @@ The MLA caches, in two layouts, as in the reference:
     ``[n_pages, page, d_r]``, scale ``[n_pages, page]``, page table ``[B, P]``
     int32 and ``seq_lens``; batch-owned, or the serving engine's shared pool
     (``init_paged_mla_cache(n_pages=...)``, ``pool_with_tables``,
-    ``paged_mla_prefill_at``). ``pool_read_page`` / ``pool_write_page``
-    (the host tier's page moves) are not ported yet.
+    ``paged_mla_prefill_at``), and ``pool_read_page`` / ``pool_write_page``,
+    the unit of the host tier's page moves.
 
 Unlike the functional JAX caches, writes land IN PLACE in the cache tensors
 (``index_put_`` / slice assignment) — a decode step does not copy the whole
@@ -331,6 +331,25 @@ def pool_with_tables(pool: PagedMLAPool, table, seq_lens) -> PagedMLAPool:
     return pool._replace(
         page_table=torch.as_tensor(table, dtype=torch.int32).to(dev),
         seq_lens=torch.as_tensor(seq_lens, dtype=torch.int32).to(dev))
+
+
+def pool_read_page(pool: PagedMLAPool, page_id: int):
+    """One physical page's payload ``(content, rope, scale)`` — the unit the
+    serving engine's host tier offloads (kvcache.py:420-431). Views into the
+    pool, not copies: the tier copies them out."""
+    return pool.content[page_id], pool.rope[page_id], pool.scale[page_id]
+
+
+def pool_write_page(pool: PagedMLAPool, page_id: int, payload) -> PagedMLAPool:
+    """Write ``(content, rope, scale)`` (shapes from ``pool_read_page``, on
+    any device) into physical page ``page_id`` in place — the host-tier
+    restore (kvcache.py:434-452). The bytes are copied as they are, so a
+    restored page is byte-identical to the page that was offloaded. A host
+    source is copied without blocking; the caller keeps it alive until the
+    copy is done."""
+    for dst, src in zip((pool.content, pool.rope, pool.scale), payload):
+        dst[page_id].copy_(src, non_blocking=True)
+    return pool
 
 
 def mla_quantize_entry(cfg: CacheConfig, c_kv: torch.Tensor, k_r: torch.Tensor):

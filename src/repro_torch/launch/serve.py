@@ -28,15 +28,17 @@ decoding), gated against the static-batch ``generate`` oracle:
         --batch 4 --max-batch 2 --prompt-lens 1000,130,513,256 \
         --prefill-chunk 256 --prefill-budget 512 --gen 16
 
-(``--spec-draft K`` for self-speculative decoding; ``--smoke --device cpu``
-on the CPU; ``--arch`` mla-7b or deepseek-v3-mla, the pure-MLA models). Under
-MoE the expert capacity depends on how many tokens share a call, so the
-engine's batches and ``generate``'s static batch can drop different tokens
-and the oracle gate can fail, as the reference's does on deepseek-v3-mla.
-``--engine --fused`` exits, as the reference's does. ``--restartable``,
-``--ckpt-dir``, ``--ckpt-every``, ``--inject preempt:...``, ``--trace-out``,
-``--trace-clock``, ``--host-tier-pages`` and ``--quant-health-every`` need
-modules that are not ported yet and exit with a message.
+(``--spec-draft K`` for self-speculative decoding; ``--prefix-cache-pages N
+--host-tier-pages M`` for the radix prefix cache and its pinned host tier;
+``--restartable --ckpt-every N --inject preempt:K`` for the snapshot /
+restore drill; ``--trace-out t.json`` for the Chrome trace, summarized by
+``python -m repro_torch.obs.trace_report t.json``; ``--quant-health-every N``
+for the FP8 pool probe; ``--smoke --device cpu`` on the CPU; ``--arch``
+mla-7b or deepseek-v3-mla, the pure-MLA models). Under MoE the expert
+capacity depends on how many tokens share a call, so the engine's batches
+and ``generate``'s static batch can drop different tokens and the oracle
+gate can fail, as the reference's does on deepseek-v3-mla. ``--engine
+--fused`` exits, as the reference's does.
 """
 from __future__ import annotations
 
@@ -218,20 +220,61 @@ def _make_logger(log_json: bool):
     return log
 
 
+def run_restartable(new_engine, reqs, args, ckpt_dir, on_restart=None):
+    """``serve --restartable``'s loop: under ``run_with_restarts`` (at most 3
+    restarts) each attempt builds an engine with ``new_engine(handler)`` (a
+    ``PreemptionHandler``, its signal handlers installed unless faults are
+    injected), restores the latest snapshot under ``ckpt_dir`` and runs
+    ``reqs`` with a snapshot every ``args.ckpt_every`` steps; the engine
+    skips requests it has already seen. Returns the last attempt's engine
+    and its results."""
+    from repro_torch.checkpoint import checkpoint as CK
+    from repro_torch.runtime.fault_tolerance import (PreemptionHandler, RestartPolicy,
+                                                     run_with_restarts)
+    handler = PreemptionHandler(install=not args.inject)
+    out: dict = {}
+
+    def attempt() -> str:
+        handler.reset()
+        engine = new_engine(handler)
+        latest = CK.latest_checkpoint(ckpt_dir)
+        if latest:
+            engine.restore(latest)
+        out["engine"] = engine
+        out["results"] = engine.run(reqs, ckpt_dir=ckpt_dir, ckpt_every=args.ckpt_every)
+        return "done"
+
+    try:
+        run_with_restarts(attempt, RestartPolicy(max_restarts=3), on_restart=on_restart)
+    finally:
+        handler.restore()
+    return out["engine"], out["results"]
+
+
 def run_engine(cfg, params, args) -> dict:
     """``serve --engine``: the continuous-batching engine over the shared
     paged pool, with the static-batch ``generate`` as the greedy parity
     oracle (per prompt-length group). Arrivals are staggered every
     ``--arrival-gap`` engine steps; ``--prefill-chunk`` switches admission
     to budgeted chunked prefill. Exits non-zero on a token mismatch (greedy,
-    no requeues), leaked pages, more chunk widths than buckets, or a dispatch
-    that fell back to the reference backend without an injected fault. Returns
-    ``{"engine", "results", "metrics", "prompts"}``."""
-    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    no requeues), leaked pages, more chunk widths than buckets, a fault drill
+    with no completed request, or a dispatch that fell back to the reference
+    backend without an injected fault.
+
+    Fault drills: ``--inject kind:step[:slot][:sticky]`` threads a
+    deterministic ``FaultPlan`` through the engine; ``--restartable`` runs it
+    in ``run_restartable``, so a preemption (injected, or SIGTERM / SIGINT)
+    snapshots, ends the attempt, and the next attempt restores the latest
+    snapshot. Returns ``{"engine", "results", "metrics",
+    "prompts", "tracer", "restarts", "ckpt_dir"}``."""
+    from repro_torch.obs.trace import SpanTracer, validate_chrome_trace
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.engine import EngineConfig
     from repro_torch.serving.faults import FaultPlan
     from repro_torch.serving.scheduler import Request
 
     log = _make_logger(args.log_json)
+    tracer = SpanTracer(clock=args.trace_clock) if args.trace_out else None
     device = params["embed"].device
     prompts = _engine_prompts(cfg, args)
     span_pages = page_aligned_capacity(max(len(p) for p in prompts) + args.gen,
@@ -240,17 +283,36 @@ def run_engine(cfg, params, args) -> dict:
     ecfg = EngineConfig(
         max_batch=args.max_batch or len(prompts), max_pages_per_seq=span_pages,
         n_pages=args.pool_pages, prefix_sharing=not args.no_prefix_share,
-        prefix_cache_pages=args.prefix_cache_pages, prefill_budget=args.prefill_budget,
-        max_queue=args.max_queue, temperature=args.temperature, top_k=args.top_k,
-        top_p=args.top_p, eos_id=args.eos_id, seed=args.seed,
+        prefix_cache_pages=args.prefix_cache_pages, host_tier_pages=args.host_tier_pages,
+        prefill_budget=args.prefill_budget, max_queue=args.max_queue,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        eos_id=args.eos_id, seed=args.seed, quant_health_every=args.quant_health_every,
         spec_draft_len=args.spec_draft)
     plan = FaultPlan.parse(args.inject) if args.inject else None
     reqs = [Request(rid=i, prompt=p, max_new=args.gen, arrival=float(i * args.arrival_gap),
                     ttft_deadline=args.ttft_deadline or None,
                     deadline=args.deadline or None)
             for i, p in enumerate(prompts)]
-    engine = ServingEngine(cfg, params, ecfg, fault_plan=plan, device=device)
-    results = engine.run(reqs)
+
+    def new_engine(preemption=None):
+        return engine_mod.ServingEngine(cfg, params, ecfg, fault_plan=plan,
+                                        preemption=preemption, tracer=tracer, device=device)
+
+    restarts: list[int] = []
+    ckpt_dir = None
+    if args.restartable:
+        import tempfile
+        ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="serve_ckpt_")
+
+        def on_restart(n: int) -> None:
+            restarts.append(n)
+            log("engine_restart", f"[serve] engine restart #{n} (restoring from {ckpt_dir})",
+                restart=n, ckpt_dir=ckpt_dir)
+
+        engine, results = run_restartable(new_engine, reqs, args, ckpt_dir, on_restart)
+    else:
+        engine = new_engine()
+        results = engine.run(reqs)
     m = engine.metrics()
     n_done = sum(1 for r in results if r.status == "done")
     log("engine_summary",
@@ -267,14 +329,15 @@ def run_engine(cfg, params, args) -> dict:
         saved_by_sharing=m["pages"]["saved_by_sharing"], evictions=m["evictions"],
         requeues=m["requeues"], roofline=m["roofline"], device=str(device))
     f = m["faults"]
-    if plan or f["rejected"] or f["deadline_cancelled"] or f["backend_faults"] \
-            or f["nonfinite_rows"]:
+    if plan or args.restartable or f["rejected"] or f["deadline_cancelled"] \
+            or f["backend_faults"] or f["nonfinite_rows"]:
         log("engine_faults",
             f"[serve] faults: injected={len(f['injected'])} "
             f"quarantined={f['nonfinite_rows']} (recovered via the reference backend: "
             f"{f['recovered_ref']}, failed: {f['failed_nonfinite']}), "
             f"backend faults={f['backend_faults']}, "
-            f"deadline cancels={f['deadline_cancelled']}, rejected={f['rejected']} -> "
+            f"deadline cancels={f['deadline_cancelled']}, rejected={f['rejected']}, "
+            f"preemptions={f['preemptions']}, restores={f['restores']} -> "
             f"{n_done}/{len(results)} completed",
             completed=n_done, total=len(results),
             **{k: v for k, v in f.items() if k != "injected"}, injected=len(f["injected"]))
@@ -286,12 +349,31 @@ def run_engine(cfg, params, args) -> dict:
             f"{sp['accepted_tokens']} (accept rate {sp['accept_rate']:.3f}), "
             f"{sp['accepted_tokens_per_step']:.3f} tokens/slot-step", **sp)
     pc = m["prefix_cache"]
-    if pc["budget_pages"]:
+    if pc["budget_pages"] or pc["host_tier_pages"]:
         log("prefix_cache",
             f"[serve] prefix cache: {pc['cached']} pages retained (budget "
-            f"{pc['budget_pages']}), reused {pc['reused_cached']}, prefill tokens "
+            f"{pc['budget_pages']}), reused {pc['reused_cached']}, restored from host "
+            f"{pc['restored_host']} (offloads {pc['offloads']}, tier "
+            f"{pc['host_used']}/{pc['host_tier_pages']}), prefill tokens "
             f"skipped {pc['prefill_skipped_tokens']}, HBM high-water "
             f"{pc['peak_resident']} pages", **pc)
+    if engine.quant_probe is not None and engine.quant_probe.samples:
+        last = engine.quant_probe.samples[-1]
+        log("quant_health",
+            f"[serve] quant health ({cfg.kv_fmt}, every {args.quant_health_every} steps, "
+            f"{len(engine.quant_probe.samples)} samples): scale "
+            f"[{last['scale_min']:.3g}, {last['scale_max']:.3g}], clip rate max "
+            f"{last['clip_rate_max']:.3g}, sink err bound {last['sink_err_bound_max']:.3g}",
+            fmt=cfg.kv_fmt, every=args.quant_health_every,
+            samples=len(engine.quant_probe.samples), **last)
+    if tracer is not None:
+        tracer.write(args.trace_out)
+        with open(args.trace_out) as fh:
+            stats = validate_chrome_trace(json.load(fh), expect_requests=len(reqs))
+        log("trace_written",
+            f"[serve] trace: {args.trace_out} ({stats['events']} events, "
+            f"{stats['requests']} request tracks, {stats['spans']} spans; "
+            f"clock={tracer.clock})", path=args.trace_out, clock=tracer.clock, **stats)
     n_raised = sum(1 for ev in f["injected"] if ev[1] == "backend_raise")
     if f["backend_faults"] != n_raised or f["ref_fallback_steps"] != n_raised:
         raise SystemExit(f"[serve] FATAL: {f['backend_faults'] - n_raised} decode or "
@@ -301,7 +383,7 @@ def run_engine(cfg, params, args) -> dict:
         raise SystemExit("[serve] FATAL: engine drained but pages leaked "
                          f"({m['pages']['free']} free + {m['pages']['cached']} cached != "
                          f"{m['pages']['capacity']} capacity)")
-    if plan and n_done == 0:
+    if (plan or args.restartable) and n_done == 0:
         raise SystemExit("[serve] FATAL: fault drill left zero completed requests")
     if args.prefill_chunk > 0:
         n_buckets = len(ST.chunk_buckets(args.prefill_chunk))
@@ -329,7 +411,8 @@ def run_engine(cfg, params, args) -> dict:
         log("engine_parity",
             f"[serve] engine parity vs static-batch generate: exact ({n_done} "
             "completed requests)", parity="exact", completed=n_done)
-    return {"engine": engine, "results": results, "metrics": m, "prompts": prompts}
+    return {"engine": engine, "results": results, "metrics": m, "prompts": prompts,
+            "tracer": tracer, "restarts": restarts, "ckpt_dir": ckpt_dir}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -415,17 +498,41 @@ def build_parser() -> argparse.ArgumentParser:
                     help="engine TTFT deadline in virtual steps (0 = none)")
     ap.add_argument("--deadline", type=int, default=0,
                     help="engine total-latency deadline in virtual steps (0 = none)")
+    ap.add_argument("--host-tier-pages", type=int, default=0,
+                    help="engine host-memory tier: LRU-evicted cached prefix pages offload "
+                         "their FP8 bytes to this many pinned host slots and come back on "
+                         "a match instead of being recomputed (needs --prefix-cache-pages; "
+                         "0 = off)")
     ap.add_argument("--inject", action="append", default=[],
                     metavar="KIND:STEP[:SLOT][:sticky]",
-                    help="engine fault injection (repeatable): nan_logits, alloc_fail, "
-                         "backend_raise (preempt is not ported yet)")
+                    help="engine fault injection (repeatable): nan_logits:step:slot[:sticky], "
+                         "alloc_fail:step[:count], backend_raise:step, preempt:step (needs "
+                         "--restartable)")
+    ap.add_argument("--restartable", action="store_true",
+                    help="engine checkpoint/restart drill: run under run_with_restarts and a "
+                         "PreemptionHandler with snapshots to --ckpt-dir; a preemption "
+                         "(SIGTERM/SIGINT or --inject preempt:k) snapshots, ends the attempt, "
+                         "and the restart restores the latest snapshot token-identically")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="engine snapshot directory for --restartable (default: a fresh "
+                         "temporary directory)")
+    ap.add_argument("--ckpt-every", type=int, default=4,
+                    help="snapshot cadence in engine steps under --restartable (a "
+                         "preemption always snapshots)")
+    ap.add_argument("--trace-out", default="",
+                    help="engine: write a Chrome trace-event JSON of the run (request "
+                         "lifecycle spans, step phases, pool counters) to this path, "
+                         "validated on write")
+    ap.add_argument("--trace-clock", default="virtual", choices=["virtual", "wall"],
+                    help="trace timestamps: 'virtual' = step*1000+offset ticks "
+                         "(byte-identical across same-seed runs), 'wall' = host "
+                         "microseconds")
+    ap.add_argument("--quant-health-every", type=int, default=0,
+                    help="engine: sample FP8 quantization health of the live pool (scale "
+                         "range and exponent histogram, clip rate, sink error bound) every "
+                         "N steps (0 = off)")
     ap.add_argument("--log-json", action="store_true",
                     help="engine: print each status line as one JSON object")
-    for flag in ("--restartable",):
-        ap.add_argument(flag, action="store_true", help="not ported yet")
-    for flag in ("--ckpt-dir", "--ckpt-every", "--trace-out", "--trace-clock",
-                 "--host-tier-pages", "--quant-health-every"):
-        ap.add_argument(flag, default=None, help="not ported yet")
     return ap
 
 
@@ -435,19 +542,6 @@ def main(argv=None):
     if args.engine and args.fused:
         ap.error("--engine has no fused mode (it steps the decode loop "
                  "per engine tick); drop --fused or --engine")
-    unported = [f for f, v in (("--restartable", args.restartable),
-                               ("--ckpt-dir", args.ckpt_dir),
-                               ("--ckpt-every", args.ckpt_every),
-                               ("--trace-out", args.trace_out),
-                               ("--trace-clock", args.trace_clock),
-                               ("--host-tier-pages", args.host_tier_pages),
-                               ("--quant-health-every", args.quant_health_every))
-                if v not in (None, False)]
-    if any(spec.split(":")[0] == "preempt" for spec in args.inject):
-        unported.append("--inject preempt")
-    if unported:
-        ap.error(f"{', '.join(unported)}: not ported yet (the engine's snapshot/restore, "
-                 "span tracer, host tier and quant-health probe)")
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

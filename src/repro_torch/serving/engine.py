@@ -8,18 +8,19 @@ shared pool, idle and still-prefilling slots parked on the allocator's
 scratch page; chunked admission (``ModelConfig.prefill_chunk``) with a
 per-step token budget, chunk widths bucketed to powers of two, later chunks
 reading earlier ones back from the FP8 pool through the fused fetch-dequant
-kernel; refcounted prefix sharing with the radix prefix cache; evict-to-
-requeue under pool pressure; self-speculative decoding (``spec_draft_len``)
-verified by the q_len > 1 split-KV kernel; the per-slot NaN quarantine with
-one retry on the plain reference backend; deadlines and a bounded queue.
-Greedy output is token-identical to the static-batch ``serve.generate``
-oracle on the same backend family.
-
-Not ported yet (the engine raises ``ValueError`` naming the module when
-asked): the host tier (``tiering.py``, ``host_tier_pages``), snapshot /
-restore (``checkpoint/``, ``runtime/fault_tolerance.py``), the span tracer
-(``obs/trace.py``) and the quant-health probe (``obs/quant_health.py``,
-``quant_health_every``).
+kernel; refcounted prefix sharing with the radix prefix cache and its
+host-memory second tier (``host_tier_pages``: LRU-evicted cached pages
+offload their FP8 bytes to pinned host memory and come back on a match
+instead of being recomputed); evict-to-requeue under pool pressure;
+self-speculative decoding (``spec_draft_len``) verified by the q_len > 1
+split-KV kernel; the per-slot NaN quarantine with one retry on the plain
+reference backend; deadlines and a bounded queue; ``snapshot`` / ``restore``
+through ``checkpoint/`` (host bookkeeping in the manifest, the pool pages in
+arrays.npz) and a preemption check at each step boundary of ``run``; the
+span tracer (``tracer=``, ``obs/trace.py``) and the FP8 pool probe
+(``quant_health_every``, ``obs/quant_health.py``). Greedy output is
+token-identical to the static-batch ``serve.generate`` oracle on the same
+backend family.
 
 How the JAX-only mechanisms of the reference map onto PyTorch:
 
@@ -50,6 +51,11 @@ How the JAX-only mechanisms of the reference map onto PyTorch:
     raises on its reference backend. The port does so only for a raise the
     ``FaultPlan`` injects, or on CPU tensors (where every wrapper already
     runs its plain version); on the card a raise propagates.
+  * *Host-tier moves* (``jax.device_put`` / ``device_get`` per array): the
+    tier's copies run on its own side stream, ordered against the compute
+    stream by events (``serving/tiering.py`` says where each wait sits).
+    ``snapshot`` drains the pending tier ops and then waits for the device
+    before it reads the pool.
 """
 from __future__ import annotations
 
@@ -61,19 +67,23 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import checkpoint as CK
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.kvcache import page_aligned_capacity, pool_with_tables
+from repro_torch.core.kvcache import (page_aligned_capacity, pool_read_page,
+                                      pool_with_tables, pool_write_page)
 from repro_torch.kernels.mla_decode import backends as BK
 from repro_torch.launch import steps as ST
 from repro_torch.models import transformer as T
+from repro_torch.obs import trace as TRC
 from repro_torch.obs.metrics import MetricsRegistry
+from repro_torch.obs.quant_health import QuantHealthProbe
 from repro_torch.serving.allocator import PageAllocator
-from repro_torch.serving.faults import FaultPlan
+from repro_torch.serving.faults import EnginePreempted, FaultPlan
 from repro_torch.serving.scheduler import Request, Scheduler, Status
 from repro_torch.serving.speculative import NgramProposer
+from repro_torch.serving.tiering import HostTier
 
-# the typed fault/degradation events the engine counts (the reference's set;
-# "preemptions" and "restores" stay 0 until snapshot/restore is ported)
+# the typed fault/degradation events the engine counts (the reference's set)
 FAULT_KINDS = (
     "nonfinite_rows",        # quarantined decode rows seen
     "recovered_ref",         # ..recovered by the reference-backend retry
@@ -83,27 +93,66 @@ FAULT_KINDS = (
     "ref_fallback_steps",    # steps degraded to the reference backend
     "deadline_cancelled",    # typed FAILED("deadline")
     "rejected",              # bounded-queue load shedding
-    "preemptions",
-    "restores",
+    "preemptions",           # snapshot-and-raise exits
+    "restores",              # checkpoint restores into this engine
 )
+
+
+def _req_to_record(r: Request) -> dict:
+    """JSON-safe snapshot of one request's full lifecycle state."""
+    return {
+        "rid": int(r.rid), "prompt": [int(t) for t in r.prompt],
+        "max_new": int(r.max_new), "arrival": float(r.arrival),
+        "ttft_deadline": r.ttft_deadline, "deadline": r.deadline,
+        "status": r.status.value, "fail_reason": r.fail_reason,
+        "slot": int(r.slot), "pages": [int(p) for p in r.pages],
+        "out_tokens": [int(t) for t in r.out_tokens],
+        "prefill_pos": int(r.prefill_pos), "requeues": int(r.requeues),
+        "cached_tokens": int(r.cached_tokens),
+        "admit_step": int(r.admit_step),
+        "first_token_step": int(r.first_token_step),
+        "finish_step": int(r.finish_step),
+        "arrival_work": int(r.arrival_work),
+        "first_token_work": int(r.first_token_work),
+    }
+
+
+def _req_from_record(rec: dict) -> Request:
+    req = Request(
+        rid=int(rec["rid"]), prompt=np.asarray(rec["prompt"], np.int32),
+        max_new=int(rec["max_new"]), arrival=float(rec["arrival"]),
+        ttft_deadline=rec["ttft_deadline"], deadline=rec["deadline"])
+    req.status = Status(rec["status"])
+    req.fail_reason = rec["fail_reason"]
+    req.slot = int(rec["slot"])
+    req.pages = [int(p) for p in rec["pages"]]
+    req.out_tokens = [int(t) for t in rec["out_tokens"]]
+    req.prefill_pos = int(rec["prefill_pos"])
+    req.requeues = int(rec["requeues"])
+    req.cached_tokens = int(rec.get("cached_tokens", 0))
+    req.admit_step = int(rec["admit_step"])
+    req.first_token_step = int(rec["first_token_step"])
+    req.finish_step = int(rec["finish_step"])
+    req.arrival_work = int(rec["arrival_work"])
+    req.first_token_work = int(rec["first_token_work"])
+    return req
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Host-side engine knobs (the model itself comes from ModelConfig); the
-    reference's fields, with ``host_tier_pages`` and ``quant_health_every``
-    refused until their modules are ported."""
+    reference's fields."""
 
     max_batch: int = 4             # decode slot count
     n_pages: int = 0               # physical pool pages (0 = max_batch full spans + scratch)
     max_pages_per_seq: int = 8     # page-table width (max context in pages)
     prefix_sharing: bool = True
     prefix_cache_pages: int = 0    # radix cache: refcount-0 prefix pages retained (LRU)
-    host_tier_pages: int = 0       # not ported (tiering.py)
+    host_tier_pages: int = 0       # host-tier slots for evicted cached pages (0 = none)
     prefill_budget: int = 0        # chunked-prefill tokens per step (0 = one pass)
     max_queue: int = 0             # bounded admission queue (0 = unbounded)
     ref_retry: bool = True         # quarantined row: one retry on the reference backend
-    quant_health_every: int = 0    # not ported (obs/quant_health.py)
+    quant_health_every: int = 0    # FP8 pool probe every N steps (0 = off)
     spec_draft_len: int = 0        # self-speculative draft tokens per slot (0 = off)
     temperature: float = 0.0
     top_k: int = 0
@@ -142,20 +191,14 @@ class ServingEngine:
     """Admit → (chunked) prefill → decode or verify → retire over one pool."""
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig, *,
-                 fault_plan: FaultPlan | None = None, tracer: Any = None,
+                 fault_plan: FaultPlan | None = None, preemption=None,
+                 tracer: TRC.SpanTracer | None = None,
                  device: "str | torch.device | None" = None):
         if cfg.layer_pattern != ("mla",) or cfg.mla is None:
             raise ValueError("the serving engine drives the paged MLA decode path; "
                              f"layer pattern {cfg.layer_pattern} is not pure-MLA")
         if cfg.prefill_chunk < 0:
             raise ValueError("prefill_chunk must be >= 0")
-        for field, module in (("host_tier_pages", "serving/tiering.py"),
-                              ("quant_health_every", "obs/quant_health.py")):
-            if getattr(ecfg, field):
-                raise ValueError(f"EngineConfig.{field} needs {module}, which is not "
-                                 "ported yet")
-        if tracer is not None:
-            raise ValueError("the span tracer (obs/trace.py) is not ported yet")
         self.ecfg = ecfg
         self.device = torch.device(device) if device is not None \
             else params["embed"].device
@@ -169,7 +212,11 @@ class ServingEngine:
                                          self.span_pages * self.page, device=self.device)
 
         self.registry = MetricsRegistry()
+        self.tracer = tracer
         self._register_metrics()
+        self.quant_probe = (
+            QuantHealthProbe(self.registry, fmt=cfg.kv_fmt, every=ecfg.quant_health_every)
+            if ecfg.quant_health_every > 0 and cfg.kv_fmt != "none" else None)
         self._prefill_shapes: set = set()   # distinct prefill input shapes dispatched
 
         self._prefill_fn = ST.make_prefill_step(self.cfg)
@@ -181,9 +228,11 @@ class ServingEngine:
         self._verify_fn = ST.make_verify_step(self.cfg) if self.proposer else None
         self._ref_verify_fn = ST.make_verify_step(self.cfg, ref=True)
 
+        self.tier = (HostTier(ecfg.host_tier_pages, device=self.device)
+                     if ecfg.host_tier_pages > 0 else None)
         self.allocator = PageAllocator(
             self.n_pages, self.page, prefix_sharing=ecfg.prefix_sharing,
-            prefix_cache_pages=ecfg.prefix_cache_pages, host_tier=None)
+            prefix_cache_pages=ecfg.prefix_cache_pages, host_tier=self.tier)
         self.scheduler = Scheduler(ecfg.max_batch, max_queue=ecfg.max_queue)
         self.table = np.zeros((ecfg.max_batch, self.span_pages), np.int32)
         self.last_tok = np.zeros((ecfg.max_batch,), np.int32)
@@ -210,7 +259,8 @@ class ServingEngine:
         self._backend = BK.resolve_backend(cfg.decode_backend, paged=True,
                                            use_kernels=cfg.use_kernels)
         self.fault_plan = fault_plan
-        self._seen_rids: set[int] = set()
+        self.preemption = preemption       # PreemptionHandler-like (.requested)
+        self._seen_rids: set[int] = set()  # submitted once (run() skips them after a restore)
 
     # ------------------------------------------------------------------
     # telemetry (obs/metrics registry + attribute views)
@@ -280,8 +330,16 @@ class ServingEngine:
                                       "pages avoided via prefix sharing (live-hit)")
         self._g_cache_reused = r.gauge("snapmla_cache_reused_pages",
                                        "pages re-adopted from the refcount-0 cache")
+        self._g_cache_restored = r.gauge("snapmla_cache_restored_pages",
+                                         "pages restored from the host tier")
         self._g_cache_dropped = r.gauge("snapmla_cache_dropped_pages",
                                         "cached pages dropped under pressure")
+        self._g_tier_offloads = r.gauge("snapmla_tier_offload_pages",
+                                        "pages offloaded to host memory")
+        self._g_tier_restores = r.gauge("snapmla_tier_restore_pages",
+                                        "pages copied back from host memory")
+        self._g_tier_used = r.gauge("snapmla_tier_slots_used",
+                                    "host tier slots currently occupied")
         self._g_sched_requeues = r.gauge("snapmla_sched_requeues",
                                          "cumulative evict-to-requeue count")
         self._g_sched_active = r.gauge("snapmla_sched_active_slots",
@@ -296,7 +354,11 @@ class ServingEngine:
         self._g_pages_peak_resident.set(a.peak_resident)
         self._g_cache_saved.set(a.pages_saved_by_sharing)
         self._g_cache_reused.set(a.pages_reused_cached)
+        self._g_cache_restored.set(a.pages_restored_host)
         self._g_cache_dropped.set(a.cache_drops)
+        self._g_tier_offloads.set(a.host_offloads)
+        self._g_tier_restores.set(self.tier.restores if self.tier else 0)
+        self._g_tier_used.set(self.tier.num_used if self.tier else 0)
         self._g_sched_requeues.set(self.scheduler.requeues)
         self._g_sched_active.set(self.scheduler.num_active)
 
@@ -377,10 +439,19 @@ class ServingEngine:
         self._wall[req.rid] = {"arrival": time.time()}
         req.arrival_work = self.work_done
         self._seen_rids.add(req.rid)
+        if self.tracer:
+            # the QUEUED span opens at the request's virtual arrival step
+            self.tracer.req_begin(
+                req.rid, "QUEUED", self.tracer.ts(max(int(req.arrival), 0)),
+                args={"prompt_len": req.prompt_len, "max_new": req.max_new})
         if self.scheduler.queue_full:
             self._fault("rejected")
             self._wall[req.rid]["finish"] = time.time()
             self.scheduler.reject(req, self.step_idx, "queue_full")
+            if self.tracer:
+                ts = self.tracer.ts(self.step_idx, TRC.OFF_FAIL)
+                self.tracer.req_end(req.rid, ts, args={"status": "rejected"})
+                self.tracer.req_instant(req.rid, "REJECTED(queue_full)", ts)
             return
         self.scheduler.submit(req)
 
@@ -406,6 +477,47 @@ class ServingEngine:
         if (kind, shape) not in self._prefill_shapes:
             self._prefill_shapes.add((kind, shape))
             self._c_prefill_traces.inc()
+
+    # ------------------------------------------------------------------
+    # host-tier data movement (the allocator decides, the engine moves)
+    # ------------------------------------------------------------------
+
+    def _gather_page(self, page_id: int) -> list[tuple]:
+        """One physical page of every layer's pool, stacked over the layers
+        into one ``(content, rope, scale)`` leaf of [L, page, ...] tensors —
+        the layout of the reference's payload for its scanned layers
+        (engine.py:640-652) — so the tier moves three tensors per page, not
+        three per layer."""
+        pages = [pool_read_page(pool, page_id) for pool in self.state["layers"]]
+        return [tuple(torch.stack(parts) for parts in zip(*pages))]
+
+    def _write_page(self, page_id: int, payload: list[tuple]) -> None:
+        (content, rope, scale), = payload
+        for pool, *leaf in zip(self.state["layers"], content, rope, scale):
+            pool_write_page(pool, page_id, leaf)
+
+    def _drain_tier_ops(self) -> None:
+        """Execute the allocator's pending placement decisions, in decision
+        order: offloads copy a just-evicted page's bytes to its host slot
+        (the page id is back on the free list, but nothing has written it —
+        drains run before any prefill/decode dispatch of the step); restores
+        write a host slot's bytes into the freshly allocated device page and
+        free the slot. ``prefetch`` starts every restore's upload first so
+        the transfers overlap the offloads."""
+        ops = self.allocator.take_pending_tier_ops()
+        if not ops:
+            return
+        assert self.tier is not None, "tier ops without a host tier"
+        if self.tracer:
+            self.tracer.step_phase(self.step_idx, "tier_drain", args={"ops": len(ops)})
+        for kind, _pid, slot in ops:
+            if kind == "restore" and self.tier.has_data(slot):
+                self.tier.prefetch(slot)
+        for kind, pid, slot in ops:
+            if kind == "offload":
+                self.tier.store(slot, self._gather_page(pid))
+            else:
+                self._write_page(pid, self.tier.take(slot))
 
     # ------------------------------------------------------------------
     # sampling + host sync (one transfer per call)
@@ -442,6 +554,11 @@ class ServingEngine:
             req.first_token_step = self.step_idx
             req.first_token_work = self.work_done
             self._wall[req.rid]["first"] = time.time()
+            if self.tracer:
+                self.tracer.req_instant(
+                    req.rid, "FIRST_TOKEN",
+                    self.tracer.ts(self.step_idx, TRC.OFF_FIRST_TOKEN),
+                    args={"token": int(tok)})
         eos_hit = self.ecfg.eos_id is not None and tok == self.ecfg.eos_id
         if len(req.out_tokens) >= req.max_new or eos_hit:
             self._retire(req)
@@ -460,6 +577,11 @@ class ServingEngine:
         self._drop_spec_state(req)
         self.scheduler.retire(req, self.step_idx, self.allocator)
         self._wall[req.rid]["finish"] = time.time()
+        if self.tracer:
+            ts = self.tracer.ts(self.step_idx, TRC.OFF_RETIRE)
+            self.tracer.req_end(req.rid, ts, args={"status": "done"})
+            self.tracer.req_instant(req.rid, "DONE", ts,
+                                    args={"tokens": len(req.out_tokens)})
         self._park(slot)
 
     def _requeue(self, req: Request) -> None:
@@ -468,6 +590,12 @@ class ServingEngine:
         slot = req.slot
         self._drop_spec_state(req)
         self.scheduler.requeue(req, self.allocator)
+        if self.tracer:
+            ts = self.tracer.ts(self.step_idx, TRC.OFF_EVICT)
+            self.tracer.req_end(req.rid, ts, args={"evicted": True})
+            self.tracer.req_instant(req.rid, "EVICTED", ts, args={"requeues": req.requeues})
+            self.tracer.reset_chunks(req.rid)
+            self.tracer.req_begin(req.rid, "QUEUED", ts, args={"requeue": req.requeues})
         self._park(slot)
 
     def _fail(self, req: Request, reason: str) -> None:
@@ -476,6 +604,10 @@ class ServingEngine:
         self.scheduler.fail(req, self.step_idx, self.allocator, reason)
         self._wall.setdefault(req.rid, {"arrival": time.time()})
         self._wall[req.rid]["finish"] = time.time()
+        if self.tracer:
+            ts = self.tracer.ts(self.step_idx, TRC.OFF_FAIL)
+            self.tracer.req_end(req.rid, ts, args={"status": "failed", "reason": reason})
+            self.tracer.req_instant(req.rid, f"FAILED({reason})", ts)
         self._park(slot)
 
     def _sweep_deadlines(self) -> None:
@@ -511,6 +643,9 @@ class ServingEngine:
 
     def _quarantine(self, req: Request) -> None:
         self._fault("nonfinite_rows")
+        if self.tracer:
+            self.tracer.engine_instant(self.step_idx, TRC.OFF_FAIL - 20, "quarantine",
+                                       args={"rid": req.rid, "slot": req.slot})
         if self.ecfg.ref_retry:
             recovered, tok = self._retry_ref(req)
             if recovered:
@@ -530,6 +665,13 @@ class ServingEngine:
             row = np.zeros((self.span_pages,), np.int32)
             row[:len(r.pages)] = r.pages
             self.table[r.slot] = row
+            if self.tracer:
+                self.tracer.req_transition(
+                    r.rid, "PREFILL", self.tracer.ts(self.step_idx, TRC.OFF_ADMIT),
+                    args={"slot": r.slot, "cached_tokens": r.cached_tokens})
+        # land host-tier restores before any prefill chunk can read (or any
+        # reallocation can overwrite) the pages involved
+        self._drain_tier_ops()
         for r in admitted:
             if self.chunk <= 0 or r.cached_tokens <= 0:
                 continue
@@ -550,12 +692,19 @@ class ServingEngine:
         req.status = Status.DECODE
         if req.out_tokens:
             self.last_tok[req.slot] = req.out_tokens[-1]
+            if self.tracer:
+                self.tracer.req_transition(req.rid, "DECODE",
+                                           self.tracer.ts(self.step_idx, TRC.OFF_DECODE),
+                                           args={"replay": True})
             return
         toks, finite = self._postprocess(logits_row, [req])
         if not finite[0]:
             self._fault("failed_prefill")
             self._fail(req, "nonfinite_prefill")
             return
+        if self.tracer:
+            self.tracer.req_transition(req.rid, "DECODE",
+                                       self.tracer.ts(self.step_idx, TRC.OFF_DECODE))
         self._emit(req, int(toks[0]))
 
     def _run_chunk(self, req: Request) -> int:
@@ -579,6 +728,10 @@ class ServingEngine:
         self._c_fetch_bounded.inc(-(-req.prefill_pos // self.page))
         self._c_fetch_full.inc(self.span_pages)
         self._h_chunk_width.observe(bucket)
+        if self.tracer:
+            self.tracer.req_chunk(req.rid, self.step_idx,
+                                  args={"width": width, "bucket": bucket,
+                                        "pos": req.prefill_pos})
         req.prefill_pos += width
         self.allocator.mark_ready(req.pages, req.prefill_pos)
         if req.prefill_pos == len(eff):
@@ -627,6 +780,10 @@ class ServingEngine:
                 if r.out_tokens:                  # replay after requeue
                     r.status = Status.DECODE
                     self.last_tok[r.slot] = r.out_tokens[-1]
+                    if self.tracer:
+                        self.tracer.req_transition(
+                            r.rid, "DECODE", self.tracer.ts(self.step_idx, TRC.OFF_DECODE),
+                            args={"replay": True})
             if fresh:
                 idx = torch.as_tensor([group.index(r) for r in fresh], device=logits.device)
                 toks, finite = self._postprocess(logits[idx], fresh)
@@ -636,6 +793,9 @@ class ServingEngine:
                         self._fail(r, "nonfinite_prefill")
                         continue
                     r.status = Status.DECODE
+                    if self.tracer:
+                        self.tracer.req_transition(
+                            r.rid, "DECODE", self.tracer.ts(self.step_idx, TRC.OFF_DECODE))
                     self._emit(r, int(tok))
             spent += length * len(group)
         return spent
@@ -696,18 +856,19 @@ class ServingEngine:
         injects a raise at this step, or when ``primary`` raises on CPU
         tensors. On the card a raise propagates: a kernel that fails to
         launch is never hidden behind its plain version."""
-        if self.fault_plan and self.fault_plan.backend_raise(self.step_idx):
-            self._fault("backend_faults")
-            self._fault("ref_fallback_steps")
-            return fallback(self.params, *args)
-        try:
-            return primary(self.params, *args)
-        except Exception:
-            if self.device.type != "cpu":
-                raise
-            self._fault("backend_faults")
-            self._fault("ref_fallback_steps")
-            return fallback(self.params, *args)
+        if not (self.fault_plan and self.fault_plan.backend_raise(self.step_idx)):
+            try:
+                return primary(self.params, *args)
+            except Exception:
+                if self.device.type != "cpu":
+                    raise
+        self._fault("backend_faults")
+        self._fault("ref_fallback_steps")
+        if self.tracer:
+            self.tracer.engine_instant(
+                self.step_idx, TRC.PHASE_WINDOWS["decode"][0] + 10, "backend_fault",
+                args={"fallback": "jnp_ref"})
+        return fallback(self.params, *args)
 
     def _dispatch_decode(self, state, seq_lens: np.ndarray):
         """The primary decode dispatch, degraded as ``_degrade`` says."""
@@ -719,7 +880,7 @@ class ServingEngine:
         return self._degrade(self._verify_fn, self._ref_verify_fn,
                              self._dev(tokens), state, self._dev(starts))
 
-    def _note_cost(self, tokens_visited: int, tokens_full: int) -> None:
+    def _note_cost(self, tokens_visited: int, tokens_full: int) -> dict:
         cost = BK.dispatch_cost(
             self._backend, tokens_visited=tokens_visited, tokens_full=tokens_full,
             heads=self.cfg.n_heads, d_c=self.cfg.mla.d_c, d_r=self.cfg.mla.d_rope,
@@ -728,6 +889,7 @@ class ServingEngine:
         self._c_roof_bytes_min.inc(cost["bytes_min"])
         self._c_roof_flops.inc(cost["flops"])
         self._g_roof_frac.set(cost["achieved_fraction"])
+        return cost
 
     def _spec_decode(self, active: list[Request]) -> None:
         """Self-speculative step: draft (host n-gram lookup), verify every
@@ -781,8 +943,8 @@ class ServingEngine:
         self._c_blocks_visited.inc(int(sum(-(-(r.seq_len + t + 1) // self.page)
                                            for r in active for t in range(K))))
         self._c_blocks_full.inc(len(active) * K * self.span_pages)
-        self._note_cost(sum(r.seq_len + t + 1 for r in active for t in range(K)),
-                        len(active) * K * self.span_pages * self.page)
+        cost = self._note_cost(sum(r.seq_len + t + 1 for r in active for t in range(K)),
+                               len(active) * K * self.span_pages * self.page)
 
         idx = 0
         n_drafted = n_accepted = n_emitted = 0
@@ -823,6 +985,16 @@ class ServingEngine:
         drafted_total = self._c_spec_drafted.value
         self._g_spec_accept_rate.set(
             self._c_spec_accepted.value / drafted_total if drafted_total else 0.0)
+        if self.tracer:
+            # verify spans ride the decode phase window (args mark them)
+            self.tracer.step_phase(
+                self.step_idx, "decode",
+                args={"verify": True, "rows": len(active), "q_len": K,
+                      "drafted": n_drafted, "accepted": n_accepted,
+                      "model_bytes": cost["bytes"],
+                      "achieved_fraction": cost["achieved_fraction"]})
+            self.tracer.step_phase(self.step_idx, "postprocess",
+                                   args={"rows": len(flat_reqs)})
 
     def _decode(self, active: list[Request]) -> None:
         """One decode step for every decoding slot."""
@@ -843,13 +1015,19 @@ class ServingEngine:
                     logits[ev.slot, 0] = float("nan")
         self._c_blocks_visited.inc(int(sum(-(-r.seq_len // self.page) for r in active)))
         self._c_blocks_full.inc(len(active) * self.span_pages)
-        self._note_cost(sum(r.seq_len for r in active),
-                        len(active) * self.span_pages * self.page)
+        cost = self._note_cost(sum(r.seq_len for r in active),
+                               len(active) * self.span_pages * self.page)
+        if self.tracer:
+            self.tracer.step_phase(self.step_idx, "decode",
+                                   args={"rows": len(active), "model_bytes": cost["bytes"],
+                                         "achieved_fraction": cost["achieved_fraction"]})
         slots = torch.as_tensor([r.slot for r in active], device=logits.device)
         toks, finite = self._postprocess(logits[slots], active)
         self._w_decode_s.inc(time.time() - t0)
         self._c_decode_tokens.inc(len(active))
         self._c_work.inc(len(active))
+        if self.tracer:
+            self.tracer.step_phase(self.step_idx, "postprocess", args={"rows": len(active)})
         for r, tok, ok in zip(active, toks, finite):
             if not ok:
                 self._quarantine(r)
@@ -863,7 +1041,10 @@ class ServingEngine:
         idle."""
         self._sweep_deadlines()
         decode_in_flight = any(r.status is Status.DECODE for r in self.scheduler.active)
+        finished_before = len(self.scheduler.finished)
         admitted = self._admit()
+        if self.tracer and admitted:
+            self.tracer.step_phase(self.step_idx, "admit", args={"admitted": len(admitted)})
         t_pre = time.time()
         spent = self._prefill_chunked() if self.chunk > 0 \
             else self._prefill_monolithic(admitted)
@@ -873,7 +1054,13 @@ class ServingEngine:
         self.stall_tokens_series.append(spent if decode_in_flight else 0)
         if decode_in_flight:
             self._w_stall_s.inc(time.time() - t_pre)
+        if self.tracer and spent:
+            self.tracer.step_phase(self.step_idx, "prefill",
+                                   args={"tokens": spent, "stalled_decodes": decode_in_flight})
         self._ensure_capacity()
+        # growth-pressure evictions may have queued offloads: copy those
+        # pages' bytes out before the decode dispatch can overwrite them
+        self._drain_tier_ops()
         active = [r for r in self.scheduler.active if r.status is Status.DECODE]
         if active and self.proposer is not None:
             self._spec_decode(active)
@@ -882,12 +1069,122 @@ class ServingEngine:
         live = sum(r.seq_len if r.status is Status.DECODE else r.prefill_pos
                    for r in self.scheduler.active)
         self.util_series.append(self.allocator.stats(live).utilization)
+        if self.tracer:
+            retired = len(self.scheduler.finished) - finished_before
+            if retired:
+                self.tracer.step_phase(self.step_idx, "retire", args={"requests": retired})
+            a = self.allocator
+            self.tracer.counter(self.step_idx, "pages", {
+                "in_use": a.num_in_use, "free": a.num_free, "cached": a.num_cached})
+        if self.quant_probe and self.quant_probe.due(self.step_idx):
+            self.quant_probe.sample(
+                self.step_idx, self.state["layers"],
+                resident_pages=self.allocator.resident_pages(),
+                sink_pages={r.pages[0] for r in self.scheduler.active if r.pages})
         self._c_steps.inc()
         self.step_idx += 1
 
-    def run(self, requests: list[Request]) -> list[RequestResult]:
+    # ------------------------------------------------------------------
+    # checkpoint / restore (host bookkeeping + device pool pages)
+    # ------------------------------------------------------------------
+
+    def _host_state(self) -> dict:
+        """Everything host-owned a restore needs (JSON-safe; rides in the
+        checkpoint manifest, the pool pages ride in arrays.npz)."""
+        sched = self.scheduler
+        return {
+            "step_idx": self.step_idx,
+            "queue": [_req_to_record(r) for r in sched.queue],
+            "slots": [None if r is None else _req_to_record(r) for r in sched.slots],
+            "finished": [_req_to_record(r) for r in sched.finished],
+            "sched_requeues": sched.requeues,
+            "allocator": self.allocator.export_state(),
+            "host_tier": self.tier.export_state() if self.tier is not None else None,
+            "spec": self.proposer.export_state() if self.proposer is not None else None,
+            "table": self.table.tolist(),
+            "last_tok": self.last_tok.tolist(),
+            "seen_rids": sorted(self._seen_rids),
+            "wall": {str(rid): dict(marks) for rid, marks in self._wall.items()},
+            "faults": dict(self.faults),
+            "counters": {
+                "prefill_tokens_series": self.prefill_tokens_series,
+                "stall_tokens_series": self.stall_tokens_series,
+                "util_series": self.util_series,
+            },
+            # the registry holds every scalar counter; the tracer state keeps
+            # span ids unique across a restore, so the resumed run appends to
+            # the same trace
+            "registry": self.registry.export_state(),
+            "trace": self.tracer.export_state() if self.tracer is not None else None,
+        }
+
+    def snapshot(self, directory: str, *, keep: int = 3) -> str:
+        """Atomic engine checkpoint: the pool pages (the decode state) in
+        arrays.npz, host bookkeeping in the manifest (the host tier's
+        offloaded payloads included). Returns the published path."""
+        # pending tier moves land, and every step's writes and every tier
+        # copy (on its side stream) finish, before the state is read
+        self._drain_tier_ops()
+        self._sync()
+        return CK.save_checkpoint(directory, self.step_idx, self.state,
+                                  extra_manifest={"engine": self._host_state()}, keep=keep)
+
+    def restore(self, path: str) -> None:
+        """Adopt a snapshot into THIS engine (same ModelConfig / EngineConfig;
+        only state is replaced). Resumed decoding is token-identical to the
+        uninterrupted run: page tables, lengths, pending last tokens and the
+        FP8 pool pages round-trip, and sampling seeds derive from (rid, token
+        count)."""
+        tree, manifest = CK.load_checkpoint(path, self.state)
+        host = manifest["engine"]
+        tier_state = host.get("host_tier")
+        if tier_state is not None and self.tier is None:
+            raise ValueError("checkpoint carries a host tier but this engine has "
+                             "host_tier_pages == 0")
+        self.state = tree
+        sched = Scheduler(self.ecfg.max_batch, max_queue=self.ecfg.max_queue)
+        for rec in host["queue"]:
+            sched.queue.append(_req_from_record(rec))
+        sched.slots = [None if rec is None else _req_from_record(rec) for rec in host["slots"]]
+        sched.finished = [_req_from_record(rec) for rec in host["finished"]]
+        sched.requeues = int(host["sched_requeues"])
+        self.scheduler = sched
+        # tier payloads first: the allocator's invariant check cross-references
+        # host-slot ownership against the restored tier
+        if tier_state is not None:
+            self.tier.restore_state(tier_state)
+        self.allocator.restore_state(host["allocator"])
+        if self.proposer is not None:
+            self.proposer.restore_state(host.get("spec") or {})
+        self.table = np.asarray(host["table"], np.int32)
+        self.last_tok = np.asarray(host["last_tok"], np.int32)
+        self._seen_rids = set(host["seen_rids"])
+        self._wall = {int(rid): {k: float(v) for k, v in marks.items()}
+                      for rid, marks in host["wall"].items()}
+        c = host["counters"]
+        self.prefill_tokens_series = list(c["prefill_tokens_series"])
+        self.stall_tokens_series = list(c["stall_tokens_series"])
+        self.util_series = list(c["util_series"])
+        self.registry.restore_state(host["registry"])
+        for kind in FAULT_KINDS:
+            self._c_faults.labels(kind=kind)
+        self._fault("restores")
+        if self.tracer is not None and host.get("trace") is not None:
+            self.tracer.restore_state(host["trace"])
+        self.step_idx = int(host["step_idx"])
+
+    def run(self, requests: list[Request], *, ckpt_dir: str | None = None,
+            ckpt_every: int = 0) -> list[RequestResult]:
         """Run a workload to drain. Requests carry virtual arrival times (in
-        engine steps) and are submitted once the engine clock reaches them."""
+        engine steps) and are submitted once the engine clock reaches them.
+
+        With ``ckpt_dir`` set, the engine snapshots every ``ckpt_every``
+        steps (and at a preemption). A preemption request (from the
+        ``PreemptionHandler`` or an injected ``preempt`` fault) makes the run
+        snapshot and raise ``EnginePreempted`` at the next step boundary;
+        running the same workload on an engine restored from the latest
+        checkpoint resumes token-identically (requests seen before the
+        snapshot are skipped on resubmission)."""
         pending = sorted(requests, key=lambda r: (r.arrival, r.rid))
         i = 0
         while i < len(pending) or not self.scheduler.drained:
@@ -897,7 +1194,22 @@ class ServingEngine:
                 if req.rid in self._seen_rids:
                     continue
                 self.submit(req)
+            if (self.fault_plan and self.preemption is not None
+                    and self.fault_plan.preempt(self.step_idx)):
+                self.preemption.trigger()
             self.step()
+            preempted = (self.preemption is not None
+                         and getattr(self.preemption, "requested", False))
+            if preempted:
+                self._fault("preemptions")
+                if self.tracer:
+                    self.tracer.engine_instant(self.step_idx, 0, "preemption",
+                                               args={"snapshot": bool(ckpt_dir)})
+            if ckpt_dir and (preempted or (ckpt_every and self.step_idx % ckpt_every == 0)):
+                self.snapshot(ckpt_dir)
+            if preempted:
+                raise EnginePreempted(f"preempted at step {self.step_idx} "
+                                      f"(snapshot: {ckpt_dir or 'none'})")
         out = []
         for r in sorted(self.scheduler.finished, key=lambda r: r.rid):
             w = self._wall[r.rid]
@@ -978,12 +1290,15 @@ class ServingEngine:
             },
             "prefix_cache": {
                 "budget_pages": self.ecfg.prefix_cache_pages,
-                "host_tier_pages": 0,
+                "host_tier_pages": self.ecfg.host_tier_pages,
                 "cached": stats.cached,
                 "resident": stats.resident,
                 "peak_resident": stats.peak_resident,
                 "reused_cached": stats.pages_reused_cached,
+                "restored_host": stats.pages_restored_host,
+                "offloads": stats.host_offloads,
                 "drops": stats.cache_drops,
+                "host_used": stats.host_used,
                 "prefill_skipped_tokens": self.prefill_skipped_tokens,
                 "nodes": len(self.allocator.tree) if self.allocator.tree is not None else 0,
             },

@@ -20,8 +20,13 @@ for name in names:
 leaked = sorted(m for m in sys.modules if m == "repro" or m.startswith("repro."))
 assert not leaked, leaked
 assert sys.modules["jax"] is None
-print(len(names))
+print(" ".join(names))
 """
+
+# modules the isolation checks must reach (the later slices' among them)
+_REQUIRED = ("repro_torch.serving.tiering", "repro_torch.checkpoint.checkpoint",
+             "repro_torch.runtime.fault_tolerance", "repro_torch.obs.trace",
+             "repro_torch.obs.trace_report", "repro_torch.obs.quant_health")
 
 
 def test_import_every_module_without_jax():
@@ -29,12 +34,16 @@ def test_import_every_module_without_jax():
                          text=True, cwd=ROOT, timeout=120,
                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20      # every module of the slice was imported
+    names = out.stdout.split()
+    assert len(names) >= 20                   # every module of the slice was imported
+    assert set(_REQUIRED) <= set(names), set(_REQUIRED) - set(names)
 
 
 def test_no_jax_or_repro_import_in_sources():
     pat = re.compile(r"^\s*(import\s+(jax|repro)\b|from\s+(jax|repro)(\.|\s))", re.M)
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    rel = {str(f.relative_to(ROOT / "src")).replace("/", ".")[:-3] for f in files[:-1]}
+    assert set(_REQUIRED) <= rel
     bad = [str(f) for f in files if pat.search(f.read_text())]
     assert not bad, bad

@@ -131,7 +131,7 @@ def test_eos_early_stop_pads(setup):
         assert all(t == eos for t in row[cut:])
 
 
-def test_config_copy_and_unported_paths(capsys):
+def test_config_copy_and_unported_paths(capsys, tmp_path):
     from repro.configs import get_config as j_get
     jc, tc = j_get("mla-7b"), get_config("mla-7b")
     assert jc.tie_embeddings                      # the port's unembedding is tied
@@ -153,11 +153,20 @@ def test_config_copy_and_unported_paths(capsys):
     assert isinstance(paged["layers"][0], tkv.PagedMLAPool)
     with pytest.raises(ValueError, match="not ported"):
         get_config("xlstm-1.3b")
-    # the engine's flags whose modules are not ported yet exit at parse time
-    for flags in (["--restartable"], ["--trace-out", "t.json"],
-                  ["--host-tier-pages", "2", "--prefix-cache-pages", "2"]):
-        with pytest.raises(SystemExit):
-            tserve.main(["--smoke", "--engine", "--device", "cpu", *flags])
+    # the engine's snapshot / restore, tracer, host tier and probe flags run:
+    # a preempted, restored run passes serve's own gates (the greedy oracle,
+    # no leaked page, the trace validated on write)
+    trace = tmp_path / "t.json"
+    tserve.main(["--smoke", "--engine", "--device", "cpu", "--batch", "3", "--max-batch", "1",
+                 "--prompt-len", "40", "--shared-prefix", "32", "--gen", "3",
+                 "--prefill-chunk", "16", "--prefix-cache-pages", "1", "--host-tier-pages", "2",
+                 "--restartable", "--ckpt-dir", str(tmp_path / "ckpt"), "--ckpt-every", "2",
+                 "--inject", "preempt:3", "--trace-out", str(trace), "--trace-clock", "virtual",
+                 "--quant-health-every", "2"])
+    out = capsys.readouterr().out
+    assert "preemptions=1, restores=1" in out and "parity vs static-batch generate" in out
+    assert "restored from host" in out and "quant health" in out and "[serve] trace:" in out
+    assert trace.exists()
     # --fused is ported (eager on the CPU); the engine has no fused mode
     tserve.main(["--smoke", "--fused", "--device", "cpu", "--gen", "3"])
     assert "fused-graph" in capsys.readouterr().out

@@ -15,7 +15,8 @@
   * the port's own contracts: sampled runs reproducible per seed, sampled
     speculative equal to sampled sequential, chunk widths within the bucket
     count, the NaN quarantine and the backend fallback, a clean drain, the
-    unported options refused, and ``serve --engine`` on the CPU.
+    once-refused options (host tier, probe, tracer) built in and run, and
+    ``serve --engine`` on the CPU.
 """
 import dataclasses
 
@@ -457,13 +458,32 @@ def test_quarantine_and_backend_fallback(model, spec):
 
 
 def test_unported_engine_options_raise(model):
+    """The host tier, the quant-health probe and the tracer, once refused,
+    are ported: each option builds its module into the engine and a run with
+    all of them greedy-equals the plain run. What the reference refuses still
+    raises: a host tier without the prefix cache, an unknown trace clock."""
     _, tcfg, _, tparams = model
-    for kw in (dict(host_tier_pages=2, prefix_cache_pages=2), dict(quant_health_every=2)):
-        with pytest.raises(ValueError, match="not ported"):
-            tengine.ServingEngine(tcfg, tparams, tengine.EngineConfig(**kw), device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        tengine.ServingEngine(tcfg, tparams, tengine.EngineConfig(), tracer=object(),
+    from repro_torch.obs.trace import SpanTracer
+    prompts = _prompts(31, [40] * 3, common=32)
+    kw = dict(max_batch=1, max_pages_per_seq=_span(40, 3))
+    plain, _ = _port_run(model, prompts, 3, chunk=CHUNK, **kw)
+    tracer = SpanTracer()
+    eng = tengine.ServingEngine(
+        dataclasses.replace(tcfg, prefill_chunk=CHUNK), tparams,
+        tengine.EngineConfig(host_tier_pages=2, prefix_cache_pages=1, quant_health_every=2,
+                             **kw), tracer=tracer, device="cpu")
+    assert eng.tier is not None and eng.quant_probe is not None and eng.tracer is tracer
+    res = eng.run([tsched.Request(rid=i, prompt=p, max_new=3, arrival=0.0)
+                   for i, p in enumerate(prompts)])
+    assert {r.rid: (r.status, r.tokens) for r in res} == plain
+    m = eng.metrics()
+    assert m["prefix_cache"]["offloads"] > 0 and eng.quant_probe.samples
+    assert len(tracer.chrome_payload()["traceEvents"]) > 0
+    with pytest.raises(ValueError, match="prefix_cache_pages"):
+        tengine.ServingEngine(tcfg, tparams, tengine.EngineConfig(host_tier_pages=2),
                               device="cpu")
+    with pytest.raises(ValueError, match="clock"):
+        SpanTracer(clock="device")
 
 
 def test_engine_warm_up_runs_plain_versions_on_cpu(model):
