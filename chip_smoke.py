@@ -31,8 +31,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
   4. serve   — ``launch.serve.generate`` on full mla-7b (30 layers, float32
                weights from a seeded generator), batch 4, prompt 512, gen 16,
                contiguous and paged caches, FMA and AMLA, kv_splits 0 and 4, a
-               sink-guarded run: kernel backend against the reference backend,
-               and contiguous against paged greedy tokens; each run one decode
+               sink-guarded run: kernel backend against the plain backend (the
+               kernels' plain version, ``torch_pipeline`` /
+               ``torch_paged_pipeline``, FMA or AMLA), and contiguous against
+               paged greedy tokens; each run one decode
                launch per layer and step (C and #4 folded); then
                ``launch.serve.generate_fused`` (one decode step captured once
                as a CUDA graph and replayed per token) on paged kv0, paged kv4
@@ -98,7 +100,15 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                held at granite-3-2b's d_head 64 (serving shape and ~32k), and
                ``serve.generate`` runs on full granite-3-2b (40 layers) and
                on one full-width layer of mixtral-8x7b and of
-               qwen3-moe-30b-a3b (MoE MLPs), #7 once per layer and step;
+               qwen3-moe-30b-a3b (MoE MLPs), #7 once per layer and step.
+               The recurrent families: #7 at recurrentgemma-9b's d_head 256
+               (MQA, Hkv 1, g 16; fp8, int8, none at the serving shape, a
+               wrapped 2,048-slot ring under its 2,048 window, and ~32k), then
+               ``serve.generate`` on full recurrentgemma-9b (38 layers: 26
+               rglru, 12 swa through #7, once per swa layer and step) and
+               full xlstm-1.3b (48 mlstm / slstm layers, no kernel on its
+               path), each also through ``generate_fused`` (the gates of
+               phase 4) and profiled, eager and replayed;
   9. deepseek — deepseek-v3-mla at full width (128 heads, q-LoRA, 256
                experts top-8 + 1 shared) cut to one layer, after every other
                model is freed: ``serve.generate`` contiguous kv0, paged kv0,
@@ -113,6 +123,14 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                and K2 once per layer and step, and its decode step under
                torch.profiler, eager and replayed, beside the expert weights'
                byte bound.
+
+After phase 2 the split autotuner sweeps the paged decode kernels once at
+mla-7b's serving shape (``autotune.measure_split_sweep``, CUDA-graph
+replays) into ``build/chip_smoke_splits_profile.json`` (never the committed
+``H100_splits_profile.json``), and the resolution rule, fed that file,
+returns the sweep's best. The serve and engine gates expect the decode
+kernel their split plan resolves to (the committed profile's plan, else the
+heuristic).
 
 Phase 2 also holds the fused fetch-dequant kernel (#11 paged, #10 its
 contiguous mode) bitwise against its plain version at ~32k tokens and at the
@@ -218,6 +236,7 @@ SUMMARY_EXTRA = {
                                  ("long_32k_h128_verify", 8)) if "verify" in name
     else (("serve_shape_h128", s), ("long_32k_h128", ls)),
     "dh64": lambda name, s, ls: (("gqa_granite_serve", 0), ("gqa_granite_long_32k", 0)),
+    "dh256": lambda name, s, ls: (("gqa_rg_serve", 0), ("gqa_rg_long_32k", 0)),
 }
 # E1-E3 (phase 5): serve's engine flags
 E1 = ["--batch", "6", "--max-batch", "3", "--prompt-lens", "640,200,384",
@@ -972,6 +991,42 @@ def no_verify_checks(gen, variant, scale):
 
 
 
+SWEEP_PROFILE = "build/chip_smoke_splits_profile.json"   # never the committed profile
+
+
+def phase_autotune() -> None:
+    """One split sweep of the autotuner (``autotune.measure_split_sweep``):
+    the paged decode kernels at mla-7b's serving shape (batch 4, capacity
+    640, 528 tokens, 32 heads, FMA), each candidate split count as
+    CUDA-graph replays, saved into its own file under ``build/``; loaded
+    back, the port's resolution rule returns that sweep's best. The
+    in-process profile is then dropped, so later phases read the committed
+    one again."""
+    import torch
+    from repro_torch.kernels.mla_decode import autotune, ops
+    path = ROOT / SWEEP_PROFILE
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    prof = autotune.SplitProfile(device={"name": torch.cuda.get_device_name(0)})
+    measured = autotune.measure_split_sweep(640, PAGE, 4, d_c=D_C, d_r=D_R, heads=H,
+                                            fill=528 / 640, layout="paged", profile=prof,
+                                            device="cuda")
+    prof.save(path)
+    loaded = autotune.SplitProfile.load(path)
+    best = loaded.lookup(640, PAGE, 4, layout="paged")
+    try:
+        autotune.reset(loaded)
+        resolved = ops.resolve_num_splits(None, 640, PAGE, 4, "paged")
+    finally:
+        autotune.reset()
+    if best != autotune._pick_best(measured) or resolved != best:
+        raise AssertionError(f"autotune: sweep {measured} best {best}, resolved {resolved}")
+    emit(phase="autotune", shape=dict(capacity=640, block_n=PAGE, batch=4, heads=H,
+                                      tokens=528, layout="paged", rescale="fma"),
+         measured_us=measured, best=best, resolved=resolved, file=SWEEP_PROFILE,
+         seconds=time.time() - t0)
+
+
 def phase_layer(gen):
     """One full-width SnapMLA layer, decode_step over a ~32k-token cache,
     paged and contiguous: the kernel steps are this path's counted run."""
@@ -1063,20 +1118,40 @@ def phase_serve():
 
 def serve_cfg(base, run, backend):
     """``base`` on a serve run (paged, kv_splits, rescale, sink_tokens) and
-    backend."""
+    backend: "kernel", or "plain", the kernels' plain version (the pipeline
+    form, FMA or AMLA: ``torch_pipeline`` / ``torch_paged_pipeline``; the
+    reference backends' parallel form has no AMLA)."""
     paged, splits, rescale, sink = run
+    if backend == "plain":
+        backend = "torch_paged_pipeline" if paged else "torch_pipeline"
     return dataclasses.replace(base, kv_paged=paged, kv_splits=splits, kv_rescale=rescale,
                                kv_sink_tokens=sink, decode_backend=backend,
                                use_kernels=backend == "kernel")
 
 
-def decode_kernel(run) -> str:
+def planned_splits(run, capacity=640, batch=4) -> int:
+    """The split count a serve run's decode resolves to (the port's rule:
+    kv_splits, else the H100 split profile's plan, else the heuristic) at
+    the cache ``capacity`` (a 512-token prompt + 16: 640) and ``batch``."""
+    from repro_torch.kernels.mla_decode import ops
+    paged, splits, rescale, _ = run
+    return ops.resolve_num_splits(splits, capacity, PAGE, batch,
+                                  "paged" if paged else "contiguous", rescale)
+
+
+def serve_shape(prompts, gen_steps=16):
+    """(cache capacity, batch) of ``serve.generate`` on ``prompts``."""
+    from repro_torch.core.kvcache import page_aligned_capacity
+    return page_aligned_capacity(prompts.shape[1] + gen_steps, PAGE), prompts.shape[0]
+
+
+def decode_kernel(run, capacity=640, batch=4) -> str:
     """The one attention launch of an MLA decode step on a serve run:
     Fused-Q-Quant runs in the decode kernel's prologue, the combine (C or
-    #4) in its epilogue; kv_splits 0 plans one split at this capacity (the
-    single pass)."""
-    paged, splits, rescale, _ = run
-    return (("paged_" if paged else "") + ("splitkv_decode" if splits else
+    #4) in its epilogue; one planned split is the single pass."""
+    paged, _, rescale, _ = run
+    split = planned_splits(run, capacity, batch) > 1
+    return (("paged_" if paged else "") + ("splitkv_decode" if split else
                                            "single_pass_decode")
             + ("_amla" if rescale == "amla" else ""))
 
@@ -1086,7 +1161,8 @@ def _add(total: dict, part: dict) -> None:
         total[k] = total.get(k, 0) + v
 
 
-def fused_gate(lbl, cfg, params, prompts, loop, plain, kernel, gen_steps=16) -> dict:
+def fused_gate(lbl, cfg, params, prompts, loop, plain, kernel, gen_steps=16,
+               per_step=None) -> dict:
     """``serve.generate_fused`` on ``cfg`` against ``generate``'s kernel run
     ``loop`` and its plain-backend run ``plain`` (each (tokens, tok/s,
     logits)) on the same weights and prompts: finite logits; the step
@@ -1094,10 +1170,11 @@ def fused_gate(lbl, cfg, params, prompts, loop, plain, kernel, gen_steps=16) -> 
     (else the largest difference is reported, and fails past the serve
     gate's 1e-2 of the largest logit); against the plain backend the serve
     gates (prefill tokens equal, first decode step within 1e-2); and
-    ``kernel`` launched once per layer and decode step and nothing else (D,
-    C and #4 stay folded), counted as the launches made eagerly (the first
-    decode step) plus those recorded into the graph times its replays. A
-    counted main path. Returns its launches."""
+    ``kernel`` launched once per layer (``per_step`` of them, default every
+    layer; ``kernel`` None: no launch at all) and decode step and nothing
+    else (D, C and #4 stay folded), counted as the launches made eagerly
+    (the first decode step) plus those recorded into the graph times its
+    replays. A counted main path. Returns its launches."""
     import torch
     from repro_torch.kernels import _lib
     from repro_torch.launch import serve
@@ -1110,8 +1187,10 @@ def fused_gate(lbl, cfg, params, prompts, loop, plain, kernel, gen_steps=16) -> 
     eager, captured = dict(_lib.LAUNCHES), dict(_lib.CAPTURED)   # ... and ends here
     replays = stats["replays"]
     launches = {k: eager.get(k, 0) + captured.get(k, 0) * replays for k in eager | captured}
-    want = {kernel: cfg.n_layers * (gen_steps - 1)}
-    if replays != gen_steps - 2 or captured != {kernel: cfg.n_layers} or launches != want:
+    per_step = cfg.n_layers if per_step is None else per_step
+    want = {kernel: per_step * (gen_steps - 1)} if kernel else {}
+    if replays != gen_steps - 2 or captured != ({kernel: per_step} if kernel else {}) \
+            or launches != want:
         raise AssertionError(f"fused {lbl}: launches {eager} + {captured} x {replays} replays "
                              f"!= {want}")
     l_toks, l_tps, l_logits = loop
@@ -1140,9 +1219,10 @@ def fused_gate(lbl, cfg, params, prompts, loop, plain, kernel, gen_steps=16) -> 
 
 def serve_runs(base, params, prompts, runs):
     """``serve.generate`` (16 new tokens) on each run (paged, kv_splits,
-    rescale, sink_tokens), kernel backend against the reference backend:
-    finite logits, equal prefill tokens, the first decode step within 1e-2 of
-    the largest logit, one attention launch per layer and decode step, and
+    rescale, sink_tokens), kernel backend against the plain backend (the
+    kernels' plain version, ``serve_cfg(..., "plain")``): finite logits,
+    equal prefill tokens, the first decode step within 1e-2 of the largest
+    logit, one attention launch per layer and decode step, and
     each contiguous run's paged twin bit-identical. The kernel runs are the
     counted path. Returns (launches, the kernel runs' outputs, the plain
     runs' outputs)."""
@@ -1150,7 +1230,7 @@ def serve_runs(base, params, prompts, runs):
     from repro_torch.kernels import _lib
     from repro_torch.launch import serve
 
-    refs = {run: serve.generate(serve_cfg(base, run, "ref"), params, prompts, 16,
+    refs = {run: serve.generate(serve_cfg(base, run, "plain"), params, prompts, 16,
                                 return_logits=True)
             for run in runs}
     kern, run_launches, launches = {}, {}, {}
@@ -1162,7 +1242,7 @@ def serve_runs(base, params, prompts, runs):
                                        return_logits=True)
         torch.cuda.synchronize()
         got = run_launches[run] = dict(_lib.LAUNCHES)   # ... and ends here
-        want = {decode_kernel(run): base.n_layers * steps.n}
+        want = {decode_kernel(run, *serve_shape(prompts)): base.n_layers * steps.n}
         if got != want:
             raise AssertionError(f"serve {run}: launches {got} != {want} for {steps.n} decode "
                                  f"steps")
@@ -1195,6 +1275,12 @@ def serve_runs(base, params, prompts, runs):
              first_step_logits_rel_err=first, launches=run_launches[run])
     for paged, splits, rescale, sink in runs:   # the two layouts: bit-identical
         if paged or sink or (True, splits, rescale, 0) not in kern:
+            continue
+        plans = [planned_splits((p, splits, rescale, 0), *serve_shape(prompts))
+                 for p in (False, True)]
+        if plans[0] != plans[1]:     # the profile plans the two layouts apart
+            emit(phase="serve", arch=base.name, check="contiguous vs paged", kv_splits=splits,
+                 rescale=rescale, skipped=f"planned splits {plans} (contiguous, paged)")
             continue
         a, b = kern[(False, splits, rescale, 0)], kern[(True, splits, rescale, 0)]
         diff = float((a[2] - b[2]).abs().max())
@@ -1273,6 +1359,7 @@ def engine_kit(base, params):
     import torch
     from repro_torch.core.kvcache import page_aligned_capacity
     from repro_torch.kernels import _lib
+    from repro_torch.kernels.mla_decode import ops
     from repro_torch.launch import serve
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.serving.scheduler import Request
@@ -1364,7 +1451,7 @@ def engine_kit(base, params):
             return toks, finite
 
     kcfg = dataclasses.replace(base, decode_backend="kernel", use_kernels=True)
-    pcfg = dataclasses.replace(base, decode_backend="ref", use_kernels=False)
+    pcfg = dataclasses.replace(base, decode_backend="torch_paged_pipeline", use_kernels=False)
     launches: dict = {}
 
     def parse(flags, **over):
@@ -1433,13 +1520,16 @@ def engine_kit(base, params):
 
     def expected_launches(eng, amla=False):
         """One launch per layer of each kernel a dispatch runs: a decode step
-        runs the single-pass decode (these spans plan one split) with
-        Fused-Q-Quant in its prologue, a verify step the q_len > 1 split-KV
+        runs the decode kernel its planned split count takes (the single pass
+        at one split) with Fused-Q-Quant in its prologue, a verify step the q_len > 1 split-KV
         kernel with Fused-Q-Quant in its prologue and the combine (C, or #4
         under AMLA) in its epilogue, a chunk step the fused fetch-dequant."""
         L, d = base.n_layers, eng.dispatches
         sfx = "_amla" if amla else ""
-        want = {"paged_single_pass_decode" + sfx: L * d["decode"],
+        splits = ops.resolve_num_splits(eng.cfg.kv_splits, eng.span_pages * eng.page, eng.page,
+                                        eng.ecfg.max_batch, "paged", "amla" if amla else "fma")
+        decode = "paged_splitkv_decode" if splits > 1 else "paged_single_pass_decode"
+        want = {decode + sfx: L * d["decode"],
                 "paged_splitkv_decode_verify" + sfx: L * d["verify"],
                 "paged_fetch_dequant": L * d["chunk"]}
         return {k: v for k, v in want.items() if v}
@@ -1889,16 +1979,31 @@ GQA_CASES = [  # #7's cases: (tag, fmt, lens, N, Hkv, g, dh, window, block)
     ("gqa_long_32k", "fp8_e4m3", GQA_LONG_LENS, 32768, 8, 3, 128, 0, PAGE),
     # granite-3-2b's heads: d_head 64, Hkv 8, g 4
     ("gqa_granite_serve", "fp8_e4m3", GQA_LLAMA_LENS, 640, 8, 4, 64, 0, PAGE),
-    ("gqa_granite_long_32k", "fp8_e4m3", GQA_LONG_LENS, 32768, 8, 4, 64, 0, PAGE)]
+    ("gqa_granite_long_32k", "fp8_e4m3", GQA_LONG_LENS, 32768, 8, 4, 64, 0, PAGE),
+    # recurrentgemma-9b's swa layers: MQA (Hkv 1, g 16) at d_head 256, window
+    # 2048; the serving shape (a 640-slot ring, the window not yet reached),
+    # a wrapped 2,048-slot ring, and 32k rows (no window)
+    ("gqa_rg_serve", "fp8_e4m3", GQA_LLAMA_LENS, 640, 1, 16, 256, 2048, PAGE),
+    ("gqa_rg_serve_int8", "int8", GQA_LLAMA_LENS, 640, 1, 16, 256, 2048, PAGE),
+    ("gqa_rg_serve_none", "none", GQA_LLAMA_LENS, 640, 1, 16, 256, 2048, PAGE),
+    ("gqa_rg_ring", "fp8_e4m3", [3000, 2100, 700, 2048], 2048, 1, 16, 256, 2048, PAGE),
+    ("gqa_rg_long_32k", "fp8_e4m3", GQA_LONG_LENS, 32768, 1, 16, 256, 0, PAGE)]
 GQA_SWEEP = ("gqa_llama_serve", "gqa_qwen_serve", "gqa_long_32k", "gqa_granite_serve",
-             "gqa_granite_long_32k")  # the width line's cases
+             "gqa_granite_long_32k", "gqa_rg_serve", "gqa_rg_long_32k")  # the width line
 GQA_SERVE = [  # (arch, layers kept (0 = all), batch, prompt, gen, formats)
     ("llama3.2-3b", 0, 4, 512, 16, ("fp8_e4m3", "none")),
     ("gemma3-27b", 6, 2, 1200, 16, ("fp8_e4m3",)),
     ("granite-3-2b", 0, 4, 512, 16, ("fp8_e4m3",)),
     # the MoE GQA models at full width, one superblock (one layer) each
     ("mixtral-8x7b", 1, 4, 512, 16, ("fp8_e4m3",)),
-    ("qwen3-moe-30b-a3b", 1, 4, 512, 16, ("fp8_e4m3",))]
+    ("qwen3-moe-30b-a3b", 1, 4, 512, 16, ("fp8_e4m3",)),
+    # the recurrent families at full width and depth: recurrentgemma-9b (26
+    # rglru layers, 12 swa layers through #7 at d_head 256), xlstm-1.3b (42
+    # mlstm, 6 slstm; no kernel on its path)
+    ("recurrentgemma-9b", 0, 4, 512, 16, ("fp8_e4m3",)),
+    ("xlstm-1.3b", 0, 4, 512, 16, ("fp8_e4m3",))]
+# the GQA_SERVE models also run through generate_fused and are profiled
+FUSED_SERVE = ("llama3.2-3b", "recurrentgemma-9b", "xlstm-1.3b")
 
 
 def gqa_case(gen, fmt, lens, N, Hkv, g, dh, window=0, page=PAGE):
@@ -1967,17 +2072,18 @@ def fetch_ptxas() -> dict:
 
 def gqa_ptxas() -> None:
     """Registers and spills of every #7 instantiation (format, head-tile
-    width), from the build's -Xptxas -v report: one line; raises on a spill
-    or a missing report."""
+    width, head-size bucket: d_head <= 128 or 256), from the build's -Xptxas
+    -v report: one line; raises on a spill or a missing report."""
     from repro_torch.kernels import _lib
     from repro_torch.kernels.gqa_decode import kernel as GK
     fmts = {v: k for k, v in GK.FMT_CODES.items()}
     rows = {}
     for name, (regs, spill) in ptxas_entries(_lib.BUILD_LOG).items():
         if "gqa_decode_kernel" in name:
-            f, w = re.search(r"ILi(\d+)ELi(\d+)E", name).groups()
-            rows[f"{fmts[int(f)]} width {w}"] = dict(registers=regs, spill_bytes=spill)
-    want = {f"{f} width {w}" for f in GK.FMT_CODES for w in GK.GQA_HEAD_WIDTHS}
+            f, w, dh = re.search(r"ILi(\d+)ELi(\d+)ELi(\d+)E", name).groups()
+            rows[f"{fmts[int(f)]} width {w} dh<={dh}"] = dict(registers=regs, spill_bytes=spill)
+    want = {f"{f} width {w} dh<={dh}" for f in GK.FMT_CODES for w in GK.GQA_HEAD_WIDTHS
+            for dh in (128, 256)}
     if set(rows) != want or any(None in r.values() for r in rows.values()):
         raise AssertionError(f"#7: ptxas report incomplete: {rows}")
     spills = {k: r for k, r in rows.items() if r["spill_bytes"]}
@@ -2081,12 +2187,13 @@ class _CountDecodeSteps:
 
 
 def phase_gqa_serve(arch, layers, batch, prompt_len, gen_steps, fmts, fused=False):
-    """``serve.generate`` on one GQA model at full width (depth cut to
+    """``serve.generate`` on one GQA or recurrent model at full width (depth cut to
     ``layers`` when non-zero), weights from a seeded generator: the kernel
     backend against the reference backend per format; with ``fused``, the
     fp8 kernel run repeated through ``serve.generate_fused`` (``fused_gate``).
     The kernel runs and the fused run are this path's counted runs: #7
-    launches exactly once per layer and decode step. Returns (launches, cfg,
+    launches exactly once per GQA layer (``attn`` / ``swa``; recurrentgemma's
+    ``rglru`` layers launch nothing) and decode step. Returns (launches, cfg,
     params, prompts)."""
     import torch
     from repro_torch.configs import get_config
@@ -2106,6 +2213,8 @@ def phase_gqa_serve(arch, layers, batch, prompt_len, gen_steps, fmts, fused=Fals
          gib=torch.cuda.memory_allocated() / 2**30)
     prompts = torch.randint(0, base.vocab_size, (batch, prompt_len), generator=gen,
                             device="cuda")
+    n_gqa = sum(k in ("attn", "swa") for k in base.layer_kinds)
+    kernel = "gqa_decode" if n_gqa else None    # xlstm-1.3b: no kernel on its path
     launches: dict = {}
     for fmt in fmts:
         def cfg_of(backend):
@@ -2129,15 +2238,15 @@ def phase_gqa_serve(arch, layers, batch, prompt_len, gen_steps, fmts, fused=Fals
             raise AssertionError(f"{lbl}: first-step logits rel err {first}")
         if not torch.equal(toks[:, 0], r_toks[:, 0]):
             raise AssertionError(f"{lbl}: prefill tokens differ")
-        want = base.n_layers * steps.n
-        if run_launches.get("gqa_decode", 0) != want:
-            raise AssertionError(f"{lbl}: #7 launches {run_launches} != {base.n_layers} "
+        want = {kernel: n_gqa * steps.n} if kernel else {}
+        if run_launches != want:
+            raise AssertionError(f"{lbl}: launches {run_launches} != {want}: {n_gqa} GQA "
                                  f"layers x {steps.n} decode steps")
         _add(launches, run_launches)
         if fused and fmt == "fp8_e4m3":
             _add(launches, fused_gate(f"{arch} fmt={fmt}", cfg_of("kernel"), params, prompts,
                                       (toks, tps, logits), (r_toks, r_tps, r_logits),
-                                      "gqa_decode", gen_steps))
+                                      kernel, gen_steps, per_step=n_gqa))
         emit(phase="gqa_serve", arch=arch, layers=base.n_layers, batch=batch,
              prompt=prompt_len, gen=gen_steps, fmt=fmt, window=base.window,
              decode_steps=steps.n, launches=run_launches, tok_per_s=tps,
@@ -2192,7 +2301,8 @@ def phase_deepseek():
     got, kern, refs = serve_runs(base, params, wide, [run])
     _add(launches, got)
     _add(launches, fused_gate(f"deepseek {run} batch {batch}", serve_cfg(base, run, "kernel"),
-                              params, wide, kern[run], refs[run], decode_kernel(run)))
+                              params, wide, kern[run], refs[run],
+                              decode_kernel(run, *serve_shape(wide))))
     emit(phase="deepseek_wide", batch=batch, prompt=plen, decode_capacity_per_expert=cap,
          held_to_plain=["generate", "generate_fused"])
     del kern, refs, wide
@@ -2364,6 +2474,7 @@ def main() -> int:
          mismatches=0, cases=sorted({f["case"] for f in FOLDS}),
          timed=len(timed), all_no_slower=all(f["no_slower"] for f in timed), times=timed)
     emit(phase="kernels_done", seconds=time.time() - t0)
+    phase_autotune()
 
     # 3. one full-width layer, paged and contiguous (a counted main path)
     layer_launches = phase_layer(gen)
@@ -2406,13 +2517,13 @@ def main() -> int:
     gqa_checks(gen, records)
     gqa_launches = {}
     for arch, layers, batch, plen, gsteps, fmts in GQA_SERVE:
-        llama = arch == "llama3.2-3b"
+        fused = arch in FUSED_SERVE
         got, g_base, g_params, g_prompts = phase_gqa_serve(arch, layers, batch, plen, gsteps,
-                                                           fmts, fused=llama)
+                                                           fmts, fused=fused)
         gqa_launches[arch] = got
-        if llama:
+        if fused:
             phase_profile(g_base, g_params, g_prompts, runs=((False, 0, "fma"),),
-                          match="gqa_decode_kernel")
+                          match="gqa_decode_kernel" if got else None)
         del g_params
         gc.collect()
         torch.cuda.empty_cache()

@@ -17,6 +17,8 @@ from repro_torch.core.kvcache import GQACache, MLACache, PagedMLAPool
 from repro_torch.core.mla import MLAParams
 from repro_torch.models.layers import AttnParams, MLPParams
 from repro_torch.models.moe import MoEParams
+from repro_torch.models.rglru import RGLRUParams
+from repro_torch.models.xlstm import MLSTMParams, SLSTMParams
 
 _RAW = {"float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
         "bfloat16": (np.int16, torch.bfloat16)}
@@ -58,15 +60,16 @@ def _mla_params(m: Any, device) -> MLAParams:
     return MLAParams(**{f: to_torch(_field(m, f), device) for f in MLAParams._fields})
 
 
-def _attn_params(m: Any, device) -> AttnParams:
-    """A reference ``AttnParams`` (biases None unless ``qkv_bias``)."""
-    return AttnParams(**{f: to_torch(_field(m, f), device) for f in AttnParams._fields})
+_MIXERS = (AttnParams, MLAParams, RGLRUParams, MLSTMParams, SLSTMParams)
 
 
-def _mixer_params(m: Any, device) -> AttnParams | MLAParams:
-    """The mixer of an ``attn`` / ``swa`` layer (``AttnParams``, which has
-    ``wq``) or of an ``mla`` layer (``MLAParams``)."""
-    return _attn_params(m, device) if "wq" in _fields(m) else _mla_params(m, device)
+def _mixer_params(m: Any, device):
+    """A layer's mixer, told apart by its field names: ``AttnParams``
+    (``attn`` / ``swa``), ``MLAParams``, ``RGLRUParams``, ``MLSTMParams``
+    or ``SLSTMParams``."""
+    names = set(_fields(m))
+    kind = next(k for k in _MIXERS if set(k._fields) == names)
+    return kind(**{f: to_torch(_field(m, f), device) for f in kind._fields})
 
 
 def _fields(m: Any):
@@ -89,8 +92,8 @@ def _layer_params(lp: dict, device) -> dict[str, Any]:
 
 def params_from_jax(np_params: dict, device=None) -> dict[str, Any]:
     """The reference ``init_model`` tree (transformer.py:112-140) of a model
-    whose layers are ``attn``, ``swa`` or ``mla`` (q-LoRA included), with a
-    dense or MoE MLP, -> the port's
+    whose layers are ``attn``, ``swa``, ``mla`` (q-LoRA included), ``rglru``,
+    ``mlstm`` or ``slstm``, with a dense or MoE MLP or none, -> the port's
     ``{"embed", "ln_f", ("unembed",) "layers": [...]}``. ``scanned`` holds
     one entry per pattern slot, each stacked over the superblocks; the port's
     list interleaves them in layer order (superblock i, slot j is layer

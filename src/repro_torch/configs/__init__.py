@@ -1,5 +1,6 @@
 """Architecture registry of the port: the ids whose every layer kind is
-ported (``attn``, ``swa``, ``mla``), in the reference's ``ARCH_IDS`` order."""
+ported (``attn``, ``swa``, ``mla``, ``rglru``, ``mlstm``, ``slstm``), in the
+reference's ``ARCH_IDS`` order."""
 from __future__ import annotations
 
 import importlib
@@ -7,7 +8,8 @@ import importlib
 from repro_torch.configs.base import MLADims, ModelConfig  # noqa: F401
 
 ARCH_IDS = ["llama3.2-3b", "gemma3-27b", "qwen2.5-3b", "granite-3-2b",
-            "qwen3-moe-30b-a3b", "mixtral-8x7b", "deepseek-v3-mla", "mla-7b"]
+            "qwen3-moe-30b-a3b", "mixtral-8x7b", "recurrentgemma-9b", "xlstm-1.3b",
+            "deepseek-v3-mla", "mla-7b"]
 
 _MODULES = {
     "llama3.2-3b": "llama32_3b",
@@ -16,6 +18,8 @@ _MODULES = {
     "granite-3-2b": "granite3_2b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "xlstm-1.3b": "xlstm_1_3b",
     "deepseek-v3-mla": "deepseek_v3_mla",
     "mla-7b": "mla_7b",
 }

@@ -7,7 +7,8 @@ Layer heterogeneity is ``layer_pattern``, tiled over ``n_layers`` as in the
 reference: ``n_superblocks`` full tiles of the pattern, then the
 ``remainder_kinds`` (the first ``n_layers % pattern_len`` kinds of the
 pattern). Ported kinds: ``attn`` (full causal GQA), ``swa`` (sliding-window
-GQA over a ring-buffer cache) and ``mla``."""
+GQA over a ring-buffer cache), ``mla``, ``rglru`` and ``mlstm`` / ``slstm``
+(no MLP)."""
 from __future__ import annotations
 
 import dataclasses
@@ -93,13 +94,15 @@ class ModelConfig:
         return self.d_ff > 0 or self.moe is not None
 
     def param_count(self) -> int:
-        """Parameters of the ported kinds (``attn``, ``swa``, ``mla``) by the
-        reference's count (base.py:124), embedding included."""
-        d, L = self.d_model, self.n_layers
+        """Parameters of the ported kinds by the reference's count
+        (base.py:124; ``rglru`` and the xLSTM cells approximately, as
+        there), embedding included."""
+        d = self.d_model
         kinds = self.layer_kinds
         emb = self.vocab_size * d
         n_attn = sum(k in ("attn", "swa") for k in kinds)
         n_mla = sum(k == "mla" for k in kinds)
+        n_xlstm = sum(k in ("mlstm", "slstm") for k in kinds)
         total = emb + n_attn * (d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
                                 + self.n_heads * self.d_head * d)
         if self.mla:
@@ -110,7 +113,9 @@ class ModelConfig:
                               + d * (m.d_c + m.d_rope)
                               + 2 * m.d_c * self.n_heads * self.d_head
                               + self.n_heads * self.d_head * d)
-        n_mlp = L if self.has_mlp else 0
+        total += sum(k == "rglru" for k in kinds) * 5 * d * d      # d_rnn = d
+        total += n_xlstm * 8 * d * self.n_heads * self.d_head
+        n_mlp = len(kinds) - n_xlstm if self.has_mlp else 0
         if self.moe is not None:
             dense = min(self.first_k_dense, n_mlp)
             e = self.moe

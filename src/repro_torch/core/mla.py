@@ -130,3 +130,28 @@ def mla_attention(params: MLAParams, cfg: MLAConfig, h: torch.Tensor,
     p = torch.softmax(logits.float(), dim=-1).to(h.dtype)
     o = torch.einsum("...hqk,...khd->...qhd", p, v)
     return torch.einsum("...qhd,hdk->...qk", o, params.w_o)
+
+
+# ---------------------------------------------------------------------------
+# Absorbed decode (one new token against a latent cache) — the BF16 baseline
+# ---------------------------------------------------------------------------
+
+def mla_decode_absorbed(params: MLAParams, cfg: MLAConfig, h_t: torch.Tensor,
+                        cache_c: torch.Tensor, cache_kr: torch.Tensor,
+                        seq_lens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The unquantized absorbed decode (mla.py:159-182): h_t [B, d], the
+    latent cache ``cache_c`` [B, N, d_c] and rope keys ``cache_kr``
+    [B, N, d_r] (the new token already appended: ``seq_lens`` [B] counts
+    it), ``positions`` [B] the token's position -> [B, d]. Softmax over the
+    valid slots in float32, as the reference's."""
+    q_c, q_r = project_q(params, cfg, h_t[:, None, :], positions[:, None])
+    q_lat = absorb_q(params, q_c[:, 0])                           # [B, H, d_c]
+    logits = (torch.einsum("bhc,bnc->bhn", q_lat.float(), cache_c.float())
+              + torch.einsum("bhr,bnr->bhn", q_r[:, 0].float(), cache_kr.float())
+              ) * cfg.softmax_scale
+    n = cache_c.shape[1]
+    mask = (torch.arange(n, device=h_t.device)[None, None, :]
+            < seq_lens.to(h_t.device).long()[:, None, None])
+    p = torch.softmax(torch.where(mask, logits, float("-inf")), dim=-1)
+    o_lat = torch.einsum("bhn,bnc->bhc", p, cache_c.float())
+    return output_proj(params, o_lat.to(h_t.dtype))

@@ -62,13 +62,21 @@
 //      a thread takes a 32-bit word of four columns and every
 //      (threads / (dh/4))-th slot (two accumulators at W = 1), the partial
 //      sums are reduced by shuffles inside a warp and over the warps in
-//      shared memory; none (bf16 V, unquantized P): one thread per (row,
-//      column) sums the slots in order from 0; acc = acc * corr + f32(pv),
-//      the accumulator in registers.
+//      shared memory (at dh 256 a row has 64 words: a warp holds 32 of
+//      them, and the warps holding the same 32 are summed); none (bf16 V,
+//      unquantized P): one thread per (row, column) sums the slots in order
+//      from 0; acc = acc * corr + f32(pv), the accumulator in registers.
 // The QK and PV dots and the sum of e accumulate in float64 and round once,
 // as the plain version (kernels/gqa_decode/ref.py) does. Every float32
 // product and sum whose rounding the plain version fixes is written with
 // __fmul_rn / __fadd_rn / __fsub_rn so nvcc cannot contract it into an FMA.
+//
+// Head sizes: dh 16, 32, 64 and 128 run the instantiations of MaxDh 128,
+// dh 256 (recurrentgemma-9b's MQA) those of MaxDh 256, so the smaller heads
+// keep their registers: only the outputs per thread (acc) and the PV
+// reduction's last step depend on it. At dh 256 a stage of fp8 K and V is
+// 64 KB and of bf16 128 KB: the launch cuts the ring to the deepest that
+// fits, as for any block that does not fit a deeper one.
 //
 // Left for later: the softmax runs on one warp per row while the others wait
 // (about a fifth of a block at 32k): overlapping it with the previous block's
@@ -91,7 +99,9 @@ constexpr int kGqaSmemLimit = 227 * 1024;  // dynamic shared memory of one block
 constexpr int kGqaSmemPerSm = 228 * 1024;  // of one SM, for all its blocks
 constexpr int kGqaSmemReserved = 1024;     // the system's share of each block
 constexpr int kGqaRegsPerSm = 65536;
-constexpr int kGqaMaxDh = 128;
+// the largest head of each instantiation bucket (dh <= 128, dh = 256)
+constexpr int kGqaMaxDhSmall = 128;
+constexpr int kGqaMaxDhLarge = 256;
 // head-tile widths (query heads per block); the wrapper's GQA_HEAD_WIDTHS
 // (kernels/gqa_decode/kernel.py) lists the same two
 constexpr int kGqaWide = 4;
@@ -119,7 +129,8 @@ GqaLayout gqa_layout(int threads, int dh, int bn, int stages, bool stage_k) {
   const int rows = bn * dh * static_cast<int>(sizeof(typename Format<F>::T));
   int off = 0;
   L.s = gqa_take(off, W * bn * 4);
-  L.red = gqa_take(off, F == kNone ? 0 : threads / 32 * W * dh * 8);
+  // each warp's PV partials: 4 columns of at most 32 words per query row
+  L.red = gqa_take(off, F == kNone ? 0 : threads / 32 * W * 4 * (dh / 4 < 32 ? dh / 4 : 32) * 8);
   L.state = gqa_take(off, 4 * W * 4);
   L.valid = gqa_take(off, (stages + 1) * bn * 4);
   int s = 0;
@@ -156,7 +167,7 @@ __device__ __forceinline__ uint32_t word_of(const uint4& c, int i) {
 
 }  // namespace
 
-template <int F, int W>
+template <int F, int W, int MaxDh>
 __global__ void __launch_bounds__(kGqaMaxThreads<W>)
 gqa_decode_kernel(const float* __restrict__ q, const typename Format<F>::T* __restrict__ k,
                   const typename Format<F>::T* __restrict__ v, const float* __restrict__ k_scale,
@@ -169,10 +180,11 @@ gqa_decode_kernel(const float* __restrict__ q, const typename Format<F>::T* __re
   constexpr int kChunkVals = 4 * U::kPerWord;  // values in a 16-byte chunk
   constexpr int kRounds = W == 1 ? 2 : 1;     // slots per thread per QK round
   constexpr int kPvSets = W == 1 ? 2 : 1;     // independent PV accumulators
-  constexpr int kOut = (W * kGqaMaxDh + kGqaThreads - 1) / kGqaThreads;  // outputs per thread
+  constexpr int kOut = (W * MaxDh + kGqaThreads - 1) / kGqaThreads;  // outputs per thread
+  constexpr bool kWideRow = MaxDh > 128;  // a V row of more than 32 words
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_s = reinterpret_cast<float*>(smem + L.s);        // [W][bn] logits, then P8
-  double* red_s = reinterpret_cast<double*>(smem + L.red);  // [warps][W][4][dh/4] PV partials
+  double* red_s = reinterpret_cast<double*>(smem + L.red);  // [warps][W][4][slab] PV partials
   float* st_s = reinterpret_cast<float*>(smem + L.state);   // m, l, sigma_p, corr [4][W]
   int* valid_s = reinterpret_cast<int*>(smem + L.valid);    // [D + 1][bn] slot validity
   unsigned char* ring = smem + L.stage;
@@ -415,6 +427,8 @@ gqa_decode_kernel(const float* __restrict__ q, const typename Format<F>::T* __re
         // (invalid slots add exact zeros: P8 is 0 there and V zero-filled)
         const int cw = dh / 4;  // 32-bit words of a V row
         const int cg = tid % cw, S = nt / cw;
+        // the words of a row one warp holds: all of them, or 32 (wide rows)
+        const int slab = kWideRow ? 32 : cw;
         const uint32_t* vw = reinterpret_cast<const uint32_t*>(st + L.v);
         double pv[kPvSets][W][4];
 #pragma unroll
@@ -460,7 +474,8 @@ gqa_decode_kernel(const float* __restrict__ q, const typename Format<F>::T* __re
           for (int j = 0; j < W; ++j)
             if (j < nj)
 #pragma unroll
-              for (int x = 0; x < 4; ++x) red_s[((warp * W + j) * 4 + x) * cw + cg] = pv[0][j][x];
+              for (int x = 0; x < 4; ++x)
+                red_s[((warp * W + j) * 4 + x) * slab + (kWideRow ? lane : cg)] = pv[0][j][x];
         }
         __syncthreads();
 #pragma unroll
@@ -468,14 +483,28 @@ gqa_decode_kernel(const float* __restrict__ q, const typename Format<F>::T* __re
           const int i = tid + y * nt;
           if (i < nj * dh) {
             const int j = i / dh, d = i - j * dh;
-            const int at = (j * 4 + (d & 3)) * cw + (d >> 2);
             double sum = 0.0;
-            for (int w0 = 0; w0 < nw; w0 += 8) {  // nw is 8 or 16: eight loads in flight
-              double part[8];
+            if constexpr (kWideRow) {
+              // warps w and w + sets hold the same 32 words; word d >> 2 is
+              // in the warps w % sets == (d >> 2) / 32 (4 or 8 of them)
+              const int sets = cw / 32, word = d >> 2;
+              const int at = (j * 4 + (d & 3)) * 32 + (word & 31);
+              for (int w0 = word >> 5; w0 < nw; w0 += 4 * sets) {  // four loads in flight
+                double part[4];
 #pragma unroll
-              for (int x = 0; x < 8; ++x) part[x] = red_s[(w0 + x) * W * dh + at];
+                for (int x = 0; x < 4; ++x) part[x] = red_s[(w0 + x * sets) * W * 4 * 32 + at];
 #pragma unroll
-              for (int x = 0; x < 8; ++x) sum += part[x];
+                for (int x = 0; x < 4; ++x) sum += part[x];
+              }
+            } else {
+              const int at = (j * 4 + (d & 3)) * cw + (d >> 2);
+              for (int w0 = 0; w0 < nw; w0 += 8) {  // nw is 8 or 16: eight loads in flight
+                double part[8];
+#pragma unroll
+                for (int x = 0; x < 8; ++x) part[x] = red_s[(w0 + x) * W * dh + at];
+#pragma unroll
+                for (int x = 0; x < 8; ++x) sum += part[x];
+              }
             }
             acc[y] = __fadd_rn(__fmul_rn(acc[y], pick(corr, j)), static_cast<float>(sum));
           }
@@ -533,13 +562,13 @@ gqa_decode_kernel(const float* __restrict__ q, const typename Format<F>::T* __re
   }
 }
 
-template <int F, int W>
+template <int F, int W, int MaxDh>
 static cudaError_t launch_gqa(const float* q, const void* k, const void* v, const float* ks,
                               const float* vs, const int* slot_pos, const int* positions, float* o,
                               int B, int N, int Hkv, int g, int dh, int bn, int window,
                               float sm_scale, cudaStream_t stream) {
   using T = typename Format<F>::T;
-  auto kern = gqa_decode_kernel<F, W>;
+  auto kern = gqa_decode_kernel<F, W, MaxDh>;
   // once per instantiation, before any CUDA-graph capture: the registers per
   // thread, the SM count, and the shared-memory limit raised to the most a
   // block may take (so no later call makes an attribute call)
@@ -591,7 +620,7 @@ static cudaError_t launch_gqa(const float* q, const void* k, const void* v, cons
 // q [B, H, dh] f32, k / v [B, N, Hkv, dh] (fp8 / int8 / bf16 by fmt, 16-byte
 // aligned), k_scale / v_scale [B, N, Hkv] f32, slot_pos [B, N] int32,
 // positions [B] int32 -> o [B, H, dh] f32, H = Hkv * g. dh in {16, 32, 64,
-// 128}; block a power of two in [16, 512]; N need not be a multiple of it;
+// 128, 256}; block a power of two in [16, 512]; N need not be a multiple of it;
 // width is the head tile (query heads per CUDA block), kGqaWide or
 // kGqaNarrow.
 extern "C" int snapmla_gqa_decode(int fmt, const void* q, const void* k, const void* v,
@@ -600,7 +629,7 @@ extern "C" int snapmla_gqa_decode(int fmt, const void* q, const void* k, const v
                                   int dh, int block, int window, float sm_scale, int width,
                                   void* stream) {
   using namespace snap;
-  const bool dh_ok = dh == 16 || dh == 32 || dh == 64 || dh == 128;
+  const bool dh_ok = dh == 16 || dh == 32 || dh == 64 || dh == 128 || dh == 256;
   const bool block_ok = block >= 16 && block <= 512 && (block & (block - 1)) == 0;
   if (!dh_ok || !block_ok || B < 1 || N < 1 || Hkv < 1 || g < 1 || window < 0 ||
       reinterpret_cast<uintptr_t>(k) % 16 || reinterpret_cast<uintptr_t>(v) % 16)
@@ -612,8 +641,11 @@ extern "C" int snapmla_gqa_decode(int fmt, const void* q, const void* k, const v
   const auto* ps = static_cast<const int*>(positions);
   auto* out = static_cast<float*>(o);
   const auto st = static_cast<cudaStream_t>(stream);
-#define SNAP_GQA_W(F, W) \
-  launch_gqa<F, W>(qf, k, v, ks, vs, sp, ps, out, B, N, Hkv, g, dh, block, window, sm_scale, st)
+#define SNAP_GQA_DH(F, W, M) \
+  launch_gqa<F, W, M>(qf, k, v, ks, vs, sp, ps, out, B, N, Hkv, g, dh, block, window, sm_scale, st)
+#define SNAP_GQA_W(F, W)                                       \
+  (dh <= kGqaMaxDhSmall ? SNAP_GQA_DH(F, W, kGqaMaxDhSmall) \
+                        : SNAP_GQA_DH(F, W, kGqaMaxDhLarge))
 #define SNAP_GQA(F)                          \
   (width == kGqaWide     ? SNAP_GQA_W(F, kGqaWide)   \
    : width == kGqaNarrow ? SNAP_GQA_W(F, kGqaNarrow) \
@@ -627,5 +659,6 @@ extern "C" int snapmla_gqa_decode(int fmt, const void* q, const void* k, const v
   }
 #undef SNAP_GQA
 #undef SNAP_GQA_W
+#undef SNAP_GQA_DH
   return static_cast<int>(err);
 }

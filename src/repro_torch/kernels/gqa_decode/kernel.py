@@ -9,7 +9,9 @@ N itself instead of copying the cache, or raises.
 
 Each launch computes ``gqa_head_width(...)`` query heads of one kv head per
 CUDA block, one of the two widths the kernel is instantiated for; the width
-changes which block computes a query row, never a bit of the result."""
+changes which block computes a query row, never a bit of the result. Head
+sizes up to 128 and 256 (recurrentgemma-9b's) run separate instantiations
+(``kGqaMaxDhSmall``, ``kGqaMaxDhLarge``)."""
 from __future__ import annotations
 
 import math
@@ -21,7 +23,7 @@ from repro_torch.kernels.gqa_decode import ref as R
 
 FMT_CODES = {"fp8_e4m3": 0, "int8": 1, "none": 2}
 STORAGE = {"fp8_e4m3": torch.float8_e4m3fn, "int8": torch.int8, "none": torch.bfloat16}
-HEAD_DIMS = (16, 32, 64, 128)               # the head sizes the kernel takes
+HEAD_DIMS = (16, 32, 64, 128, 256)          # the head sizes the kernel takes
 BLOCK_SIZES = (16, 32, 64, 128, 256, 512)   # the KV block sizes the kernel takes
 LAUNCH_KEY = "gqa_decode"                   # the launch counter of #7
 # head-tile widths instantiated in gqa_decode.cu (kGqaWide, kGqaNarrow), widest first

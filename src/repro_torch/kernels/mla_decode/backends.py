@@ -8,17 +8,25 @@ block), and ``resolve_backend`` is the single selection rule,
 with the reference's ``auto`` / ``ref`` / ``kernel`` vocabulary mapped by the
 cache layout:
 
-  torch_ref            MLACache, the plain PyTorch pipeline (ref.py) over the
+  torch_ref            MLACache, the parallel (einsum) form
+                       (``ref.snapmla_decode_parallel_any``) over the
                        sink-patched content
-  torch_paged_ref      PagedMLAPool, page-table gather + the plain PyTorch
-                       split-KV pipeline
+  torch_paged_ref      PagedMLAPool, page-table gather + the parallel form
+  torch_pipeline       MLACache, the kernels' plain version (the pipeline
+                       form, ``ops.snapmla_decode(..., use_kernel=False)``)
+  torch_paged_pipeline PagedMLAPool, the same through the page table
   cuda_splitkv         MLACache, the hand-written Hopper kernels (single pass,
                        or split-KV + combine)
   cuda_paged_splitkv   PagedMLAPool, the same kernels through the page table
 
-The reference's ``jnp_ref`` / ``jnp_paged_ref`` are the parallel (einsum)
-form; the port's reference backends are the pipeline form (the kernels'
-plain version) and honour ``rescale``. The shard_map region is not ported.
+The reference backends decode as the reference's ``jnp_ref`` /
+``jnp_paged_ref`` do (backends.py:194-218): the parallel form, which has no
+AMLA, so ``rescale`` does nothing there. The pipeline backends run the
+kernels' plain version on any device, FMA or AMLA: what a model run on the
+kernels is held to on the card (the reference has no plain AMLA backend;
+its AMLA model runs go through its Pallas kernels). Every
+backend resolves its split plan with the batch, the layout and the rescale
+(the profile's keys). The shard_map region is not ported.
 
 ``token_cost`` / ``dispatch_cost`` are the reference's analytic traffic
 model of one decode dispatch (backends.py:278-326), which the serving
@@ -32,7 +40,9 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.core.kvcache import paged_gather, sink_patched_content
 from repro_torch.kernels.mla_decode import ops as _ops
+from repro_torch.kernels.mla_decode import ref as _ref
 
 
 class DecodeQuery(NamedTuple):
@@ -73,12 +83,12 @@ class BackendConfig:
     rescale: str = "fma"
 
 
-def _split_plan(cfg: BackendConfig, capacity: int, layout: str,
+def _split_plan(cfg: BackendConfig, capacity: int, batch: int, layout: str,
                 page_size: int | None = None) -> _ops.SplitConfig:
     """The one place every backend resolves its (num_splits, block_n) plan."""
     return _ops.resolve_split_config(
         cfg.num_splits, cfg.block_n if layout == "contiguous" else None, capacity,
-        layout=layout, page_size=page_size)
+        batch=batch, layout=layout, page_size=page_size, rescale=cfg.rescale)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,9 +132,33 @@ def _supports(layout: str):
     return supports
 
 
+def _prepared(q: DecodeQuery, fmt: str):
+    """The prepared query (``prepare_q`` on a raw one)."""
+    return _ops._query(q.q_c8, q.q_r, q.sigma_q, fmt, use_kernel=False)
+
+
+def _torch_ref_decode(q: DecodeQuery, cache, cfg: BackendConfig) -> torch.Tensor:
+    plan = _split_plan(cfg, cache.capacity, q.q_c8.shape[0], "contiguous")
+    o, _lse = _ref.snapmla_decode_parallel_any(
+        *_prepared(q, cfg.fmt), sink_patched_content(cache), cache.rope.float(), cache.scale,
+        cache.seq_lens, softmax_scale=cfg.softmax_scale, num_splits=plan.num_splits,
+        block_n=plan.block_n, fmt=cfg.fmt)
+    return o
+
+
+def _torch_paged_ref_decode(q: DecodeQuery, pool, cfg: BackendConfig) -> torch.Tensor:
+    plan = _split_plan(cfg, pool.capacity, q.q_c8.shape[0], "paged", page_size=pool.page_size)
+    content, rope, scale = paged_gather(pool)
+    o, _lse = _ref.snapmla_decode_parallel_any(
+        *_prepared(q, cfg.fmt), content, rope.float(), scale, pool.seq_lens,
+        softmax_scale=cfg.softmax_scale, num_splits=plan.num_splits, block_n=plan.block_n,
+        fmt=cfg.fmt)
+    return o
+
+
 def _contiguous_decode(use_kernel: bool):
     def decode(q: DecodeQuery, cache, cfg: BackendConfig) -> torch.Tensor:
-        plan = _split_plan(cfg, cache.capacity, "contiguous")
+        plan = _split_plan(cfg, cache.capacity, q.q_c8.shape[0], "contiguous")
         o, _lse = _ops.snapmla_decode(
             q.q_c8, q.q_r, q.sigma_q, cache, softmax_scale=cfg.softmax_scale,
             block_n=plan.block_n, fmt=cfg.fmt, num_splits=plan.num_splits,
@@ -135,18 +169,22 @@ def _contiguous_decode(use_kernel: bool):
 
 def _paged_decode(use_kernel: bool):
     def decode(q: DecodeQuery, pool, cfg: BackendConfig) -> torch.Tensor:
-        plan = _split_plan(cfg, pool.capacity, "paged", page_size=pool.page_size)
+        plan = _split_plan(cfg, pool.capacity, q.q_c8.shape[0], "paged",
+                           page_size=pool.page_size)
         o, _lse = _ops.snapmla_decode_paged(
-            q.q_c8, q.q_r, q.sigma_q, pool, softmax_scale=cfg.softmax_scale,
-            fmt=cfg.fmt, num_splits=plan.num_splits, use_kernel=use_kernel,
-            rescale=cfg.rescale)
+            q.q_c8, q.q_r, q.sigma_q, pool, softmax_scale=cfg.softmax_scale, fmt=cfg.fmt,
+            num_splits=plan.num_splits, use_kernel=use_kernel, rescale=cfg.rescale)
         return o
     return decode
 
 
-register(DecodeBackend("torch_ref", "contiguous", "ref", _contiguous_decode(False),
+register(DecodeBackend("torch_ref", "contiguous", "ref", _torch_ref_decode,
                        _supports("contiguous")))
-register(DecodeBackend("torch_paged_ref", "paged", "ref", _paged_decode(False),
+register(DecodeBackend("torch_paged_ref", "paged", "ref", _torch_paged_ref_decode,
+                       _supports("paged")))
+register(DecodeBackend("torch_pipeline", "contiguous", "ref", _contiguous_decode(False),
+                       _supports("contiguous")))
+register(DecodeBackend("torch_paged_pipeline", "paged", "ref", _paged_decode(False),
                        _supports("paged")))
 register(DecodeBackend("cuda_splitkv", "contiguous", "kernel", _contiguous_decode(True),
                        _supports("contiguous")))

@@ -1,10 +1,11 @@
 """SnapMLA decode dispatch (port of ``repro/kernels/mla_decode/ops.py``).
 
 ``snapmla_decode`` consumes a contiguous ``MLACache``, ``snapmla_decode_paged``
-a ``PagedMLAPool``. ``num_splits`` resolves by the context-length heuristic
-or an explicit count; the port loads no split profile (the reference's is a
-TPU timing), so ``resolve_split_config`` keeps the reference's heuristic and
-fallback rules and drops its ``tuned_*`` lookups. ``splits == 1`` takes the
+a ``PagedMLAPool``. ``num_splits`` None/0 resolves as the reference's does
+(ops.py:61-128): a measured split profile's exact hit for (capacity,
+block_n, batch) under the layout and rescale, else its nearest batch, else
+the context-length heuristic (``autotune``; the port's profile is measured
+on the H100, never the reference's TPU file). ``splits == 1`` takes the
 single-pass kernel, anything else the split-KV kernel plus the combine
 (ops.py:195-211, 268-283; under FMA the combine runs in the split kernel's
 epilogue). A rank-4 ``[B, q_len, H, .]`` query (the speculative verify)
@@ -15,25 +16,18 @@ through ``prepare_q`` to the plain path.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
 from repro_torch.core.kvcache import MLACache, PagedMLAPool, sink_patched_content
+from repro_torch.kernels.mla_decode import autotune as _autotune
 from repro_torch.kernels.mla_decode import kernel as _k
 from repro_torch.kernels.mla_decode import ref as _ref
+from repro_torch.kernels.mla_decode.autotune import SplitConfig
 
 SPLIT_TARGET_TOKENS = 4096
 MAX_SPLITS = 8
 # contiguous-cache default KV block (a paged pool's block is its page)
 DEFAULT_BLOCK_N = 128
-
-
-class SplitConfig(NamedTuple):
-    """A resolved split-KV plan (``repro/kernels/mla_decode/autotune.py``)."""
-
-    num_splits: int
-    block_n: int
 
 
 def default_num_splits(context_len: int, block_n: int = 128,
@@ -49,20 +43,30 @@ def default_num_splits(context_len: int, block_n: int = 128,
     return s
 
 
-def resolve_num_splits(requested: int | None, capacity: int, block_n: int) -> int:
-    """None/0 = the heuristic; a fixed count is clamped to the block count."""
+def resolve_num_splits(requested: int | None, capacity: int, block_n: int,
+                       batch: int | None = None, layout: str = "contiguous",
+                       rescale: str = "fma") -> int:
+    """None/0 = the profile's plan for (capacity, block_n, batch) under
+    ``layout`` and ``rescale`` (exact hit, else nearest batch), else the
+    heuristic; a fixed or profiled count is clamped to the block count."""
     nblocks = max(1, capacity // block_n)
-    splits = requested if requested else default_num_splits(capacity, block_n)
+    splits = requested
+    if not splits:
+        splits = _autotune.tuned_num_splits(capacity, block_n, batch, layout, rescale)
+        if splits is None:
+            splits = default_num_splits(capacity, block_n)
     return max(1, min(splits, nblocks))
 
 
 def resolve_split_config(num_splits: int | None, block_n: int | None, capacity: int,
-                         *, layout: str = "contiguous",
-                         page_size: int | None = None) -> SplitConfig:
-    """Joint (num_splits, block_n) resolution (ops.py:85-129 without the
-    profile lookups): a paged pool's block is its page; an explicit
-    ``block_n`` is kept; ``block_n`` None/0 takes 128 when it divides the
-    capacity, else the largest of 64, 32, ..., 1 that does."""
+                         *, batch: int | None = None, layout: str = "contiguous",
+                         page_size: int | None = None, rescale: str = "fma") -> SplitConfig:
+    """Joint (num_splits, block_n) resolution (ops.py:85-128): a paged
+    pool's block is its page; an explicit ``block_n`` is kept; ``block_n``
+    None/0 takes the profile's joint plan when its block divides the
+    capacity, else 128 when it divides the capacity, else the largest of
+    64, 32, ..., 1 that does. The split count then resolves as
+    ``resolve_num_splits``."""
     if layout == "paged":
         if page_size is None:
             raise ValueError("paged split resolution needs page_size "
@@ -71,11 +75,17 @@ def resolve_split_config(num_splits: int | None, block_n: int | None, capacity: 
             raise ValueError(
                 f"paged caches fix block_n to the page size ({page_size}); "
                 f"got block_n={block_n} — repage the pool instead")
-        return SplitConfig(resolve_num_splits(num_splits, capacity, page_size), page_size)
+        return SplitConfig(resolve_num_splits(num_splits, capacity, page_size, batch,
+                                              layout, rescale), page_size)
     if not block_n:
+        tuned = _autotune.tuned_split_config(capacity, batch, layout, rescale)
+        if tuned is not None and capacity % tuned.block_n == 0:
+            splits = num_splits if num_splits else tuned.num_splits
+            return SplitConfig(max(1, min(splits, capacity // tuned.block_n)), tuned.block_n)
         block_n = DEFAULT_BLOCK_N if capacity % DEFAULT_BLOCK_N == 0 \
             else max(b for b in (64, 32, 16, 8, 4, 2, 1) if capacity % b == 0)
-    return SplitConfig(resolve_num_splits(num_splits, capacity, block_n), block_n)
+    return SplitConfig(resolve_num_splits(num_splits, capacity, block_n, batch, layout,
+                                          rescale), block_n)
 
 
 def _check_alignment(n: int, block_n: int) -> None:
@@ -106,7 +116,7 @@ def snapmla_decode(q_c8: torch.Tensor, q_r: torch.Tensor, sigma_q: torch.Tensor 
     plain path reads ``sink_patched_content``."""
     N = cache.capacity
     _check_alignment(N, block_n)
-    splits = resolve_num_splits(num_splits, N, block_n)
+    splits = resolve_num_splits(num_splits, N, block_n, q_c8.shape[0], rescale=rescale)
     q = _query(q_c8, q_r, sigma_q, fmt, use_kernel)
     kw = dict(softmax_scale=softmax_scale, block_n=block_n, fmt=fmt, rescale=rescale)
     if use_kernel:
@@ -130,7 +140,8 @@ def snapmla_decode_paged(q_c8: torch.Tensor, q_r: torch.Tensor,
     sequence against a paged pool. Returns (o_latent [B, (q_len,) H, d_c]
     f32, lse [B, (q_len,) H])."""
     page = pool.page_size
-    splits = resolve_num_splits(num_splits, pool.capacity, page)
+    splits = resolve_num_splits(num_splits, pool.capacity, page, q_c8.shape[0], "paged",
+                                rescale)
     args = _query(q_c8, q_r, sigma_q, fmt, use_kernel) + (
         pool.content, pool.rope, pool.scale, pool.page_table, pool.seq_lens)
     kw = dict(softmax_scale=softmax_scale, fmt=fmt, rescale=rescale)

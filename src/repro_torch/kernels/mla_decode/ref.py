@@ -1,8 +1,7 @@
 """Plain PyTorch versions of the SnapMLA FP8 decode pipeline (port of
-``repro/kernels/mla_decode/ref.py`` without its parallel einsum forms).
+``repro/kernels/mla_decode/ref.py``).
 
-These are the oracles of the CUDA kernels in ``kernel.py`` and the arithmetic
-of the reference backends (``torch_ref``, ``torch_paged_ref``):
+The pipeline forms are the oracles of the CUDA kernels in ``kernel.py``:
 
   * ``snapmla_decode_pipeline_ref`` — online softmax, per-token V-scale
     fusion, block-wise dynamic P quantization and implicit dequantization
@@ -39,6 +38,17 @@ Two choices make kernel and plain version agree bit for bit on the card:
     this version gives the single-pass kernel's ``(NaN, -inf)``.
 
 fp8 is widened to float32 before every product, as the Pallas body does.
+
+The parallel (einsum) forms are what the reference backends (``torch_ref``,
+``torch_paged_ref``) decode through, as the reference's ``jnp_ref`` /
+``jnp_paged_ref`` do: ``snapmla_decode_parallel_ref`` (every block's partial
+at once, σp per block, merged by the block maxima),
+``snapmla_decode_splitkv_parallel_ref`` (that per split, empty splits
+emitting (0, NEG_INF), merged by ``lse_combine_ref``) and
+``snapmla_decode_parallel_any`` (either, by ``num_splits``; a rank-4 query
+row by row through ``_verify_rows``). They follow the reference's
+arithmetic: float32 dots, ``-inf`` masking, no AMLA. They equal the
+pipeline up to P's fp8 rounding.
 """
 from __future__ import annotations
 
@@ -321,6 +331,76 @@ def snapmla_decode_paged_ref(q_c8, q_r, sigma_q, content_pool, rope_pool,
     return snapmla_decode_pipeline_ref(
         q_c8, q_r, sigma_q, c, r.float(), s, seq_lens, softmax_scale=softmax_scale,
         block_n=page, fmt=fmt, rescale=rescale)
+
+
+def snapmla_decode_parallel_ref(q_c8, q_r, sigma_q, content, rope, sigma_k, seq_lens, *,
+                                softmax_scale: float, block_n: int = 128,
+                                fmt: str = "fp8_e4m3"):
+    """Parallel (two-pass flash-combine) form of the pipeline (ref.py:389-442):
+    q_c8 [B, H, d_c], q_r [B, H, d_r] (/ sigma_q), sigma_q [B, H], content
+    [B, N, d_c], rope [B, N, d_r] (/ sigma_k), sigma_k [B, N], seq_lens [B]
+    -> (o [B, H, d_c] f32, lse [B, H] f32). The QK, PV and combine dots run
+    in float32, as the reference's einsums do; an empty row gives NaN."""
+    B, H, d_c = q_c8.shape
+    N = content.shape[1]
+    if N % block_n:
+        raise ValueError(f"cache length {N} is not a multiple of block_n={block_n}")
+    nb = N // block_n
+    dev = q_c8.device
+    s = (torch.einsum("bhc,bnc->bhn", q_c8.float(), content.float())
+         + torch.einsum("bhr,bnr->bhn", q_r.float(), rope.float()))
+    s = s * (sigma_q.float()[:, :, None] * sigma_k.float()[:, None, :]) * softmax_scale
+    mask = torch.arange(N, device=dev)[None, None, :] < seq_lens.to(dev).long()[:, None, None]
+    s = torch.where(mask, s, float("-inf"))
+    sb = s.reshape(B, H, nb, block_n)
+    m_k = torch.amax(sb, dim=-1)                                      # [B, H, nb]
+    e = torch.where(torch.isfinite(sb), torch.exp(sb - m_k[..., None]), 0.0)
+    # Key Step 2: fuse the per-token V scale, block-wise dynamic quantization
+    p8, sp = _quantize_p(e * sigma_k.float().reshape(B, 1, nb, block_n), fmt)
+    o_k = torch.einsum("bhkn,bknc->bhkc", p8,
+                       content.float().reshape(B, nb, block_n, d_c))  # [B, H, nb, d_c]
+    l_k = torch.sum(e, dim=-1)
+    m_star = torch.amax(m_k, dim=-1, keepdim=True)
+    w = torch.exp(m_k - m_star)
+    num = torch.einsum("bhk,bhkc->bhc", w * sp, o_k)
+    den = torch.einsum("bhk,bhk->bh", w, l_k)
+    return num / den[..., None], m_star[..., 0] + torch.log(den)
+
+
+def snapmla_decode_splitkv_parallel_ref(q_c8, q_r, sigma_q, content, rope, sigma_k,
+                                        seq_lens, *, softmax_scale: float, num_splits: int,
+                                        block_n: int = 128, fmt: str = "fp8_e4m3"):
+    """Split-KV in the parallel form (ref.py:445-474): the two-pass form per
+    split (sigma_p folded into its lse), empty splits as the neutral
+    (0, NEG_INF) partial, merged by ``lse_combine_ref``."""
+    def one_split(c, r, sk, local_len):
+        o_s, lse_s = snapmla_decode_parallel_ref(
+            q_c8, q_r, sigma_q, c, r, sk, local_len, softmax_scale=softmax_scale,
+            block_n=block_n, fmt=fmt)
+        return o_s, lse_s, torch.ones_like(lse_s)
+
+    o_p, lse_p, _ = _split_partials(one_split, content, rope, sigma_k, seq_lens,
+                                    num_splits, block_n)
+    return lse_combine_ref(o_p, lse_p)
+
+
+def snapmla_decode_parallel_any(q_c8, q_r, sigma_q, content, rope, sigma_k, seq_lens, *,
+                                softmax_scale: float, num_splits: int = 1,
+                                block_n: int = 128, fmt: str = "fp8_e4m3"):
+    """The parallel form at any split count (ref.py:477-511): one split is
+    ``snapmla_decode_parallel_ref``, more the split form; a rank-4
+    ``[B, q_len, H, .]`` query runs row by row under the verify contract."""
+    kw = dict(softmax_scale=softmax_scale, block_n=block_n, fmt=fmt)
+    if q_c8.dim() == 4:
+        return _verify_rows(
+            lambda qc, qr, sq, sl: snapmla_decode_parallel_any(
+                qc, qr, sq, content, rope, sigma_k, sl, num_splits=num_splits, **kw),
+            q_c8, q_r, sigma_q, seq_lens)
+    if num_splits > 1:
+        return snapmla_decode_splitkv_parallel_ref(q_c8, q_r, sigma_q, content, rope, sigma_k,
+                                                   seq_lens, num_splits=num_splits, **kw)
+    return snapmla_decode_parallel_ref(q_c8, q_r, sigma_q, content, rope, sigma_k, seq_lens,
+                                       **kw)
 
 
 def prepare_q(q_c: torch.Tensor, q_r: torch.Tensor, fmt: str = "fp8_e4m3"):

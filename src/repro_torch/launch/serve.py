@@ -15,8 +15,10 @@ On the card, with the hand-written kernels:
 q-LoRA through the same MLA kernels; ``--arch llama3.2-3b``, ``qwen2.5-3b``,
 ``gemma3-27b``, ``granite-3-2b``, ``qwen3-moe-30b-a3b`` or ``mixtral-8x7b``
 serve the GQA family, dense and MoE, through the FP8 GQA decode kernel, where
-the MLA-only flags do nothing). On the CPU (plain PyTorch versions of every
-kernel):
+the MLA-only flags do nothing; ``--arch recurrentgemma-9b`` (RG-LRU layers and
+local attention through the same kernel at d_head 256) and ``xlstm-1.3b``
+(mLSTM / sLSTM, no KV cache) serve the recurrent families). On the CPU (plain
+PyTorch versions of every kernel):
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch mla-7b --smoke --backend kernel --device cpu

@@ -1,32 +1,39 @@
 """Decoder stack of the port (``repro/models/transformer.py``) for the layer
 kinds ``attn`` (full causal GQA), ``swa`` (sliding-window GQA over a
-ring-buffer cache) and ``mla``: ``init_model``, ``init_decode_state``,
-``forward``, ``prefill`` and ``decode_step`` over any pattern of those
-kinds; and, for pure-MLA models over the paged pool, the serving engine's
-two paged steps: ``chunked_prefill`` (one prompt chunk, its prefix read back
-through the fused fetch-dequant kernel) and ``verify_step`` (a K-token
-speculative block through the q_len > 1 split-KV kernel).
+ring-buffer cache), ``mla``, ``rglru`` (the RG-LRU recurrence,
+``models/rglru.py``) and ``mlstm`` / ``slstm`` (the xLSTM cells,
+``models/xlstm.py``): ``init_model``, ``init_decode_state``, ``forward``,
+``prefill`` and ``decode_step`` over any pattern of those kinds; and, for
+pure-MLA models over the paged pool, the serving engine's two paged steps:
+``chunked_prefill`` (one prompt chunk, its prefix read back through the
+fused fetch-dequant kernel) and ``verify_step`` (a K-token speculative block
+through the q_len > 1 split-KV kernel).
 
 MLA layers decode through the contiguous ``MLACache`` (the default) or the
 paged pool (``kv_paged``; the serving engine's shared pool with
 ``kv_pool_pages``). GQA layers decode through a ``GQACache`` and the FP8 GQA
-decode (``kernels/gqa_decode``): the CUDA kernel under the ``kernel``
-backend, its plain version (the pipeline form) under ``ref``, where the
-reference's model path runs the parallel form (transformer.py:351); the
-MLA-only fields (``kv_paged``, ``kv_splits``, ``kv_block_n``,
-``kv_rescale``, ``kv_sink_tokens``) do nothing on GQA layers, as in the
-reference.
+decode (``kernels/gqa_decode``): the CUDA kernel #7 under the ``kernel``
+backend, the parallel form ``gqa_decode_parallel_ref`` under ``ref``, as
+the reference's model path does (transformer.py:351); the MLA-only fields
+(``kv_paged``, ``kv_splits``, ``kv_block_n``, ``kv_rescale``,
+``kv_sink_tokens``) do nothing on GQA layers, as in the reference.
 
 Each layer's MLP is dense, or with ``cfg.moe`` the token-choice MoE
 (``models/moe.py``): ``forward`` returns the summed dropped fraction as its
-auxiliary, and the serving paths discard it, as the reference's do.
+auxiliary, and the serving paths discard it, as the reference's do. The
+``mlstm`` and ``slstm`` blocks are self-contained and have no MLP
+(transformer.py:103). A recurrent layer's state is its ``RGLRUState``,
+``MLSTMState`` or ``SLSTMState``; prefill recomputes it from the prompt,
+and a decode step with ``active`` keeps the rows of finished sequences
+frozen (``_freeze_inactive``).
 
 The reference stacks each pattern slot's layers along a leading ``scanned``
 axis and keeps the remainder in ``tail``; the port keeps one list in layer
 order (``cfg.layer_kinds``): ``params["layers"][i]`` is one layer's
-``{"ln1", "mixer": AttnParams | MLAParams, "ln2", "mlp": MLPParams |
-MoEParams}`` and ``state["layers"][i]`` its ``GQACache``, ``MLACache`` or
-``PagedMLAPool``.
+``{"ln1", "mixer": AttnParams | MLAParams | RGLRUParams | MLSTMParams |
+SLSTMParams, ("ln2", "mlp": MLPParams | MoEParams)}`` and
+``state["layers"][i]`` its ``GQACache``, ``MLACache``, ``PagedMLAPool`` or
+recurrent state.
 """
 from __future__ import annotations
 
@@ -41,13 +48,17 @@ from repro_torch.core.kvcache import (CacheConfig, gqa_append, gqa_prefill, init
                                       mla_prefill, paged_mla_append, paged_mla_prefill,
                                       paged_mla_prefill_at)
 from repro_torch.kernels.gqa_decode import ops as gqa_ops
+from repro_torch.kernels.gqa_decode import ref as gqa_ref
 from repro_torch.kernels.mla_decode import backends as BK
 from repro_torch.kernels.mla_decode import ref as mla_kref
 from repro_torch.kernels.quantize import fetch_dequant as FD
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import xlstm as xlstm_lib
 
-PORTED_KINDS = ("attn", "swa", "mla")
+PORTED_KINDS = ("attn", "swa", "mla", "rglru", "mlstm", "slstm")
+XLSTM_KINDS = ("mlstm", "slstm")     # self-contained blocks: no MLP
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -85,10 +96,18 @@ def _cache_cfg(cfg: ModelConfig, kind: str = "mla") -> CacheConfig:
 def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device):
     if kind == "mla":
         mixer = mla_lib.init_mla_params(gen, _mla_cfg(cfg), dtype, device)
+    elif kind == "rglru":
+        mixer = rglru_lib.init_rglru_params(gen, cfg.d_model, cfg.d_model, dtype, device)
+    elif kind == "mlstm":
+        mixer = xlstm_lib.init_mlstm_params(gen, cfg.d_model, cfg.n_heads, cfg.d_head, dtype,
+                                            device)
+    elif kind == "slstm":
+        mixer = xlstm_lib.init_slstm_params(gen, cfg.d_model, cfg.n_heads, cfg.d_head, dtype,
+                                            device)
     else:
         mixer = L.init_attn_params(gen, _attn_cfg(cfg, kind), dtype, device)
     p = {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device), "mixer": mixer}
-    if cfg.has_mlp:
+    if cfg.has_mlp and kind not in XLSTM_KINDS:
         p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
         # every MLP is MoE when cfg.moe is set: the reference hands each layer
         # first_k_dense itself as its index hint (transformer.py:103-108, :126)
@@ -115,6 +134,12 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 
 def _init_layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int, device):
+    if kind == "rglru":
+        return rglru_lib.init_rglru_state(batch, cfg.d_model, device)
+    if kind == "mlstm":
+        return xlstm_lib.init_mlstm_state(batch, cfg.n_heads, cfg.d_head, device)
+    if kind == "slstm":
+        return xlstm_lib.init_slstm_state(batch, cfg.n_heads, cfg.d_head, device)
     ccfg = _cache_cfg(cfg, kind)
     if kind in ("attn", "swa"):
         return init_gqa_cache(ccfg, batch, max_len, cfg.n_kv_heads, cfg.d_head,
@@ -175,10 +200,13 @@ def _attn_decode(p: L.AttnParams, cfg: ModelConfig, kind: str, x_t: torch.Tensor
     if active is not None:
         q = torch.where(active[:, None, None, None], q, 0.0)
     cache = gqa_append(cache, ccfg, k[:, 0], v[:, 0], active=active)
-    o = gqa_ops.gqa_decode(q[:, 0].float(), cache, pos, window=acfg.window,
-                           block_n=ccfg.page_size,
-                           fmt=ccfg.fmt if ccfg.quantized else "none",
-                           use_kernel=_use_gqa_kernel(cfg))
+    kw = dict(window=acfg.window, block_n=ccfg.page_size,
+              fmt=ccfg.fmt if ccfg.quantized else "none")
+    if _use_gqa_kernel(cfg):
+        o = gqa_ops.gqa_decode(q[:, 0].float(), cache, pos, **kw)
+    else:
+        o = gqa_ref.gqa_decode_parallel_ref(q[:, 0].float(), cache.k, cache.v, cache.k_scale,
+                                            cache.v_scale, cache.slot_pos, pos, **kw)
     return torch.einsum("bhk,hkd->bd", o.to(x_t.dtype), p.wo), cache
 
 
@@ -227,6 +255,21 @@ def _backend_cfg(cfg: ModelConfig, mcfg, ccfg: CacheConfig) -> BK.BackendConfig:
                             num_splits=cfg.kv_splits, rescale=cfg.kv_rescale)
 
 
+_STEPS = {"rglru": rglru_lib.rglru_step, "mlstm": xlstm_lib.mlstm_step,
+          "slstm": xlstm_lib.slstm_step}
+# prefill / training: each recurrent block from a fresh state (the reference
+# passes none, transformer.py:593-601)
+_BLOCKS = {"rglru": rglru_lib.rglru_block, "mlstm": xlstm_lib.mlstm_block,
+           "slstm": xlstm_lib.slstm_block}
+
+
+def _freeze_inactive(active: torch.Tensor, new, old):
+    """Per-row recurrent-state freeze (transformer.py:434-441): the rows
+    where ``active`` is False keep ``old``."""
+    return type(new)(*(torch.where(active.reshape(active.shape + (1,) * (n.dim() - 1)), n, o)
+                       for n, o in zip(new, old)))
+
+
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state,
                 pos: torch.Tensor, active: torch.Tensor | None = None):
     """token [B] int, pos [B] int -> (logits [B, V] f32, new state).
@@ -240,6 +283,9 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state,
         h = L.rms_norm(x_t, p["ln1"])
         if kind == "mla":
             y, cache = _mla_decode(p["mixer"], cfg, h, cache, pos, active)
+        elif kind in _STEPS:
+            y, new = _STEPS[kind](p["mixer"], h, cache)
+            cache = new if active is None else _freeze_inactive(active, new, cache)
         else:
             y, cache = _attn_decode(p["mixer"], cfg, kind, h, cache, pos, active)
         x_t, _ = _apply_mlp(p, cfg, x_t + y)
@@ -251,6 +297,8 @@ def _attention_train(p, cfg: ModelConfig, kind: str, h: torch.Tensor,
                      positions: torch.Tensor) -> torch.Tensor:
     if kind == "mla":
         return mla_lib.mla_attention(p["mixer"], _mla_cfg(cfg), h, positions)
+    if kind in _BLOCKS:
+        return _BLOCKS[kind](p["mixer"], h)[0]
     return L.attention_block(p["mixer"], _attn_cfg(cfg, kind), h, positions)
 
 
@@ -280,6 +328,9 @@ def _prefill_layer(p, cfg: ModelConfig, kind: str, x: torch.Tensor, cache,
         c_kv, k_r = mla_lib.project_kv(p["mixer"], mcfg, h, positions)
         fill = paged_mla_prefill if cfg.kv_paged else mla_prefill
         cache = fill(cache, _cache_cfg(cfg), c_kv, k_r)
+    elif kind in _BLOCKS:
+        y, cache = _BLOCKS[kind](p["mixer"], h)
+        x = x + y
     else:
         acfg = _attn_cfg(cfg, kind)
         q, k, v = L.project_qkv(p["mixer"], acfg, h, positions)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro.core import kvcache as jkv
+from repro.kernels.mla_decode import backends as JB
 from repro.kernels.mla_decode import ops as jops
 from repro.kernels.mla_decode import ref as JR
 from repro.kernels.mla_decode.kernel import mla_decode_pallas, mla_decode_splitkv_pallas
@@ -214,10 +215,15 @@ def test_ops_dispatch_and_contiguous_backends(num_splits):
     dq = TB.DecodeQuery(*tq)
     o_ref = TB.resolve_backend("ref").decode(dq, tc, cfg)
     o_cuda = TB.resolve_backend("kernel").decode(dq, tc, cfg)
-    np.testing.assert_array_equal(o_cuda.numpy(), o_ref.numpy())
+    np.testing.assert_array_equal(o_cuda.numpy(), o_kern.numpy())
     o_j, _ = jops.snapmla_decode(*q, jc, softmax_scale=SCALE, block_n=16,
                                  num_splits=num_splits, use_kernel=False)
-    _close(o_ref, o_j)
+    _close(o_cuda, o_j)
+    # the reference backend is the parallel form, as the reference's jnp_ref
+    jcfg = JB.BackendConfig(softmax_scale=SCALE, block_n=16, num_splits=num_splits)
+    o_jr = jax.jit(lambda dq_, c: JB.get_backend("jnp_ref").decode(dq_, c, jcfg))(
+        JB.DecodeQuery(*q), jc)
+    _close(o_ref, o_jr)
     with pytest.raises(ValueError, match="multiple of block_n"):
         tops.snapmla_decode(*tq, tc, softmax_scale=SCALE, block_n=48)
 

@@ -26,7 +26,10 @@ print(" ".join(names))
 # modules the isolation checks must reach (the later slices' among them)
 _REQUIRED = ("repro_torch.serving.tiering", "repro_torch.checkpoint.checkpoint",
              "repro_torch.runtime.fault_tolerance", "repro_torch.obs.trace",
-             "repro_torch.obs.trace_report", "repro_torch.obs.quant_health")
+             "repro_torch.obs.trace_report", "repro_torch.obs.quant_health",
+             "repro_torch.kernels.mla_decode.autotune", "repro_torch.models.rglru",
+             "repro_torch.models.xlstm", "repro_torch.configs.recurrentgemma_9b",
+             "repro_torch.configs.xlstm_1_3b")
 
 
 def test_import_every_module_without_jax():

@@ -152,7 +152,7 @@ def test_config_copy_and_unported_paths(capsys, tmp_path):
                                                      kv_sink_tokens=3), 1, 16, device="cpu")
     assert isinstance(paged["layers"][0], tkv.PagedMLAPool)
     with pytest.raises(ValueError, match="not ported"):
-        get_config("xlstm-1.3b")
+        get_config("whisper-base")
     # the engine's snapshot / restore, tracer, host tier and probe flags run:
     # a preempted, restored run passes serve's own gates (the greedy oracle,
     # no leaked page, the trace validated on write)

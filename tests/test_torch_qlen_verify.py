@@ -145,11 +145,18 @@ def test_rank4_takes_the_split_path_and_backends_accept_it(case):
     q = TB.DecodeQuery(*tq)
     assert q.q_len == Q and TB.DecodeQuery(*(x[:, 0] for x in tq)).q_len == 1
     bcfg = TB.BackendConfig(softmax_scale=SCALE, fmt=fmt, num_splits=1)
-    for name in ("torch_paged_ref", "cuda_paged_splitkv"):
+    # the kernel backend: the split-KV pipeline; the reference backend: the
+    # parallel form on the gathered pages, row by row (backends.py:204-218)
+    gathered = TR.gather_paged_view(*tpool[:4])
+    wants = {
+        "cuda_paged_splitkv": TR.snapmla_decode_paged_splitkv_ref(
+            *tq, *tpool, softmax_scale=SCALE, num_splits=1, fmt=fmt)[0],
+        "torch_paged_ref": TR.snapmla_decode_parallel_any(
+            *tq, gathered[0], gathered[1].float(), gathered[2], tpool.seq_lens,
+            softmax_scale=SCALE, num_splits=1, block_n=tpool.page_size, fmt=fmt)[0]}
+    for name, want in wants.items():
         backend = TB.resolve_backend(name, paged=True, q_len=Q)
         o = backend.decode(q, tpool, bcfg)
-        want, _ = TR.snapmla_decode_paged_splitkv_ref(*tq, *tpool, softmax_scale=SCALE,
-                                                      num_splits=1, fmt=fmt)
         assert torch.equal(o.view(torch.int32), want.view(torch.int32))
 
 
@@ -270,10 +277,14 @@ def test_verify_step_matches_jax(model, rescale):
     assert tl.shape == (B, 4, jcfg.vocab_size)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4, atol=1e-4)
     _assert_pools_close(tstate, jstate)
-    # the reference-backend twin of the port computes the same function
+    # the reference-backend twin: the parallel form, which has no AMLA, as
+    # the reference's jnp_paged_ref twin
     rl, _ = tsteps.make_verify_step(tcfg, ref=True)(
         tparams, _t(draft), _t_with_tables(tstate, table, start), _t(start))
-    np.testing.assert_allclose(rl.numpy(), tl.numpy(), rtol=1e-4, atol=1e-4)
+    jref = dataclasses.replace(jcfg, decode_backend="ref", use_kernels=False)
+    jrl, _ = jax.jit(jsteps.make_verify_step(jref))(
+        jparams, jnp.asarray(draft), _j_with_tables(jstate, table, start), jnp.asarray(start))
+    np.testing.assert_allclose(rl.numpy(), np.asarray(jrl), rtol=1e-4, atol=1e-4)
 
 
 def test_verify_row_equals_decode_step(model):
