@@ -108,7 +108,27 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                rglru, 12 swa through #7, once per swa layer and step) and
                full xlstm-1.3b (48 mlstm / slstm layers, no kernel on its
                path), each also through ``generate_fused`` (the gates of
-               phase 4) and profiled, eager and replayed;
+               phase 4) and profiled, eager and replayed. #7 is also held at
+               the encoder families' static cross caches (whisper-base: Hkv
+               8, g 1, d_head 64, 1,500 frames in 1,536 slots; vision: Hkv 8,
+               g 8, d_head 128, 6,404 patches in 6,528; batch 4, the query
+               past every slot; fp8, int8, none), and its bf16 cases at
+               llama's serving shape, 32k, d_head 256 and both cross shapes
+               are timed beside ``scaled_dot_product_attention`` on the same
+               K / V (the kernel row's ``library_ms``);
+  8b. encoder — ``serve.generate`` and ``generate_fused`` on whisper-base at
+               full width and depth (6 encoder, 6 'dec' layers) and
+               llama-3.2-vision-90b at published widths cut to 5 of 100
+               layers (4 'attn', 1 'cross'), batch 4, prompt 512, gen 16,
+               random aux embeddings, every cross gate 0.5: the gates of
+               phase 8, the fused loop bitwise equal to the step loop, #7
+               12 and 5 times per decode step (a 'dec' layer: self, then
+               cross), one step profiled;
+  8c. train  — ``launch.train.train_loop`` on mla-7b (4 of 30 layers, batch 8,
+               seq 512) and whisper-base (full, batch 8, seq 448, its aux
+               embeddings), 20 steps each: finite, falling loss; ms per
+               step, tokens/s, peak memory, model FLOP/s against the f32
+               peak; a preempt-and-resume round on whisper-base;
   9. deepseek — deepseek-v3-mla at full width (128 heads, q-LoRA, 256
                experts top-8 + 1 shared) cut to one layer, after every other
                model is freed: ``serve.generate`` contiguous kv0, paged kv0,
@@ -154,6 +174,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -237,6 +258,8 @@ SUMMARY_EXTRA = {
     else (("serve_shape_h128", s), ("long_32k_h128", ls)),
     "dh64": lambda name, s, ls: (("gqa_granite_serve", 0), ("gqa_granite_long_32k", 0)),
     "dh256": lambda name, s, ls: (("gqa_rg_serve", 0), ("gqa_rg_long_32k", 0)),
+    # the encoder families' static cross caches: whisper-base, then vision
+    "cross": lambda name, s, ls: (("gqa_cross_whisper", 0), ("gqa_cross_vision", 0)),
 }
 # E1-E3 (phase 5): serve's engine flags
 E1 = ["--batch", "6", "--max-batch", "3", "--prompt-lens", "640,200,384",
@@ -1162,7 +1185,7 @@ def _add(total: dict, part: dict) -> None:
 
 
 def fused_gate(lbl, cfg, params, prompts, loop, plain, kernel, gen_steps=16,
-               per_step=None) -> dict:
+               per_step=None, aux=None, need_bitwise=False) -> dict:
     """``serve.generate_fused`` on ``cfg`` against ``generate``'s kernel run
     ``loop`` and its plain-backend run ``plain`` (each (tokens, tok/s,
     logits)) on the same weights and prompts: finite logits; the step
@@ -1174,14 +1197,16 @@ def fused_gate(lbl, cfg, params, prompts, loop, plain, kernel, gen_steps=16,
     layer; ``kernel`` None: no launch at all) and decode step and nothing
     else (D, C and #4 stay folded), counted as the launches made eagerly
     (the first decode step) plus those recorded into the graph times its
-    replays. A counted main path. Returns its launches."""
+    replays. ``aux``: the encoder families' aux embeddings; with
+    ``need_bitwise`` logits that are not bitwise equal to the step loop's
+    fail. A counted main path. Returns its launches."""
     import torch
     from repro_torch.kernels import _lib
     from repro_torch.launch import serve
     torch.cuda.synchronize()
     _lib.reset_launches()                       # a counted fused run starts here
     stats: dict = {}
-    toks, tps, logits = serve.generate_fused(cfg, params, prompts, gen_steps,
+    toks, tps, logits = serve.generate_fused(cfg, params, prompts, gen_steps, aux_embed=aux,
                                              return_logits=True, stats=stats)
     torch.cuda.synchronize()
     eager, captured = dict(_lib.LAUNCHES), dict(_lib.CAPTURED)   # ... and ends here
@@ -1200,7 +1225,7 @@ def fused_gate(lbl, cfg, params, prompts, loop, plain, kernel, gen_steps=16,
         raise AssertionError(f"fused {lbl}: tokens differ from the step loop's")
     bitwise = torch.equal(logits, l_logits)
     rel = float((logits - l_logits).abs().max() / l_logits.abs().max())
-    if rel > 1e-2:
+    if rel > 1e-2 or (need_bitwise and not bitwise):
         raise AssertionError(f"fused {lbl}: logits rel diff {rel} from the step loop's")
     first = float((logits[:, 1] - plain[2][:, 1]).abs().max() / plain[2][:, 1].abs().max())
     if first > 1e-2 or not torch.equal(toks[:, 0], plain[0][:, 0]):
@@ -1295,7 +1320,7 @@ def serve_runs(base, params, prompts, runs):
 PROFILE_RUNS = ((True, 0, "fma"), (True, 4, "fma"), (True, 4, "amla"), (False, 0, "fma"))
 
 
-def phase_profile(base, params, prompts, runs=PROFILE_RUNS, match=None, **extra):
+def phase_profile(base, params, prompts, runs=PROFILE_RUNS, match=None, aux=None, **extra):
     """Where one decode step's time goes (kernel backend, context
     ``prompts``' length) on each run (paged, kv_splits, rescale), in the step
     loop and in the fused loop, on one state: ``steps.DecodeGraph.step`` run
@@ -1305,7 +1330,8 @@ def phase_profile(base, params, prompts, runs=PROFILE_RUNS, match=None, **extra)
     a replayed graph), the device's idle share, aten ops per step, the
     heaviest kernels (``match``: also the device ms of the kernels whose name
     holds it); the capture's host seconds and the replays' ms on CUDA events
-    (``extra``: more fields for the line)."""
+    (``aux``: the encoder families' aux embeddings; ``extra``: more fields
+    for the line)."""
     import torch
     from repro_torch.launch import steps as ST
     from repro_torch.models import transformer as T
@@ -1314,7 +1340,7 @@ def phase_profile(base, params, prompts, runs=PROFILE_RUNS, match=None, **extra)
         cfg = dataclasses.replace(base, kv_paged=paged, kv_splits=splits, kv_rescale=rescale,
                                   decode_backend="kernel", use_kernels=True)
         state = T.init_decode_state(cfg, B, S + 64, device="cuda")
-        logits, state = T.prefill(params, cfg, prompts, state)
+        logits, state = T.prefill(params, cfg, prompts, state, aux)
         loop = ST.DecodeGraph(cfg, params, logits.argmax(-1).to(torch.int32), state,
                               torch.full((B,), S, dtype=torch.int32, device="cuda"))
         eager = _profile(loop.step, match=match)
@@ -1987,9 +2013,27 @@ GQA_CASES = [  # #7's cases: (tag, fmt, lens, N, Hkv, g, dh, window, block)
     ("gqa_rg_serve_int8", "int8", GQA_LLAMA_LENS, 640, 1, 16, 256, 2048, PAGE),
     ("gqa_rg_serve_none", "none", GQA_LLAMA_LENS, 640, 1, 16, 256, 2048, PAGE),
     ("gqa_rg_ring", "fp8_e4m3", [3000, 2100, 700, 2048], 2048, 1, 16, 256, 2048, PAGE),
-    ("gqa_rg_long_32k", "fp8_e4m3", GQA_LONG_LENS, 32768, 1, 16, 256, 0, PAGE)]
+    ("gqa_rg_long_32k", "fp8_e4m3", GQA_LONG_LENS, 32768, 1, 16, 256, 0, PAGE),
+    ("gqa_long_32k_none", "none", GQA_LONG_LENS, 32768, 8, 3, 128, 0, PAGE),
+    # the static cross caches of the encoder families (batch 4, every row
+    # filled, the query at CROSS_POS past every slot): whisper-base's MHA
+    # (Hkv 8, g 1, d_head 64; 1,500 frames in 1,536 slots) and
+    # llama-3.2-vision-90b's (Hkv 8, g 8, d_head 128; 6,404 patches in 6,528)
+    *((f"gqa_cross_whisper{sfx}", fmt, [1500] * 4, 1500, 8, 1, 64, 0, PAGE)
+      for fmt, sfx in (("fp8_e4m3", ""), ("int8", "_int8"), ("none", "_none"))),
+    *((f"gqa_cross_vision{sfx}", fmt, [6404] * 4, 6404, 8, 8, 128, 0, PAGE)
+      for fmt, sfx in (("fp8_e4m3", ""), ("int8", "_int8"), ("none", "_none")))]
 GQA_SWEEP = ("gqa_llama_serve", "gqa_qwen_serve", "gqa_long_32k", "gqa_granite_serve",
-             "gqa_granite_long_32k", "gqa_rg_serve", "gqa_rg_long_32k")  # the width line
+             "gqa_granite_long_32k", "gqa_rg_serve", "gqa_rg_long_32k", "gqa_cross_whisper",
+             "gqa_cross_vision")  # the width line
+# #7's bf16 ('none') cases timed beside scaled_dot_product_attention (the
+# library row): llama's serving shape, 32k, d_head 256, both cross shapes
+GQA_LIBRARY = ("gqa_llama_serve_none", "gqa_long_32k_none", "gqa_rg_serve_none",
+               "gqa_cross_whisper_none", "gqa_cross_vision_none")
+CROSS_POS = 2**31 - 2     # transformer.CROSS_POS: a cross layer's query position
+# the kernel rows timed beside one PyTorch call computing the same function:
+# (the case whose library time the row's library_ms carries, all such cases)
+LIBRARY_ROWS = {"gqa_decode": ("gqa_llama_serve_none", GQA_LIBRARY)}
 GQA_SERVE = [  # (arch, layers kept (0 = all), batch, prompt, gen, formats)
     ("llama3.2-3b", 0, 4, 512, 16, ("fp8_e4m3", "none")),
     ("gemma3-27b", 6, 2, 1200, 16, ("fp8_e4m3",)),
@@ -2002,14 +2046,26 @@ GQA_SERVE = [  # (arch, layers kept (0 = all), batch, prompt, gen, formats)
     # mlstm, 6 slstm; no kernel on its path)
     ("recurrentgemma-9b", 0, 4, 512, 16, ("fp8_e4m3",)),
     ("xlstm-1.3b", 0, 4, 512, 16, ("fp8_e4m3",))]
-# the GQA_SERVE models also run through generate_fused and are profiled
-FUSED_SERVE = ("llama3.2-3b", "recurrentgemma-9b", "xlstm-1.3b")
+# phase 8b: the encoder families, whisper-base at full width and depth (6
+# encoder + 6 'dec' layers) and llama-3.2-vision-90b at published widths cut
+# to one superblock (4 'attn' + 1 'cross' of 100 layers: 6.38 B float32
+# parameters, 25.5 GB; all 100 would be ~351 GB)
+ENCODER_SERVE = [("whisper-base", 0, 4, 512, 16, ("fp8_e4m3",)),
+                 ("llama-3.2-vision-90b", 5, 4, 512, 16, ("fp8_e4m3",))]
+# the GQA_SERVE and ENCODER_SERVE models that also run through generate_fused
+# and are profiled
+FUSED_SERVE = ("llama3.2-3b", "recurrentgemma-9b", "xlstm-1.3b", "whisper-base",
+               "llama-3.2-vision-90b")
+# #7 calls per decode step of each layer kind ('dec': self, then cross)
+GQA_PER_LAYER = {"attn": 1, "swa": 1, "cross": 1, "dec": 2}
+XGATE = 0.5     # every cross layer's tanh gate on the card (0 at init: the path would not show)
 
 
-def gqa_case(gen, fmt, lens, N, Hkv, g, dh, window=0, page=PAGE):
-    """A GQA cache of capacity N (``window``: a ring) whose row b was
-    prefilled with ``lens[b]`` tokens of random K, V through the port's
-    ``gqa_prefill``, and a query per row at position ``lens[b] - 1``."""
+def gqa_case(gen, fmt, lens, N, Hkv, g, dh, window=0, page=PAGE, cross=False):
+    """A GQA cache of capacity N (``window``: a ring; rounded up to the page)
+    whose row b was prefilled with ``lens[b]`` tokens of random K, V through
+    the port's ``gqa_prefill``, and a query per row at position
+    ``lens[b] - 1`` (``cross``: at ``CROSS_POS``, as a cross layer's)."""
     import torch
     from repro_torch.core.kvcache import CacheConfig, GQACache, gqa_prefill, init_gqa_cache
     cfg = CacheConfig(fmt=fmt, page_size=page, window=window)
@@ -2022,7 +2078,8 @@ def gqa_case(gen, fmt, lens, N, Hkv, g, dh, window=0, page=PAGE):
         rows.append(c)
     cache = GQACache(*(torch.cat(ts).contiguous() for ts in zip(*rows)))
     q = torch.randn(len(lens), Hkv * g, dh, generator=gen, device="cuda")
-    pos = torch.tensor([max(n - 1, 0) for n in lens], dtype=torch.int32, device="cuda")
+    pos = torch.tensor([CROSS_POS if cross else max(n - 1, 0) for n in lens],
+                       dtype=torch.int32, device="cuda")
     return q, cache, pos
 
 
@@ -2070,7 +2127,7 @@ def fetch_ptxas() -> dict:
     return rows
 
 
-def gqa_ptxas() -> None:
+def gqa_ptxas() -> dict:
     """Registers and spills of every #7 instantiation (format, head-tile
     width, head-size bucket: d_head <= 128 or 256), from the build's -Xptxas
     -v report: one line; raises on a spill or a missing report."""
@@ -2090,6 +2147,7 @@ def gqa_ptxas() -> None:
     if spills:
         raise AssertionError(f"#7: ptxas reports spills: {spills}")
     emit(phase="kernels", check="#7 ptxas", instantiations=rows)
+    return rows
 
 
 def gqa_checks(gen, records):
@@ -2097,16 +2155,21 @@ def gqa_checks(gen, records):
     (NaN rows, from a row with no token, equal), bitwise equality recorded;
     every head-tile width bitwise equal to every other and to the rule's
     pick; ms (CUDA-graph replay) at the rule's pick, plain ms and bound ms
-    per case; one line with each width's ms beside the pick."""
+    per case, with the registers and spills of the instantiation it runs;
+    one line with each width's ms beside the pick. The bf16 cases of
+    ``GQA_LIBRARY`` are also timed as ``scaled_dot_product_attention`` over
+    the same bf16 K / V (the valid slots as its mask, ``enable_gqa``), with
+    its largest difference from the kernel (``library``)."""
     import torch
     from repro_torch.kernels import _lib
     from repro_torch.kernels.gqa_decode import kernel as GK
     from repro_torch.kernels.gqa_decode import ops as GO
-    gqa_ptxas()
+    regs = gqa_ptxas()
     widths = GK.GQA_HEAD_WIDTHS
     sweep = []
     for tag, fmt, lens, N, Hkv, g, dh, window, block in GQA_CASES:
-        q, cache, pos = gqa_case(gen, fmt, lens, N, Hkv, g, dh, window)
+        q, cache, pos = gqa_case(gen, fmt, lens, N, Hkv, g, dh, window,
+                                 cross=tag.startswith("gqa_cross"))
         kw = dict(window=window, block_n=block, fmt=fmt)
         by_width = {}
         for w in widths:
@@ -2128,11 +2191,15 @@ def gqa_checks(gen, records):
         rec = dict(max_abs_err=err, ms=kernel_ms(lambda: GK.gqa_decode_cuda(*args, **kw)),
                    plain_ms=time_ms(lambda: GK.gqa_decode_plain(*args, **kw)),
                    bound_ms=bound[0], bound_by=bound[1])
+        if tag in GQA_LIBRARY:
+            rec["library"] = sdpa_library(q, cache, pos, window, got)
         records[("gqa_decode", tag, 0)] = rec
         pick = GK.gqa_head_width(len(lens), Hkv, g, _lib.sm_count(0))
         emit(phase="kernels", case=tag, kernel="#7 gqa_decode", fmt=fmt, lens=lens,
              capacity=cache.capacity, kv_heads=Hkv, g=g, dh=dh, window=window, block=block,
+             position=int(pos[0]) if tag.startswith("gqa_cross") else "lens - 1",
              max_abs_err=err, bitwise=bitwise, bitwise_widths=True, width=pick,
+             ptxas=regs[f"{fmt} width {pick} dh<={128 if dh <= 128 else 256}"],
              **{k: v for k, v in rec.items() if k != "max_abs_err"})
         if tag in GQA_SWEEP:
             sweep.append(dict(case=tag, picked=pick, ms_by_width=gqa_width_ms(
@@ -2157,6 +2224,34 @@ def gqa_checks(gen, records):
                                                                       _lib.sm_count(0)),
                           ms_by_width=gqa_width_ms(lambda: GK.gqa_decode_cuda(*args, **kw))))
     emit(phase="kernels", check="gqa head-tile widths", sms=_lib.sm_count(0), widths=sweep)
+
+
+def sdpa_library(q, cache, pos, window, kernel_out) -> dict:
+    """One ``scaled_dot_product_attention`` call on a bf16 #7 case's inputs
+    (q cast to bf16 [B, H, 1, dh], K / V [B, Hkv, N, dh] as stored, the
+    valid slots as a boolean mask, ``enable_gqa``, #7's softmax scale): its
+    device ms (CUDA-graph replay, as ``kernel_ms``) and its largest
+    difference from #7's output over the rows with a valid slot. Timed here
+    only; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.gqa_decode.ref import _valid_slots
+    B, H, dh = q.shape
+    qb = q.to(torch.bfloat16)[:, :, None, :].contiguous()
+    kb = cache.k.permute(0, 2, 1, 3).contiguous()
+    vb = cache.v.permute(0, 2, 1, 3).contiguous()
+    valid = _valid_slots(cache.slot_pos, pos, window)
+    mask = valid[:, None, None, :].contiguous()
+
+    def call():
+        return F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask, scale=dh ** -0.5,
+                                              enable_gqa=True)
+
+    o = call()[:, :, 0].float()
+    rows = valid.any(dim=1)
+    diff = float((o[rows] - kernel_out[rows]).abs().max())
+    return dict(call="torch.nn.functional.scaled_dot_product_attention", ms=kernel_ms(call),
+                max_abs_diff=diff)
 
 
 def gqa_width_ms(fn) -> dict:
@@ -2187,33 +2282,43 @@ class _CountDecodeSteps:
 
 
 def phase_gqa_serve(arch, layers, batch, prompt_len, gen_steps, fmts, fused=False):
-    """``serve.generate`` on one GQA or recurrent model at full width (depth cut to
-    ``layers`` when non-zero), weights from a seeded generator: the kernel
-    backend against the reference backend per format; with ``fused``, the
-    fp8 kernel run repeated through ``serve.generate_fused`` (``fused_gate``).
-    The kernel runs and the fused run are this path's counted runs: #7
-    launches exactly once per GQA layer (``attn`` / ``swa``; recurrentgemma's
-    ``rglru`` layers launch nothing) and decode step. Returns (launches, cfg,
-    params, prompts)."""
+    """``serve.generate`` on one GQA, recurrent or encoder-family model at
+    full width (depth cut to ``layers`` when non-zero), weights from a
+    seeded generator: the kernel backend against the reference backend per
+    format; with ``fused``, the fp8 kernel run repeated through
+    ``serve.generate_fused`` (``fused_gate``). The encoder families get
+    random aux embeddings [batch, n_aux_tokens, d] from the same generator
+    and every cross layer's gate set to 0.5 (it starts at zero, where a
+    cross layer adds nothing), and their fused run must be bitwise equal to
+    the step loop. The kernel runs and the fused run are this path's counted
+    runs: #7 launches exactly once per ``attn`` / ``swa`` / ``cross`` layer
+    and twice per ``dec`` layer (self, then cross) and decode step
+    (recurrentgemma's ``rglru`` layers launch nothing). Returns (launches,
+    cfg, params, prompts, aux)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
-    base = get_config(arch)
-    if layers:
-        base = dataclasses.replace(base, n_layers=layers)
+    full = get_config(arch)
+    base = dataclasses.replace(full, n_layers=layers) if layers else full
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t0 = time.time()
     params = T.init_model(gen, base, device="cuda")
+    for p in params["layers"]:
+        if "xgate" in p:
+            p["xgate"].fill_(XGATE)
     n_params = sum(t.numel() for t in _leaves(params))
     emit(phase="gqa_serve_init", arch=arch, layers=base.n_layers,
          kinds=list(base.layer_kinds), params=n_params, seconds=time.time() - t0,
-         gib=torch.cuda.memory_allocated() / 2**30)
+         gib=torch.cuda.memory_allocated() / 2**30,
+         reduced=f"{base.n_layers} of {full.n_layers} layers" if layers else None)
     prompts = torch.randint(0, base.vocab_size, (batch, prompt_len), generator=gen,
                             device="cuda")
-    n_gqa = sum(k in ("attn", "swa") for k in base.layer_kinds)
+    aux = torch.randn((batch, base.n_aux_tokens, base.d_model), generator=gen,
+                      device="cuda") if base.n_aux_tokens else None
+    n_gqa = sum(GQA_PER_LAYER.get(k, 0) for k in base.layer_kinds)
     kernel = "gqa_decode" if n_gqa else None    # xlstm-1.3b: no kernel on its path
     launches: dict = {}
     for fmt in fmts:
@@ -2221,12 +2326,12 @@ def phase_gqa_serve(arch, layers, batch, prompt_len, gen_steps, fmts, fused=Fals
             return dataclasses.replace(base, kv_fmt=fmt, decode_backend=backend,
                                        use_kernels=backend == "kernel")
         r_toks, r_tps, r_logits = serve.generate(cfg_of("ref"), params, prompts, gen_steps,
-                                                 return_logits=True)
+                                                 aux_embed=aux, return_logits=True)
         torch.cuda.synchronize()
         _lib.reset_launches()                  # the GQA serve path starts here
         with _CountDecodeSteps() as steps:
             toks, tps, logits = serve.generate(cfg_of("kernel"), params, prompts, gen_steps,
-                                               return_logits=True)
+                                               aux_embed=aux, return_logits=True)
         torch.cuda.synchronize()
         run_launches = dict(_lib.LAUNCHES)     # ... and ends here
         lbl = f"serve {arch} fmt={fmt}"
@@ -2240,20 +2345,121 @@ def phase_gqa_serve(arch, layers, batch, prompt_len, gen_steps, fmts, fused=Fals
             raise AssertionError(f"{lbl}: prefill tokens differ")
         want = {kernel: n_gqa * steps.n} if kernel else {}
         if run_launches != want:
-            raise AssertionError(f"{lbl}: launches {run_launches} != {want}: {n_gqa} GQA "
-                                 f"layers x {steps.n} decode steps")
+            raise AssertionError(f"{lbl}: launches {run_launches} != {want}: {n_gqa} #7 "
+                                 f"calls per step x {steps.n} decode steps")
         _add(launches, run_launches)
         if fused and fmt == "fp8_e4m3":
             _add(launches, fused_gate(f"{arch} fmt={fmt}", cfg_of("kernel"), params, prompts,
                                       (toks, tps, logits), (r_toks, r_tps, r_logits),
-                                      kernel, gen_steps, per_step=n_gqa))
+                                      kernel, gen_steps, per_step=n_gqa, aux=aux,
+                                      need_bitwise=aux is not None))
         emit(phase="gqa_serve", arch=arch, layers=base.n_layers, batch=batch,
              prompt=prompt_len, gen=gen_steps, fmt=fmt, window=base.window,
+             n_aux_tokens=base.n_aux_tokens, gqa_calls_per_step=n_gqa,
              decode_steps=steps.n, launches=run_launches, tok_per_s=tps,
              ref_tok_per_s=r_tps, greedy_agreement_vs_ref=float((toks == r_toks).float().mean()),
              first_step_logits_rel_err=first,
              max_logits_rel_err=float((logits - r_logits).abs().max() / r_logits.abs().max()))
-    return launches, base, params, prompts
+    return launches, base, params, prompts, aux
+
+
+# phase 8c: training (launch/train.train_loop on the card; no kernel of its own)
+TRAIN_RUNS = [  # (arch, layers kept (0 = all), batch, seq, steps, lr)
+    ("mla-7b", 4, 8, 512, 20, 3e-4),
+    # whisper's text context is 448 tokens; its encoder reads 1,500 frames
+    ("whisper-base", 0, 8, 448, 20, 3e-4)]
+TRAIN_CKPT = "build/chip_smoke_train_ckpt"
+
+
+def train_flops(cfg, batch, seq) -> float:
+    """Model FLOPs of one training step: 6 x parameters x tokens (forward
+    and backward of every matmul), the decoder's over batch x seq tokens and
+    whisper's encoder's over batch x n_aux_tokens frames; attention's own
+    products are left out."""
+    enc = cfg.encoder_layers * (cfg.d_model * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.d_head
+                                + cfg.n_heads * cfg.d_head * cfg.d_model
+                                + 3 * cfg.d_model * cfg.d_ff)
+    return 6.0 * ((cfg.param_count() - enc) * batch * seq + enc * batch * cfg.n_aux_tokens)
+
+
+def phase_train() -> None:
+    """``launch.train.train_loop`` on the card, float32 (TF32 off), AdamW,
+    remat per superblock: mla-7b at full width cut to 4 of 30 layers (1.15 B
+    parameters; params + grads + two moments ~18.5 GB; all 30 layers would
+    be ~95 GB) and whisper-base at full width and depth with its aux
+    embeddings, 20 steps each from seeded weights and ``synth_batch``: every
+    loss finite and falling by tests/test_train_loop.py's own assertion
+    (mean of the last 3 < mean of the first 3 - 0.1); ms per step (median of
+    the steps after the first), tokens/s, peak memory, model FLOP/s against
+    the 67 TFLOP/s float32 peak. Then whisper-base again, preempted after
+    step 10 of 20 (its checkpoint written), and restarted from that
+    checkpoint to step 20: the resumed losses within 1e-3 of the unbroken
+    run's steps 10-19 (the embedding's backward sums with atomics, so the
+    bits may differ)."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    unbroken = {}
+    for arch, layers, batch, seq, steps, lr in TRAIN_RUNS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers) if layers else full
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        out = train_loop(cfg, steps=steps, batch=batch, seq=seq, ckpt_dir=None, lr=lr,
+                         log_every=5, device="cuda")
+        wall = time.time() - t0
+        losses = out["losses"]
+        first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train {arch}: non-finite loss {losses}")
+        if not last < first - 0.1:
+            raise AssertionError(f"train {arch}: loss did not fall ({first} -> {last})")
+        step_s = statistics.median(out["step_s"][1:])
+        flops = train_flops(cfg, batch, seq)
+        emit(phase="train", arch=arch, layers=cfg.n_layers,
+             reduced=f"{cfg.n_layers} of {full.n_layers} layers" if layers else None,
+             params=cfg.param_count(), batch=batch, seq=seq,
+             n_aux_tokens=cfg.n_aux_tokens, steps=steps, lr=lr, loss_first3=first,
+             loss_last3=last, losses=losses, first_step_s=out["step_s"][0],
+             ms_per_step=step_s * 1e3, tokens_per_s=batch * seq / step_s,
+             peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+             model_flops_per_step=flops, model_tflops_per_s=flops / step_s / 1e12,
+             share_of_f32_peak=flops / step_s / PEAK["f32"], wall_s=wall,
+             stragglers=out["flagged_stragglers"])
+        unbroken[arch] = (cfg, batch, seq, steps, lr, losses)
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    class PreemptAfter:
+        """``requested`` turns True at the loop's 10th check (after step 10)."""
+
+        def __init__(self):
+            self.count = 0
+
+        @property
+        def requested(self):
+            self.count += 1
+            return self.count >= 10
+
+    cfg, batch, seq, steps, lr, losses = unbroken["whisper-base"]
+    shutil.rmtree(ROOT / TRAIN_CKPT, ignore_errors=True)
+    kw = dict(steps=steps, batch=batch, seq=seq, ckpt_dir=str(ROOT / TRAIN_CKPT), lr=lr,
+              log_every=100, device="cuda")
+    cut = train_loop(cfg, preemption=PreemptAfter(), ckpt_every=1000, **kw)
+    rest = train_loop(cfg, ckpt_every=1000, **kw)
+    diff = max(abs(a - b) for a, b in zip(rest["losses"], losses[10:]))
+    if cut["status"] != "preempted" or cut["final_step"] != 10 or rest["status"] != "done" \
+            or rest["final_step"] != steps or len(rest["losses"]) != steps - 10 or diff > 1e-3:
+        raise AssertionError(f"train preempt / resume: {cut['status']} at {cut['final_step']}, "
+                             f"{rest['status']} at {rest['final_step']} with "
+                             f"{len(rest['losses'])} losses, max diff {diff}")
+    emit(phase="train_resume", arch="whisper-base", preempted_at=cut["final_step"],
+         resumed_to=rest["final_step"], resumed_losses=rest["losses"],
+         max_loss_diff_vs_unbroken=diff, bitwise_vs_unbroken=rest["losses"] == losses[10:])
+    shutil.rmtree(ROOT / TRAIN_CKPT, ignore_errors=True)
 
 
 # phase 9: deepseek-v3-mla, full width, one layer
@@ -2358,7 +2564,9 @@ def summary_line(records, launches, long_tokens):
     """One entry per kernel (and AMLA / verify mode): the main-shape
     measurement, the long case beside it, launches on the main paths; the
     MLA kernels' rows also carry their times at 128 heads (deepseek-v3-mla),
-    #7's at d_head 64 (granite-3-2b)."""
+    #7's at d_head 64 (granite-3-2b), 256 (recurrentgemma-9b) and the cross
+    shapes, and its bf16 cases' library times (``library``; ``library_ms``
+    at llama's serving shape)."""
     rows = []
     for name, (source, replaces, mode) in KERNELS.items():
         s_serve, s_long = SUMMARY_SPLITS[_kind(name)]
@@ -2373,11 +2581,18 @@ def summary_line(records, launches, long_tokens):
                     "ms" in records.get((name, eltag, elS), {}):
                 extra[key] = dict(_timed(records[(name, etag, eS)], etag, eS),
                                   long_ctx=_timed(records[(name, eltag, elS)], eltag, elS))
+        library_ms = None
+        if name in LIBRARY_ROWS:
+            main_case, cases = LIBRARY_ROWS[name]
+            library_ms = records[(name, main_case, 0)]["library"]["ms"]
+            extra["library"] = {c: dict(records[(name, c, 0)]["library"],
+                                        kernel_ms=records[(name, c, 0)]["ms"]) for c in cases}
+            extra["library_case"] = main_case
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, mode=mode,
             launches=launches.get(name, 0), max_abs_err=err, ms=short["ms"],
             plain_ms=short["plain_ms"], bound_ms=short["bound_ms"],
-            bound_by=short["bound_by"], library_ms=None, case=tag, splits=S,
+            bound_by=short["bound_by"], library_ms=library_ms, case=tag, splits=S,
             off_main_path=OFF_PATH.get(name), folded_into=FOLDED_INTO.get(name),
             long_ctx=dict(case=ltag, tokens=long_tokens, splits=lS, ms=longc["ms"],
                           plain_ms=longc["plain_ms"], bound_ms=longc["bound_ms"],
@@ -2516,21 +2731,31 @@ def main() -> int:
     t0 = time.time()
     gqa_checks(gen, records)
     gqa_launches = {}
-    for arch, layers, batch, plen, gsteps, fmts in GQA_SERVE:
+    for arch, layers, batch, plen, gsteps, fmts in GQA_SERVE + ENCODER_SERVE:
+        if arch == ENCODER_SERVE[0][0]:
+            emit(phase="gqa_done", seconds=time.time() - t0, launches=gqa_launches)
+            t0 = time.time()           # 8b. the encoder families
         fused = arch in FUSED_SERVE
-        got, g_base, g_params, g_prompts = phase_gqa_serve(arch, layers, batch, plen, gsteps,
-                                                           fmts, fused=fused)
+        got, g_base, g_params, g_prompts, g_aux = phase_gqa_serve(arch, layers, batch, plen,
+                                                                  gsteps, fmts, fused=fused)
         gqa_launches[arch] = got
         if fused:
             phase_profile(g_base, g_params, g_prompts, runs=((False, 0, "fma"),),
-                          match="gqa_decode_kernel" if got else None)
-        del g_params
+                          match="gqa_decode_kernel" if got else None, aux=g_aux)
+        del g_params, g_aux
         gc.collect()
         torch.cuda.empty_cache()
-    emit(phase="gqa_done", seconds=time.time() - t0, launches=gqa_launches)
+    emit(phase="encoder_done", seconds=time.time() - t0,
+         launches={a: gqa_launches[a] for a, *_ in ENCODER_SERVE})
     for part in gqa_launches.values():
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
+
+    # 8c. the single-device training path: mla-7b (4 of 30 layers) and
+    # whisper-base (full), 20 steps each, and a preempt-and-resume round
+    t0 = time.time()
+    phase_train()
+    emit(phase="train_done", seconds=time.time() - t0)
 
     # 9. deepseek-v3-mla at full width, one layer: serve.generate and the
     # engine through the MLA kernels at 128 heads (counted main paths)

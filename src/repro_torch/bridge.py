@@ -1,5 +1,5 @@
-"""Carry the JAX package's parameters and caches (GQA, MLA contiguous and
-paged), handed over as numpy, into the port's structures.
+"""Carry the JAX package's parameters, AdamW state and caches (GQA, MLA
+contiguous and paged), handed over as numpy, into the port's structures.
 
 Input is the tree ``jax.tree.map(np.asarray, tree)`` gives: nested dicts,
 lists and NamedTuples of numpy arrays. Fields are read by name; nothing of
@@ -19,6 +19,7 @@ from repro_torch.models.layers import AttnParams, MLPParams
 from repro_torch.models.moe import MoEParams
 from repro_torch.models.rglru import RGLRUParams
 from repro_torch.models.xlstm import MLSTMParams, SLSTMParams
+from repro_torch.optim.adamw import AdamWState
 
 _RAW = {"float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
         "bfloat16": (np.int16, torch.bfloat16)}
@@ -85,19 +86,27 @@ def _mlp_params(m: Any, device) -> MLPParams | MoEParams:
 
 def _layer_params(lp: dict, device) -> dict[str, Any]:
     out = {"ln1": to_torch(lp["ln1"], device), "mixer": _mixer_params(lp["mixer"], device)}
+    if "xgate" in lp:                                   # 'cross'
+        out["xgate"] = to_torch(lp["xgate"], device)
+    if "cross" in lp:                                   # 'dec'
+        out.update(ln_cross=to_torch(lp["ln_cross"], device),
+                   cross=_mixer_params(lp["cross"], device))
     if "mlp" in lp:
         out.update(ln2=to_torch(lp["ln2"], device), mlp=_mlp_params(lp["mlp"], device))
     return out
 
 
 def params_from_jax(np_params: dict, device=None) -> dict[str, Any]:
-    """The reference ``init_model`` tree (transformer.py:112-140) of a model
-    whose layers are ``attn``, ``swa``, ``mla`` (q-LoRA included), ``rglru``,
-    ``mlstm`` or ``slstm``, with a dense or MoE MLP or none, -> the port's
-    ``{"embed", "ln_f", ("unembed",) "layers": [...]}``. ``scanned`` holds
+    """The reference ``init_model`` tree (transformer.py:112-145) of any
+    model (layers ``attn``, ``swa``, ``mla`` with q-LoRA, ``cross``,
+    ``dec``, ``rglru``, ``mlstm``, ``slstm``; a dense or MoE MLP or none;
+    whisper's encoder) -> the port's ``{"embed", "ln_f", ("unembed",)
+    "layers": [...], ("encoder": [...], "enc_ln_f")}``. ``scanned`` holds
     one entry per pattern slot, each stacked over the superblocks; the port's
     list interleaves them in layer order (superblock i, slot j is layer
-    ``i * pattern_len + j``), then appends the ``tail`` (the remainder)."""
+    ``i * pattern_len + j``), then appends the ``tail`` (the remainder). The
+    encoder's layers, stacked along their leading axis, become a list. Also
+    converts any tree of the same structure, such as AdamW's moments."""
     scanned = np_params.get("scanned") or []
     layers = []
     if scanned:
@@ -112,7 +121,21 @@ def params_from_jax(np_params: dict, device=None) -> dict[str, Any]:
     }
     if "unembed" in np_params:
         out["unembed"] = to_torch(np_params["unembed"], device)
+    if "encoder" in np_params:
+        enc = np_params["encoder"]
+        out["encoder"] = [_layer_params(_unstack(enc, i), device)
+                          for i in range(np.asarray(enc["ln1"]).shape[0])]
+        out["enc_ln_f"] = to_torch(np_params["enc_ln_f"], device)
     return out
+
+
+def opt_state_from_jax(np_opt: Any, device=None):
+    """The reference's ``AdamWState`` (adamw.py:25-28: ``step``, ``mu``,
+    ``nu``, each moment a tree like the parameters), as numpy -> the port's
+    ``optim.adamw.AdamWState``."""
+    return AdamWState(step=to_torch(_field(np_opt, "step"), device),
+                      mu=params_from_jax(_field(np_opt, "mu"), device),
+                      nu=params_from_jax(_field(np_opt, "nu"), device))
 
 
 def mla_params_from_jax(np_mla: Any, device=None) -> MLAParams:

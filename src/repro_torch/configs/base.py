@@ -6,9 +6,13 @@ which imports JAX, so the port keeps its own copy, and its own
 Layer heterogeneity is ``layer_pattern``, tiled over ``n_layers`` as in the
 reference: ``n_superblocks`` full tiles of the pattern, then the
 ``remainder_kinds`` (the first ``n_layers % pattern_len`` kinds of the
-pattern). Ported kinds: ``attn`` (full causal GQA), ``swa`` (sliding-window
-GQA over a ring-buffer cache), ``mla``, ``rglru`` and ``mlstm`` / ``slstm``
-(no MLP)."""
+pattern). Kinds: ``attn`` (full causal GQA), ``swa`` (sliding-window GQA
+over a ring-buffer cache), ``mla``, ``cross`` (llama-vision's tanh-gated
+cross attention + MLP), ``dec`` (whisper's decoder block: self attention,
+cross attention, MLP), ``rglru`` and ``mlstm`` / ``slstm`` (no MLP). The
+encoder families read precomputed frame / patch embeddings of
+``n_aux_tokens`` rows; whisper runs them through ``encoder_layers``
+bidirectional layers first."""
 from __future__ import annotations
 
 import dataclasses
@@ -46,6 +50,9 @@ class ModelConfig:
     # MLP is MoE whenever ``moe`` is set; the port keeps that
     first_k_dense: int = 0
     mla: MLADims | None = None
+    # enc-dec / multimodal stub (precomputed frame / patch embeddings)
+    encoder_layers: int = 0          # whisper transformer encoder depth
+    n_aux_tokens: int = 0            # encoder frames (whisper) / image patches (vlm)
     # serving / quantized KV cache (the paper's technique)
     kv_fmt: str = "fp8_e4m3"         # fp8_e4m3 | int8 | none (bf16 baseline)
     page_size: int = 128
@@ -94,17 +101,19 @@ class ModelConfig:
         return self.d_ff > 0 or self.moe is not None
 
     def param_count(self) -> int:
-        """Parameters of the ported kinds by the reference's count
-        (base.py:124; ``rglru`` and the xLSTM cells approximately, as
-        there), embedding included."""
+        """Parameters by the reference's count (base.py:124; ``rglru`` and
+        the xLSTM cells approximately, as there), embedding and encoder
+        included."""
         d = self.d_model
         kinds = self.layer_kinds
         emb = self.vocab_size * d
-        n_attn = sum(k in ("attn", "swa") for k in kinds)
+        n_attn = sum(k in ("attn", "swa", "dec") for k in kinds)
+        n_cross = sum(k in ("cross", "dec") for k in kinds)
         n_mla = sum(k == "mla" for k in kinds)
         n_xlstm = sum(k in ("mlstm", "slstm") for k in kinds)
-        total = emb + n_attn * (d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
-                                + self.n_heads * self.d_head * d)
+        attn_p = d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head \
+            + self.n_heads * self.d_head * d
+        total = emb + (n_attn + n_cross) * attn_p
         if self.mla:
             m = self.mla
             q_in = m.q_lora_rank or d
@@ -123,6 +132,7 @@ class ModelConfig:
                 d * e.n_experts + 3 * d * e.d_ff_expert * (e.n_experts + e.n_shared_experts))
         elif self.d_ff:
             total += n_mlp * 3 * d * self.d_ff
+        total += self.encoder_layers * (attn_p + 3 * d * self.d_ff)
         if not self.tie_embeddings:
             total += emb
         return int(total)

@@ -17,8 +17,11 @@ q-LoRA through the same MLA kernels; ``--arch llama3.2-3b``, ``qwen2.5-3b``,
 serve the GQA family, dense and MoE, through the FP8 GQA decode kernel, where
 the MLA-only flags do nothing; ``--arch recurrentgemma-9b`` (RG-LRU layers and
 local attention through the same kernel at d_head 256) and ``xlstm-1.3b``
-(mLSTM / sLSTM, no KV cache) serve the recurrent families). On the CPU (plain
-PyTorch versions of every kernel):
+(mLSTM / sLSTM, no KV cache) serve the recurrent families; ``--arch
+whisper-base`` (encoder-decoder) and ``llama-3.2-vision-90b`` (gated cross
+attention) serve the encoder families on random frame / patch embeddings,
+each cross layer through the same kernel over its static cache). On the CPU
+(plain PyTorch versions of every kernel):
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch mla-7b --smoke --backend kernel --device cpu
@@ -76,11 +79,13 @@ def _sync(device: torch.device) -> None:
 
 
 def generate(cfg, params, prompts: torch.Tensor, gen_steps: int, *,
-             temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
-             eos_id: int | None = None, seed: int = 0, return_logits: bool = False):
-    """prompts [B, S] (on the params' device) -> (generated tokens
-    [B, gen_steps], decode tok/s) — plus the logits of every step
-    [B, gen_steps, V] when ``return_logits``.
+             aux_embed: torch.Tensor | None = None, temperature: float = 0.0,
+             top_k: int = 0, top_p: float = 0.0, eos_id: int | None = None, seed: int = 0,
+             return_logits: bool = False):
+    """prompts [B, S] (on the params' device; the encoder families also take
+    ``aux_embed`` [B, n_aux_tokens, d]) -> (generated tokens [B, gen_steps],
+    decode tok/s) — plus the logits of every step [B, gen_steps, V] when
+    ``return_logits``.
 
     Per-step decode loop; sampling draws from one ``torch.Generator`` seeded
     with ``seed``; ``eos_id`` stops the loop once every sequence emitted it
@@ -98,7 +103,7 @@ def generate(cfg, params, prompts: torch.Tensor, gen_steps: int, *,
         return ST.sample_logits(logits, gen, temperature, top_k, top_p)
 
     state = T.init_decode_state(cfg, B, max_len, device=device)
-    logits, state = prefill_fn(params, prompts, state)
+    logits, state = prefill_fn(params, prompts, state, aux_embed)
     _check_finite(logits, "prefill")
     all_logits = [logits]
     tok = pick(logits)
@@ -144,9 +149,9 @@ def generate(cfg, params, prompts: torch.Tensor, gen_steps: int, *,
 
 
 def generate_fused(cfg, params, prompts: torch.Tensor, gen_steps: int, *,
-                   temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
-                   eos_id: int | None = None, seed: int = 0, return_logits: bool = False,
-                   stats: dict | None = None):
+                   aux_embed: torch.Tensor | None = None, temperature: float = 0.0,
+                   top_k: int = 0, top_p: float = 0.0, eos_id: int | None = None,
+                   seed: int = 0, return_logits: bool = False, stats: dict | None = None):
     """Prefill, then the whole decode as ``make_fused_decode``: on the card
     one decode step captured once as a CUDA graph and replayed per token
     (serve.py:121-174). Returns what ``generate`` returns: (tokens
@@ -166,7 +171,7 @@ def generate_fused(cfg, params, prompts: torch.Tensor, gen_steps: int, *,
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     state = T.init_decode_state(cfg, B, _decode_capacity(cfg, S, gen_steps), device=device)
-    logits, state = prefill_fn(params, prompts, state)
+    logits, state = prefill_fn(params, prompts, state, aux_embed)
     _check_finite(logits, "prefill")
     tok = ST.sample_logits(logits, gen, temperature, top_k, top_p)
     if gen_steps <= 1:
@@ -565,7 +570,10 @@ def main(argv=None):
         return
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=device, dtype=torch.int64)
-    sample_kw = dict(temperature=args.temperature, top_k=args.top_k,
+    # the encoder families' frame / patch embeddings (serve.py:661-662)
+    aux = torch.randn((args.batch, cfg.n_aux_tokens, cfg.d_model), generator=gen,
+                      device=device) if cfg.n_aux_tokens else None
+    sample_kw = dict(aux_embed=aux, temperature=args.temperature, top_k=args.top_k,
                      top_p=args.top_p, eos_id=args.eos_id, seed=args.seed)
     gen_fn = generate_fused if args.fused else generate
     toks, tps = gen_fn(cfg, params, prompts, args.gen, **sample_kw)

@@ -1,5 +1,6 @@
-"""Prefill / decode / chunked-prefill / verify steps, sampling and the fused
-decode loop (port of the serving half of ``repro/launch/steps.py``).
+"""Train / prefill / decode / chunked-prefill / verify steps, sampling and
+the fused decode loop (port of ``repro/launch/steps.py``; the dry-run's
+shape specs are not ported).
 
 ``make_fused_decode`` is the reference's one-dispatch decode (a ``lax.scan``
 over the steps with the caches donated): here ``DecodeGraph`` runs one decode
@@ -17,11 +18,41 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import _lib
 from repro_torch.models import transformer as T
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, tree_leaves, tree_unflatten
+from repro_torch.optim.schedule import warmup_cosine
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
+                    warmup_steps: int = 100, total_steps: int = 10000, remat: bool = True):
+    """train_step(params, opt_state, batch, step) -> (new params, new AdamW
+    state, metrics) (steps.py:43-58): ``loss_fn``'s value and gradient with
+    respect to every parameter (autograd on detached copies; a parameter no
+    path reads gets a zero gradient, as ``jax.grad`` gives), then
+    ``adamw_update`` at the warmup-cosine lr of ``step``. ``batch`` holds
+    ``tokens``, ``labels`` and, for the encoder families, ``aux_embed``.
+    Metrics: ``loss``, ``ce``, ``moe_dropped``, ``grad_norm``, ``lr``."""
+    def train_step(params, opt_state, batch, step):
+        leaves = tree_leaves(params)
+        live = [x.detach().requires_grad_(True) for x in leaves]
+        with torch.enable_grad():
+            loss, metrics = T.loss_fn(tree_unflatten(params, iter(live)), cfg,
+                                      batch["tokens"], batch["labels"],
+                                      batch.get("aux_embed"), remat=remat)
+            grads = torch.autograd.grad(loss, live, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+        lr_scale = warmup_cosine(step, warmup_steps=warmup_steps, total_steps=total_steps)
+        new_params, new_opt, om = adamw_update(opt_cfg, tree_unflatten(params, iter(grads)),
+                                               opt_state, params, lr_scale)
+        metrics = {k: v.detach() if isinstance(v, torch.Tensor) else v
+                   for k, v in metrics.items()}
+        return new_params, new_opt, {**metrics, **om, "loss": loss.detach()}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):
-    def prefill_step(params, tokens, state):
-        return T.prefill(params, cfg, tokens, state)
+    def prefill_step(params, tokens, state, aux_embed=None):
+        return T.prefill(params, cfg, tokens, state, aux_embed)
 
     return prefill_step
 

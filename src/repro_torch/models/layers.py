@@ -1,7 +1,8 @@
-"""Transformer layers (port of ``repro/models/layers.py`` without layer norm
-and cross attention): RMSNorm, half-split RoPE, GQA attention for training
-and prefill (``project_qkv``, ``sdpa``, ``flash_sdpa``, ``attention_block``),
-the MLPs, the embedding and the tied unembedding. Weights are plain tensors
+"""Transformer layers (port of ``repro/models/layers.py``): RMSNorm and
+LayerNorm, half-split RoPE, GQA attention for training and prefill
+(``project_qkv``, ``sdpa``, ``flash_sdpa``, ``attention_block``), cross
+attention (``cross_attention_block``), the MLPs, the embedding and the tied
+unembedding. Weights are plain tensors
 in the JAX package's layouts.
 
 ``sdpa`` and ``flash_sdpa`` are plain PyTorch, as the reference computes them
@@ -21,6 +22,17 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Te
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return ((xf * torch.rsqrt(var + eps)) * gain.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 with the population variance (layers.py:26); no
+    model path of either package calls it."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * gain.float() + bias.float()).to(x.dtype)
 
 
 def rope_freqs(positions: torch.Tensor, dim: int, theta: float = 10000.0):
@@ -159,6 +171,19 @@ def attention_block(params: AttnParams, cfg: AttnConfig, x: torch.Tensor,
         o = flash_sdpa(q, k, v, causal=causal, window=cfg.window)
     else:
         o = sdpa(q, k, v, causal=causal, window=cfg.window)
+    return torch.einsum("bshk,hkd->bsd", o, params.wo)
+
+
+def cross_attention_block(params: AttnParams, cfg: AttnConfig, x: torch.Tensor,
+                          kv_src: torch.Tensor) -> torch.Tensor:
+    """Cross attention (layers.py:222): queries from x [B, Sq, d], keys and
+    values from kv_src [B, Sk, d]; no RoPE, no mask, the plain ``sdpa``."""
+    q = torch.einsum("bsd,dhk->bshk", x, params.wq)
+    k = torch.einsum("bsd,dhk->bshk", kv_src, params.wk)
+    v = torch.einsum("bsd,dhk->bshk", kv_src, params.wv)
+    if params.bq is not None:
+        q, k, v = q + params.bq, k + params.bk, v + params.bv
+    o = sdpa(q, k, v, causal=False)
     return torch.einsum("bshk,hkd->bsd", o, params.wo)
 
 

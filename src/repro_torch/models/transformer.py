@@ -1,13 +1,15 @@
-"""Decoder stack of the port (``repro/models/transformer.py``) for the layer
-kinds ``attn`` (full causal GQA), ``swa`` (sliding-window GQA over a
-ring-buffer cache), ``mla``, ``rglru`` (the RG-LRU recurrence,
-``models/rglru.py``) and ``mlstm`` / ``slstm`` (the xLSTM cells,
+"""Decoder stack of the port (``repro/models/transformer.py``) for every
+layer kind of the reference: ``attn`` (full causal GQA), ``swa``
+(sliding-window GQA over a ring-buffer cache), ``mla``, ``cross``
+(llama-vision's tanh-gated cross attention + MLP), ``dec`` (whisper's
+decoder block: self attention, cross attention, MLP), ``rglru`` (the RG-LRU
+recurrence, ``models/rglru.py``) and ``mlstm`` / ``slstm`` (the xLSTM cells,
 ``models/xlstm.py``): ``init_model``, ``init_decode_state``, ``forward``,
-``prefill`` and ``decode_step`` over any pattern of those kinds; and, for
-pure-MLA models over the paged pool, the serving engine's two paged steps:
-``chunked_prefill`` (one prompt chunk, its prefix read back through the
-fused fetch-dequant kernel) and ``verify_step`` (a K-token speculative block
-through the q_len > 1 split-KV kernel).
+``loss_fn``, ``prefill`` and ``decode_step`` over any pattern of those
+kinds; and, for pure-MLA models over the paged pool, the serving engine's
+two paged steps: ``chunked_prefill`` (one prompt chunk, its prefix read back
+through the fused fetch-dequant kernel) and ``verify_step`` (a K-token
+speculative block through the q_len > 1 split-KV kernel).
 
 MLA layers decode through the contiguous ``MLACache`` (the default) or the
 paged pool (``kv_paged``; the serving engine's shared pool with
@@ -17,6 +19,15 @@ backend, the parallel form ``gqa_decode_parallel_ref`` under ``ref``, as
 the reference's model path does (transformer.py:351); the MLA-only fields
 (``kv_paged``, ``kv_splits``, ``kv_block_n``, ``kv_rescale``,
 ``kv_sink_tokens``) do nothing on GQA layers, as in the reference.
+
+The encoder families read ``aux_embed`` [B, n_aux_tokens, d] (precomputed
+frame / patch embeddings); whisper first runs it through its
+``encoder_layers`` bidirectional layers (``_run_encoder``). Prefill keeps
+the result in ``state["aux"]`` and projects it once into each cross layer's
+static ``GQACache`` (``_fill_cross_cache``: capacity ``n_aux_tokens``
+rounded up to the page, slots past it empty); a decode step attends that
+cache through the same GQA decode as a self-attention layer, at a position
+past every slot (``_cross_decode``), and never writes it.
 
 Each layer's MLP is dense, or with ``cfg.moe`` the token-choice MoE
 (``models/moe.py``): ``forward`` returns the summed dropped fraction as its
@@ -31,15 +42,21 @@ The reference stacks each pattern slot's layers along a leading ``scanned``
 axis and keeps the remainder in ``tail``; the port keeps one list in layer
 order (``cfg.layer_kinds``): ``params["layers"][i]`` is one layer's
 ``{"ln1", "mixer": AttnParams | MLAParams | RGLRUParams | MLSTMParams |
-SLSTMParams, ("ln2", "mlp": MLPParams | MoEParams)}`` and
-``state["layers"][i]`` its ``GQACache``, ``MLACache``, ``PagedMLAPool`` or
-recurrent state.
+SLSTMParams, ("xgate",) ("ln_cross", "cross": AttnParams,) ("ln2", "mlp":
+MLPParams | MoEParams)}`` and ``state["layers"][i]`` its ``GQACache``,
+``MLACache``, ``PagedMLAPool``, recurrent state, or for ``dec`` the dict
+``{"self": GQACache, "cross": GQACache}``; ``params["encoder"]`` lists the
+encoder's ``attn`` layers. ``forward`` runs each superblock (the pattern's
+layers) under ``torch.utils.checkpoint`` when ``remat``, as the reference
+runs each scanned superblock under ``jax.checkpoint``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import mla as mla_lib
@@ -57,8 +74,16 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import xlstm as xlstm_lib
 
-PORTED_KINDS = ("attn", "swa", "mla", "rglru", "mlstm", "slstm")
+PORTED_KINDS = ("attn", "swa", "mla", "cross", "dec", "rglru", "mlstm", "slstm")
 XLSTM_KINDS = ("mlstm", "slstm")     # self-contained blocks: no MLP
+# a cross layer's decode query position: past every slot of its static cache
+CROSS_POS = 2**31 - 2                # jnp.iinfo(jnp.int32).max - 1
+
+
+def _check_aux(cfg: ModelConfig, aux_embed) -> None:
+    if aux_embed is None and {"cross", "dec"} & set(cfg.layer_pattern):
+        raise ValueError(f"{cfg.name}: cross-attention layers need aux_embed "
+                         f"[B, {cfg.n_aux_tokens}, {cfg.d_model}]")
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -107,6 +132,13 @@ def _init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str, dtype, device
     else:
         mixer = L.init_attn_params(gen, _attn_cfg(cfg, kind), dtype, device)
     p = {"ln1": torch.ones((cfg.d_model,), dtype=dtype, device=device), "mixer": mixer}
+    if kind == "cross":
+        # tanh-gated (llama-vision): zero at init, so a fresh cross layer adds
+        # nothing (transformer.py:85-87)
+        p["xgate"] = torch.zeros((1,), dtype=dtype, device=device)
+    elif kind == "dec":
+        p["ln_cross"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
+        p["cross"] = L.init_attn_params(gen, _attn_cfg(cfg, kind), dtype, device)
     if cfg.has_mlp and kind not in XLSTM_KINDS:
         p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
         # every MLP is MoE when cfg.moe is set: the reference hands each layer
@@ -130,6 +162,12 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
     }
     if not cfg.tie_embeddings:
         params["unembed"] = L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype, device)
+    if cfg.encoder_layers:
+        # dense 'attn' layers (transformer.py:139-144)
+        enc_cfg = dataclasses.replace(cfg, moe=None)
+        params["encoder"] = [_init_layer(gen, enc_cfg, "attn", dtype, device)
+                             for _ in range(cfg.encoder_layers)]
+        params["enc_ln_f"] = torch.ones((cfg.d_model,), dtype=dtype, device=device)
     return params
 
 
@@ -144,6 +182,15 @@ def _init_layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int, dev
     if kind in ("attn", "swa"):
         return init_gqa_cache(ccfg, batch, max_len, cfg.n_kv_heads, cfg.d_head,
                               device=device)
+    if kind in ("cross", "dec"):
+        # the static cross cache: n_aux_tokens rounded up to the page
+        # (transformer.py:273-283)
+        cross = init_gqa_cache(ccfg, batch, max(cfg.n_aux_tokens, 1), cfg.n_kv_heads,
+                               cfg.d_head, device=device)
+        if kind == "cross":
+            return cross
+        return {"self": init_gqa_cache(ccfg, batch, max_len, cfg.n_kv_heads, cfg.d_head,
+                                       device=device), "cross": cross}
     dims = (cfg.mla.d_c, cfg.mla.d_rope)
     if cfg.kv_paged:
         # kv_pool_pages > 0: the engine's shared pool (transformer.py:266-270)
@@ -156,7 +203,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device=None) -> dict[str, Any]:
     _check_ported(cfg)
     return {"layers": [_init_layer_state(cfg, kind, batch, max_len, device)
-                       for kind in cfg.layer_kinds]}
+                       for kind in cfg.layer_kinds],
+            "aux": None}     # the encoder output / image embeddings, set by prefill
 
 
 def _apply_mlp(p, cfg: ModelConfig, x: torch.Tensor):
@@ -200,14 +248,38 @@ def _attn_decode(p: L.AttnParams, cfg: ModelConfig, kind: str, x_t: torch.Tensor
     if active is not None:
         q = torch.where(active[:, None, None, None], q, 0.0)
     cache = gqa_append(cache, ccfg, k[:, 0], v[:, 0], active=active)
-    kw = dict(window=acfg.window, block_n=ccfg.page_size,
+    o = _gqa_attend(cfg, q[:, 0], cache, pos, acfg.window, ccfg)
+    return torch.einsum("bhk,hkd->bd", o.to(x_t.dtype), p.wo), cache
+
+
+def _gqa_attend(cfg: ModelConfig, q: torch.Tensor, cache, pos: torch.Tensor, window: int,
+                ccfg: CacheConfig) -> torch.Tensor:
+    """q [B, H, dh] over a ``GQACache`` -> o [B, H, dh] f32: #7 on a kernel
+    backend (its plain version on CPU tensors), the parallel form under
+    ``ref``."""
+    kw = dict(window=window, block_n=ccfg.page_size,
               fmt=ccfg.fmt if ccfg.quantized else "none")
     if _use_gqa_kernel(cfg):
-        o = gqa_ops.gqa_decode(q[:, 0].float(), cache, pos, **kw)
-    else:
-        o = gqa_ref.gqa_decode_parallel_ref(q[:, 0].float(), cache.k, cache.v, cache.k_scale,
-                                            cache.v_scale, cache.slot_pos, pos, **kw)
-    return torch.einsum("bhk,hkd->bd", o.to(x_t.dtype), p.wo), cache
+        return gqa_ops.gqa_decode(q.float(), cache, pos, **kw)
+    return gqa_ref.gqa_decode_parallel_ref(q.float(), cache.k, cache.v, cache.k_scale,
+                                           cache.v_scale, cache.slot_pos, pos, **kw)
+
+
+def _cross_decode(p: L.AttnParams, cfg: ModelConfig, x_t: torch.Tensor, cache):
+    """One-token cross attention against the static quantized aux cache
+    (transformer.py:360-371): no RoPE, every filled slot valid (the query
+    sits at ``CROSS_POS``, past every slot), the cache never written."""
+    q = torch.einsum("bd,dhk->bhk", x_t, p.wq)
+    if p.bq is not None:
+        q = q + p.bq
+    pos = torch.full((x_t.shape[0],), CROSS_POS, dtype=torch.int32, device=x_t.device)
+    o = _gqa_attend(cfg, q, cache, pos, 0, _cache_cfg(cfg, "attn"))
+    return torch.einsum("bhk,hkd->bd", o.to(x_t.dtype), p.wo)
+
+
+def _xgate(p, x: torch.Tensor) -> torch.Tensor:
+    """A ``cross`` layer's gate tanh(xgate), in float32, cast to x's dtype."""
+    return torch.tanh(p["xgate"].float()).to(x.dtype)
 
 
 def _mla_decode(p: mla_lib.MLAParams, cfg: ModelConfig, x_t: torch.Tensor, cache,
@@ -286,6 +358,13 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state,
         elif kind in _STEPS:
             y, new = _STEPS[kind](p["mixer"], h, cache)
             cache = new if active is None else _freeze_inactive(active, new, cache)
+        elif kind == "cross":
+            y = _xgate(p, x_t) * _cross_decode(p["mixer"], cfg, h, cache)
+        elif kind == "dec":
+            y, self_c = _attn_decode(p["mixer"], cfg, "attn", h, cache["self"], pos, active)
+            x_t = x_t + y
+            y = _cross_decode(p["cross"], cfg, L.rms_norm(x_t, p["ln_cross"]), cache["cross"])
+            cache = {"self": self_c, "cross": cache["cross"]}
         else:
             y, cache = _attn_decode(p["mixer"], cfg, kind, h, cache, pos, active)
         x_t, _ = _apply_mlp(p, cfg, x_t + y)
@@ -293,34 +372,97 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, state,
     return _logits(params, x_t), {**state, "layers": new_layers}
 
 
-def _attention_train(p, cfg: ModelConfig, kind: str, h: torch.Tensor,
-                     positions: torch.Tensor) -> torch.Tensor:
+def _apply_block_train(p, cfg: ModelConfig, kind: str, x: torch.Tensor,
+                       positions: torch.Tensor, aux: torch.Tensor | None):
+    """One layer of the training forward (transformer.py:164-187): (x, the
+    layer's MoE dropped fraction)."""
+    h = L.rms_norm(x, p["ln1"])
     if kind == "mla":
-        return mla_lib.mla_attention(p["mixer"], _mla_cfg(cfg), h, positions)
-    if kind in _BLOCKS:
-        return _BLOCKS[kind](p["mixer"], h)[0]
-    return L.attention_block(p["mixer"], _attn_cfg(cfg, kind), h, positions)
+        x = x + mla_lib.mla_attention(p["mixer"], _mla_cfg(cfg), h, positions)
+    elif kind in _BLOCKS:
+        x = x + _BLOCKS[kind](p["mixer"], h)[0]
+    elif kind == "cross":
+        x = x + _xgate(p, x) * L.cross_attention_block(p["mixer"], _attn_cfg(cfg, kind), h, aux)
+    elif kind == "dec":
+        acfg = _attn_cfg(cfg, kind)
+        x = x + L.attention_block(p["mixer"], acfg, h, positions)
+        x = x + L.cross_attention_block(p["cross"], acfg, L.rms_norm(x, p["ln_cross"]), aux)
+    else:
+        x = x + L.attention_block(p["mixer"], _attn_cfg(cfg, kind), h, positions)
+    return _apply_mlp(p, cfg, x)
 
 
-def forward(params, cfg: ModelConfig, tokens: torch.Tensor):
-    """Training forward (transformer.py:208): tokens [B, S] -> (logits
-    [B, S, V] f32, the MoE auxiliary: the dropped fractions summed over the
-    layers, 0.0 for a dense model)."""
+def _run_encoder(params, cfg: ModelConfig, aux_embed: torch.Tensor | None):
+    """Whisper's bidirectional encoder over the frame embeddings
+    (transformer.py:190-205); ``aux_embed`` itself for a model without one."""
+    if cfg.encoder_layers == 0 or aux_embed is None:
+        return aux_embed
+    positions = torch.arange(aux_embed.shape[1], device=aux_embed.device)
+    enc_cfg = dataclasses.replace(cfg, moe=None)
+    acfg = _attn_cfg(enc_cfg, "attn")
+    x = aux_embed
+    for p in params["encoder"]:
+        x = x + L.attention_block(p["mixer"], acfg, L.rms_norm(x, p["ln1"]), positions,
+                                  causal=False)
+        x, _ = _apply_mlp(p, enc_cfg, x)
+    return L.rms_norm(x, params["enc_ln_f"])
+
+
+def forward(params, cfg: ModelConfig, tokens: torch.Tensor,
+            aux_embed: torch.Tensor | None = None, remat: bool = True):
+    """Training forward (transformer.py:208): tokens [B, S] (and the encoder
+    families' ``aux_embed`` [B, n_aux_tokens, d]) -> (logits [B, S, V] f32,
+    the MoE auxiliary: the dropped fractions summed over the layers, 0.0 for
+    a dense model). With ``remat`` and autograd recording, each full
+    superblock (``pattern_len`` layers) runs under ``torch.utils.checkpoint``
+    and is recomputed in the backward pass, as the reference's scanned
+    superblocks are under ``jax.checkpoint``; the remainder layers are not.
+    The numbers do not depend on ``remat``."""
     _check_ported(cfg)
+    _check_aux(cfg, aux_embed)
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    aux = 0.0
-    for p, kind in zip(params["layers"], cfg.layer_kinds):
-        x = x + _attention_train(p, cfg, kind, L.rms_norm(x, p["ln1"]), positions)
-        x, dropped = _apply_mlp(p, cfg, x)
-        aux = aux + dropped
-    return L.unembed(_table(params), L.rms_norm(x, params["ln_f"])), aux
+    aux = _run_encoder(params, cfg, aux_embed)
+    kinds, layers = cfg.layer_kinds, params["layers"]
+
+    def superblock(x, lo, hi):
+        dropped = 0.0
+        for p, kind in zip(layers[lo:hi], kinds[lo:hi]):
+            x, d = _apply_block_train(p, cfg, kind, x, positions, aux)
+            dropped = dropped + d
+        return x, dropped
+
+    checkpointed = remat and torch.is_grad_enabled()
+    n, total = cfg.pattern_len, 0.0
+    for lo in range(0, cfg.n_superblocks * n, n):
+        if checkpointed:
+            x, d = torch.utils.checkpoint.checkpoint(superblock, x, lo, lo + n,
+                                                     use_reentrant=False)
+        else:
+            x, d = superblock(x, lo, lo + n)
+        total = total + d
+    x, d = superblock(x, cfg.n_superblocks * n, len(kinds))
+    total = total + d
+    return L.unembed(_table(params), L.rms_norm(x, params["ln_f"])), total
+
+
+def loss_fn(params, cfg: ModelConfig, tokens: torch.Tensor, labels: torch.Tensor,
+            aux_embed: torch.Tensor | None = None, remat: bool = True):
+    """Next-token cross entropy over the labels ``>= 0`` (labels == -1 are
+    masked; transformer.py:244-253) -> (loss, {"ce": loss, "moe_dropped"})."""
+    logits, aux = forward(params, cfg, tokens, aux_embed, remat)
+    mask = labels >= 0
+    lab = torch.where(mask, labels, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
+    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return loss, {"ce": loss, "moe_dropped": aux}
 
 
 def _prefill_layer(p, cfg: ModelConfig, kind: str, x: torch.Tensor, cache,
-                   positions: torch.Tensor):
+                   positions: torch.Tensor, aux: torch.Tensor | None):
     """One layer over the prompt: its output and its filled cache
-    (transformer.py:537-553)."""
+    (transformer.py:537-578)."""
     h = L.rms_norm(x, p["ln1"])
     if kind == "mla":
         mcfg = _mla_cfg(cfg)
@@ -331,25 +473,51 @@ def _prefill_layer(p, cfg: ModelConfig, kind: str, x: torch.Tensor, cache,
     elif kind in _BLOCKS:
         y, cache = _BLOCKS[kind](p["mixer"], h)
         x = x + y
+    elif kind == "cross":
+        x = x + _xgate(p, x) * L.cross_attention_block(p["mixer"], _attn_cfg(cfg, kind), h, aux)
+        cache = _fill_cross_cache(p["mixer"], cfg, aux, cache)
     else:
         acfg = _attn_cfg(cfg, kind)
         q, k, v = L.project_qkv(p["mixer"], acfg, h, positions)
         o = L.flash_sdpa(q, k, v, causal=True, window=acfg.window)
-        cache = gqa_prefill(cache, _cache_cfg(cfg, kind), k, v)
+        self_c = gqa_prefill(cache["self"] if kind == "dec" else cache,
+                             _cache_cfg(cfg, kind), k, v)
         x = x + torch.einsum("bshk,hkd->bsd", o, p["mixer"].wo)
+        if kind == "dec":
+            x = x + L.cross_attention_block(p["cross"], acfg, L.rms_norm(x, p["ln_cross"]),
+                                            aux)
+            cache = {"self": self_c,
+                     "cross": _fill_cross_cache(p["cross"], cfg, aux, cache["cross"])}
+        else:
+            cache = self_c
     return _apply_mlp(p, cfg, x)[0], cache
 
 
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state):
-    """tokens [B, S] -> (last-token logits [B, V], filled decode state)."""
+def _fill_cross_cache(attn_p: L.AttnParams, cfg: ModelConfig, aux: torch.Tensor, cache):
+    """Project the aux rows into a cross layer's K / V and quantize them into
+    its static cache, in place (transformer.py:581-586)."""
+    k = torch.einsum("bsd,dhk->bshk", aux, attn_p.wk)
+    v = torch.einsum("bsd,dhk->bshk", aux, attn_p.wv)
+    if attn_p.bk is not None:
+        k, v = k + attn_p.bk, v + attn_p.bv
+    return gqa_prefill(cache, _cache_cfg(cfg, "attn"), k, v)
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, state,
+            aux_embed: torch.Tensor | None = None):
+    """tokens [B, S] (and ``aux_embed`` for the encoder families) -> (last
+    token logits [B, V], filled decode state, ``state["aux"]`` the encoder
+    output)."""
     _check_ported(cfg)
+    _check_aux(cfg, aux_embed)
     x = L.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    aux = _run_encoder(params, cfg, aux_embed)
     new_layers = []
     for p, kind, cache in zip(params["layers"], cfg.layer_kinds, state["layers"]):
-        x, cache = _prefill_layer(p, cfg, kind, x, cache, positions)
+        x, cache = _prefill_layer(p, cfg, kind, x, cache, positions, aux)
         new_layers.append(cache)
-    return _logits(params, x[:, -1]), {**state, "layers": new_layers}
+    return _logits(params, x[:, -1]), {**state, "layers": new_layers, "aux": aux}
 
 
 def _check_paged_mla(cfg: ModelConfig, what: str) -> None:

@@ -194,9 +194,10 @@ class ServingEngine:
                  fault_plan: FaultPlan | None = None, preemption=None,
                  tracer: TRC.SpanTracer | None = None,
                  device: "str | torch.device | None" = None):
-        if cfg.layer_pattern != ("mla",) or cfg.mla is None:
+        if cfg.layer_pattern != ("mla",) or cfg.mla is None or cfg.n_aux_tokens:
             raise ValueError("the serving engine drives the paged MLA decode path; "
-                             f"layer pattern {cfg.layer_pattern} is not pure-MLA")
+                             f"layer pattern {cfg.layer_pattern} / aux tokens "
+                             f"{cfg.n_aux_tokens} are not pure-MLA")
         if cfg.prefill_chunk < 0:
             raise ValueError("prefill_chunk must be >= 0")
         self.ecfg = ecfg

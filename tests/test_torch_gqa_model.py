@@ -129,10 +129,7 @@ def test_config_fields_equal_reference(arch):
 
 def test_arch_ids_in_reference_order():
     from repro.configs import ARCH_IDS as J_IDS
-    assert ARCH_IDS == [a for a in J_IDS if a in ARCH_IDS]
-    assert set(ARCH_IDS) == {"llama3.2-3b", "gemma3-27b", "qwen2.5-3b", "granite-3-2b",
-                             "qwen3-moe-30b-a3b", "mixtral-8x7b", "recurrentgemma-9b",
-                             "xlstm-1.3b", "deepseek-v3-mla", "mla-7b"}
+    assert ARCH_IDS == J_IDS            # all 12, the encoder families included
 
 
 @pytest.mark.parametrize("fmt", ["fp8_e4m3", "int8", "none"])

@@ -29,7 +29,11 @@ _REQUIRED = ("repro_torch.serving.tiering", "repro_torch.checkpoint.checkpoint",
              "repro_torch.obs.trace_report", "repro_torch.obs.quant_health",
              "repro_torch.kernels.mla_decode.autotune", "repro_torch.models.rglru",
              "repro_torch.models.xlstm", "repro_torch.configs.recurrentgemma_9b",
-             "repro_torch.configs.xlstm_1_3b")
+             "repro_torch.configs.xlstm_1_3b", "repro_torch.configs.whisper_base",
+             "repro_torch.configs.llama32_vision_90b", "repro_torch.optim.adamw",
+             "repro_torch.optim.schedule", "repro_torch.optim.grad_compression",
+             "repro_torch.data.pipeline", "repro_torch.runtime.straggler",
+             "repro_torch.launch.train")
 
 
 def test_import_every_module_without_jax():

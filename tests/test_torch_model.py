@@ -151,8 +151,8 @@ def test_config_copy_and_unported_paths(capsys, tmp_path):
     paged = TT.init_decode_state(dataclasses.replace(t_smoke("mla-7b"), kv_paged=True,
                                                      kv_sink_tokens=3), 1, 16, device="cpu")
     assert isinstance(paged["layers"][0], tkv.PagedMLAPool)
-    with pytest.raises(ValueError, match="not ported"):
-        get_config("whisper-base")
+    with pytest.raises(ValueError, match="unknown architecture"):
+        get_config("no-such-arch")
     # the engine's snapshot / restore, tracer, host tier and probe flags run:
     # a preempted, restored run passes serve's own gates (the greedy oracle,
     # no leaked page, the trace validated on write)
