@@ -24,10 +24,19 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                beside the launches it replaces (the "folded D / C / #4"
                line). The MLA cases are repeated at deepseek-v3-mla's 128
                heads (``serve_shape_h128``, ``long_32k_h128`` and their q_len
-               5 / 4 verify cases, with a head-tile width line);
+               5 / 4 verify cases, with a head-tile width line). D and #9
+               are held bitwise at each of their instantiations (the MLA
+               widths, runtime widths, views not 16-byte aligned; EPS floor,
+               clamp past capacity),
+               fp8 and int8; D is timed at batch 64 x 128 heads with its L2
+               cold (``deepseek_b64``), #9 at batch 64 (``b64``), beside a
+               ``launch_floor`` line (an in-place add on one element) and
+               their ptxas line (a spill fails);
   3. layer   — ``core.snapmla.decode_step``, one full-width layer over a
-               ~32k-token cache, paged and contiguous (Fused-K-Append): kernels
-               vs the reference backend, cache bytes vs the plain append;
+               ~32k-token cache, paged and contiguous (Fused-K-Append), drawn
+               from its own generator: kernels vs the reference backend
+               (``LAYER_LIMIT``; a bfloat16-input control reported), cache
+               bytes vs the plain append;
   4. serve   — ``launch.serve.generate`` on full mla-7b (30 layers, float32
                weights from a seeded generator), batch 4, prompt 512, gen 16,
                contiguous and paged caches, FMA and AMLA, kv_splits 0 and 4, a
@@ -173,6 +182,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import re
@@ -189,6 +199,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK = {"fp8_e4m3": 1979e12, "int8": 1979e12, "none": 989e12, "f32": 67e12}
 PAGE, H, D_C, D_R = 128, 32, 512, 64
+DS_HEADS = 128                       # deepseek-v3-mla's query heads
 TOL = dict(rtol=1e-5, atol=1e-5)
 # the reference's AMLA kernel-vs-oracle gate (tests/test_parity.py:148-163)
 AMLA_O, AMLA_LSE = dict(rtol=0.0, atol=1e-4), dict(rtol=0.0, atol=1e-5)
@@ -261,6 +272,8 @@ SUMMARY_EXTRA = {
     # the encoder families' static cross caches: whisper-base, then vision
     "cross": lambda name, s, ls: (("gqa_cross_whisper", 0), ("gqa_cross_vision", 0)),
 }
+# D's and #9's batch-64 case in the summary line (deepseek_b64: L2 cold)
+B64_CASE = {"fused_q_quant": "deepseek_b64", "fused_k_append": "b64"}
 # E1-E3 (phase 5): serve's engine flags
 E1 = ["--batch", "6", "--max-batch", "3", "--prompt-lens", "640,200,384",
       "--shared-prefix", "256", "--gen", "16", "--arrival-gap", "2"]
@@ -662,8 +675,7 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
         got, want = QK.fused_q_quant_cuda(qin, D_C, fmt=fmt), QR.fused_q_quant_ref(qin, D_C, fmt)
         for nm, g, w in zip(("q_c8", "q_r", "sigma_q"), got, want):
             check_bitwise(f"{tag} D {nm}", g, w)
-        bound = _bound(B * heads * ((D_C + D_R) * 4 + D_C + D_R * 4 + 4),
-                       3 * B * heads * (D_C + D_R), PEAK["f32"])
+        bound = d_bound(B, heads)
         _record(records, "fused_q_quant", tag, 1, 0.0,
                 (lambda: QK.fused_q_quant_cuda(qin, D_C, fmt=fmt)) if timing else None,
                 lambda: QR.fused_q_quant_ref(qin, D_C, fmt), bound)
@@ -749,13 +761,135 @@ def k_append_checks(gen, fmt, B, N, *, tag, timing, records):
         check_bitwise(f"{tag} #9 appends vs prefill {nm}", a, b)
     bound = _bound(B * ((D_C + D_R) * 4 + 4 + D_C + 2 * D_R + 4), B * (3 * D_C + D_R),
                    PEAK["f32"])
+    # timed on entries with no all-zero row, as a decode step appends them;
+    # the gate's entries (row 0 at the EPS floor) are timed beside them
+    ct = torch.randn(B, D_C, generator=gen, device="cuda") * 3
+    rt = torch.randn(B, D_R, generator=gen, device="cuda") * 10
     _record(records, "fused_k_append", tag, 1, 0.0,
-            (lambda: QK.fused_k_append_cuda(cache.content, cache.rope, cache.scale, c, r,
+            (lambda: QK.fused_k_append_cuda(cache.content, cache.rope, cache.scale, ct, rt,
                                             lens, fmt=fmt)) if timing else None,
             lambda: QR.fused_k_append_ref(plain_cache.content, plain_cache.rope,
-                                          plain_cache.scale, c, r, lens, fmt=fmt), bound)
+                                          plain_cache.scale, ct, rt, lens, fmt=fmt), bound)
+    if timing:
+        records[("fused_k_append", tag, 1)]["ms_eps_row"] = kernel_ms(
+            lambda: QK.fused_k_append_cuda(cache.content, cache.rope, cache.scale, c, r, lens,
+                                           fmt=fmt))
     emit(phase="kernels", case=tag, fmt=fmt, kernel="#9 fused_k_append", bitwise=True,
          appends_equal_prefill=True)
+
+
+def d_bound(B, heads, d_c=D_C, d_r=D_R):
+    """D reads each row once and writes its codes, rope quotients and sigma
+    once; a max, a division and a cast per value at the float32 rate."""
+    return _bound(B * heads * ((d_c + d_r) * 4 + d_c + d_r * 4 + 4),
+                  3 * B * heads * (d_c + d_r), PEAK["f32"])
+
+
+def rotating(inputs, fn, keep):
+    """A call of ``fn`` on the next of ``inputs`` (in turn) whose outputs are
+    kept in ``keep``: captured ``inner`` times into kernel_ms's graph, no two
+    neighbouring launches of a replay share an input and none shares an
+    output, so with three 18.9 MB inputs of D (deepseek_b64) a replay touches
+    far more than the 50 MB L2 and each launch finds its rows cold."""
+    turn = itertools.count()
+
+    def call():
+        keep.append(fn(inputs[next(turn) % len(inputs)]))
+    return call
+
+
+# D's cases: (tag, batch, heads, d_c, d_r); the full widths' rows at the
+# layer API's shapes and deepseek-v3-mla's batch 64, then runtime widths
+D_CASES = [("serve_shape", 4, H, D_C, D_R), ("serve_shape_h128", 4, DS_HEADS, D_C, D_R),
+           ("deepseek_b64", 64, DS_HEADS, D_C, D_R), ("ragged", 3, 9, D_C, D_R),
+           ("runtime_96_32", 3, 9, 96, 32), ("runtime_32_16", 1, 4, 32, 16),
+           ("runtime_512_32", 2, 5, D_C, 32)]
+# #9's cases beyond k_append_checks': (tag, batch, capacity, d_c, d_r)
+K9_CASES = [("runtime_96_32", 3, 64, 96, 32), ("runtime_32_16", 5, 16, 32, 16)]
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data pointer is not 16-byte aligned:
+    a view one element into its buffer."""
+    import torch
+    one_byte = t.element_size() == 1
+    buf = torch.empty(t.numel() + 1, dtype=torch.uint8 if one_byte else t.dtype, device=t.device)
+    out = buf[1:].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    if out.data_ptr() % 16 == 0:
+        raise AssertionError("an unaligned view came out aligned")
+    return out
+
+
+def token_prep_checks(gen, records):
+    """D and #9 bitwise against their plain versions at every instantiation:
+    the full widths (B x H not a multiple of D's rows per block too),
+    runtime widths, and views whose pointer is not 16-byte
+    aligned (the runtime-width instantiation), each with an EPS-floor row,
+    fp8 and int8; the plan each launch took; D timed at deepseek_b64 with
+    its L2 cold; the launch floor; the ptxas line of both kernels."""
+    import torch
+    from repro_torch.kernels.quantize import kernel as QK
+    from repro_torch.kernels.quantize import ref as QR
+    plans = {}
+    for fmt in ("fp8_e4m3", "int8"):
+        for tag, B, heads, d_c, d_r in D_CASES:
+            q = torch.randn(B, heads, d_c + d_r, generator=gen, device="cuda") * 3
+            q[0, 0, :d_c] = 0.0                                     # the EPS floor
+            want = QR.fused_q_quant_ref(q, d_c, fmt)
+            plans[f"D {tag}"] = QK.token_prep_plan("q_quant", B * heads, d_c, d_r, True)
+            for label, copy in (("aligned", torch.clone), ("unaligned", _unaligned)):
+                for nm, g, x in zip(("q_c8", "q_r", "sigma_q"),
+                                    QK.fused_q_quant_cuda(copy(q), d_c, fmt=fmt), want):
+                    check_bitwise(f"D {tag} {fmt} {label} {nm}", g, x)
+        for tag, B, N, d_c, d_r in K9_CASES + [("full", 4, 640, D_C, D_R)]:
+            content = torch.zeros(B, N, d_c, dtype=torch.uint8, device="cuda").view(
+                torch.float8_e4m3fn if fmt == "fp8_e4m3" else torch.int8)
+            rope = torch.zeros(B, N, d_r, dtype=torch.bfloat16, device="cuda")
+            scale = torch.zeros(B, N, device="cuda")
+            c = torch.randn(B, d_c, generator=gen, device="cuda") * 3
+            r = torch.randn(B, d_r, generator=gen, device="cuda") * 10
+            c[0] = 0.0                                              # the EPS floor
+            lens = torch.randint(0, N, (B,), generator=gen, device="cuda", dtype=torch.int32)
+            lens[-1] = N + 2                                        # clamped to the last row
+            want = [t.clone() for t in (content, rope, scale)]
+            QR.fused_k_append_ref(*want, c, r, lens, fmt=fmt)
+            plans[f"#9 {tag}"] = QK.token_prep_plan("k_append", B, d_c, d_r, True)
+            for label, copy in (("aligned", torch.clone), ("unaligned", _unaligned)):
+                got = [copy(t) for t in (content, rope, scale)]
+                QK.fused_k_append_cuda(*got, copy(c), copy(r), lens, fmt=fmt)
+                for nm, g, x in zip(("content", "rope", "scale"), got, want):
+                    check_bitwise(f"#9 {tag} {fmt} {label} {nm}", g, x)
+    # D at deepseek-v3-mla's widths and batch 64, L2 cold; D on an EPS-floor
+    # row at the serving shape; the launch floor
+    B, heads = 64, DS_HEADS
+    inputs = [torch.randn(B, heads, D_C + D_R, generator=gen, device="cuda") * 3
+              for _ in range(3)]
+    keep: list = []
+    rec = records.setdefault(("fused_q_quant", "deepseek_b64", 1), {"max_abs_err": 0.0})
+    bound = d_bound(B, heads)
+    rec.update(ms=kernel_ms(rotating(inputs, lambda q: QK.fused_q_quant_cuda(q, D_C), keep)),
+               plain_ms=time_ms(lambda: QR.fused_q_quant_ref(inputs[0], D_C, "fp8_e4m3")),
+               bound_ms=bound[0], bound_by=bound[1], l2="cold: 3 inputs, every output kept")
+    keep.clear()
+    q = torch.randn(4, H, D_C + D_R, generator=gen, device="cuda") * 3
+    q[0, 0, :D_C] = 0.0
+    rec = records.setdefault(("fused_q_quant", "serve_shape", 1), {"max_abs_err": 0.0})
+    rec["ms_eps_row"] = kernel_ms(lambda: QK.fused_q_quant_cuda(q, D_C))
+    floor = torch.zeros(1, device="cuda")
+    launch_floor = kernel_ms(lambda: floor.add_(1.0))
+    for name in ("fused_q_quant", "fused_k_append"):
+        for k, v in records.items():
+            if k[0] == name:
+                v["launch_floor_ms"] = launch_floor
+    emit(phase="kernels", check="launch_floor", what="in-place add on a 1-element tensor",
+         ms=launch_floor)
+    emit(phase="kernels", check="D / #9 instantiations", bitwise=True, fmts=["fp8_e4m3", "int8"],
+         rows_per_block=QK.Q_ROWS_PER_BLOCK, plans=plans, ptxas=token_prep_ptxas(),
+         ms={f"{k[0]} {k[1]}": {f: v.get(f) for f in ("ms", "ms_eps_row", "plain_ms", "bound_ms")}
+             for k, v in records.items() if k[0] in ("fused_q_quant", "fused_k_append")
+             and "ms" in v},
+         launch_floor_ms=launch_floor)
 
 
 def fetch_bound(B, P, live_pages, paged: bool):
@@ -1050,26 +1184,61 @@ def phase_autotune() -> None:
          seconds=time.time() - t0)
 
 
-def phase_layer(gen):
-    """One full-width SnapMLA layer, decode_step over a ~32k-token cache,
-    paged and contiguous: the kernel steps are this path's counted run."""
+# phase 3: its own generator, so that its draw does not move with phase 2's
+# random numbers. The gate's limit on the kernel step's error against the
+# parallel reference backend, relative to the largest output: over 1,121
+# draws of this layer on an NVIDIA H100 (scripts/diagnose_token_prep.py
+# layer) the kernel step read 2.3e-7 to 5.0e-7 from the kernels' plain
+# version and up to 4.3e-4 from the reference, as the plain version did (P
+# rounded to fp8 from differently rounded logits); the control, the
+# reference on h_t rounded to bfloat16, read 8.4e-3 or more. The limit lies
+# between, and a control within it fails the phase.
+LAYER_SEED = 1234
+LAYER_B, LAYER_CTX = 4, 32760
+LAYER_LIMIT = 1e-3
+
+
+def layer_inputs(gen):
+    """Phase 3's full-width mla-7b layer, drawn from ``gen``: (config,
+    params, latents c [B, ctx, d_c], rope r, the decoded token's h_t)."""
     import torch
     from repro_torch.core import mla as mla_lib
-    from repro_torch.core import snapmla
-    from repro_torch.core.kvcache import mla_prefill, paged_mla_prefill
-    from repro_torch.kernels import _lib
-    B, ctx = 4, 32760
     mcfg = mla_lib.MLAConfig(d_model=4096, n_heads=H, d_head=128, d_rope=D_R, d_c=D_C)
     params = mla_lib.init_mla_params(gen, mcfg, device="cuda")
-    c = torch.randn(B, ctx, D_C, generator=gen, device="cuda")
-    r = torch.randn(B, ctx, D_R, generator=gen, device="cuda") * 2
-    h_t = torch.randn(B, 4096, generator=gen, device="cuda")
+    c = torch.randn(LAYER_B, LAYER_CTX, D_C, generator=gen, device="cuda")
+    r = torch.randn(LAYER_B, LAYER_CTX, D_R, generator=gen, device="cuda") * 2
+    h_t = torch.randn(LAYER_B, 4096, generator=gen, device="cuda")
+    return mcfg, params, c, r, h_t
+
+
+def layer_cache(cfg, c, r):
+    """A cache (paged when ``cfg.paged``) prefilled with ``c``, ``r``."""
+    from repro_torch.core import snapmla
+    from repro_torch.core.kvcache import mla_prefill, paged_mla_prefill
+    fill = paged_mla_prefill if cfg.paged else mla_prefill
+    return fill(snapmla.init_cache(cfg, LAYER_B, LAYER_CTX + 8, device="cuda"), cfg.cache, c, r)
+
+
+def rel_err(y, ref) -> float:
+    return float((y - ref).abs().max() / ref.abs().max())
+
+
+def phase_layer():
+    """One full-width SnapMLA layer, decode_step over a ~32k-token cache,
+    paged and contiguous: the kernel steps are this path's counted run, held
+    within LAYER_LIMIT of the parallel reference backend (use_kernel=False),
+    the contiguous cache bytes to the plain append's. Beside it, a control:
+    the reference on h_t rounded to bfloat16, against the reference on h_t."""
+    import torch
+    from repro_torch.core import snapmla
+    from repro_torch.kernels import _lib
+    mcfg, params, c, r, h_t = layer_inputs(torch.Generator(device="cuda").manual_seed(LAYER_SEED))
     launches = {}
     for paged in (True, False):
         cfg = snapmla.SnapMLAConfig(mla=mcfg, paged=paged)
-        fill = paged_mla_prefill if paged else mla_prefill
-        cache = fill(snapmla.init_cache(cfg, B, ctx + 8, device="cuda"), cfg.cache, c, r)
+        cache = layer_cache(cfg, c, r)
         ref_cache = type(cache)(*(None if t is None else t.clone() for t in cache))
+        ctl_cache = type(cache)(*(None if t is None else t.clone() for t in cache))
         torch.cuda.synchronize()
         _lib.reset_launches()                       # the layer path starts here
         y, cache = snapmla.decode_step(params, cfg, h_t, cache)
@@ -1077,18 +1246,24 @@ def phase_layer(gen):
         for k, v in _lib.LAUNCHES.items():          # ... and ends here
             launches[k] = launches.get(k, 0) + v
         step_launches = dict(_lib.LAUNCHES)
-        y_ref, ref_cache = snapmla.decode_step(params, dataclasses.replace(cfg, use_kernel=False),
-                                               h_t, ref_cache)
-        rel = float((y - y_ref).abs().max() / y_ref.abs().max())
-        if not (torch.isfinite(y).all() and rel <= 1e-4):
-            raise AssertionError(f"layer decode_step (paged={paged}): relative error {rel} > 1e-4")
+        ref_cfg = dataclasses.replace(cfg, use_kernel=False)
+        y_ref, ref_cache = snapmla.decode_step(params, ref_cfg, h_t, ref_cache)
+        y_ctl, _ = snapmla.decode_step(params, ref_cfg, h_t.bfloat16().float(), ctl_cache)
+        rel, ctl = rel_err(y, y_ref), rel_err(y_ctl, y_ref)
+        if not (torch.isfinite(y).all() and rel <= LAYER_LIMIT):
+            raise AssertionError(f"layer decode_step (paged={paged}): relative error {rel} > "
+                                 f"{LAYER_LIMIT}")
+        if ctl <= LAYER_LIMIT:
+            raise AssertionError(f"layer (paged={paged}): the bfloat16 control's error {ctl} is "
+                                 f"within the limit {LAYER_LIMIT}")
         if not paged:   # Fused-K-Append wrote what the plain append wrote
             for nm, a, b in zip(cache._fields[:4], cache, ref_cache):
                 check_bitwise(f"layer contiguous cache {nm}", a, b)
-        emit(phase="layer", layout="paged" if paged else "contiguous", batch=B,
-             context=ctx + 1, capacity=cache.capacity, rel_err_vs_ref=rel,
+        emit(phase="layer", layout="paged" if paged else "contiguous", batch=LAYER_B,
+             context=LAYER_CTX + 1, capacity=cache.capacity, seed=LAYER_SEED, rel_err_vs_ref=rel,
+             limit=LAYER_LIMIT, control_bf16_h_rel_err=ctl,
              cache_bytes_equal_plain_append=not paged, kernels_launched=step_launches)
-        del cache, ref_cache
+        del cache, ref_cache, ctl_cache
     return launches
 
 
@@ -2127,6 +2302,27 @@ def fetch_ptxas() -> dict:
     return rows
 
 
+def token_prep_ptxas() -> dict:
+    """Registers and spills of D's and #9's instantiations (fp8, int8; the
+    MLA widths and the runtime widths), from the build's -Xptxas -v report;
+    raises on a spill or a missing report."""
+    from repro_torch.kernels import _lib
+    rows = {}
+    for name, (regs, spill) in ptxas_entries(_lib.BUILD_LOG).items():
+        m = re.search(r"(fused_q_quant|k_append)_kernelILi(\d)ELi(\d+)ELi(\d+)E", name)
+        if m:
+            widths = "runtime" if m[3] == "0" else f"{m[3]}/{m[4]}"
+            rows[f"{'D' if m[1] == 'fused_q_quant' else '#9'} fmt {m[2]} {widths}"] = dict(
+                registers=regs, spill_bytes=spill)
+    want = {f"{k} fmt {f} {w}" for k in ("D", "#9") for f in (0, 1)
+            for w in ("runtime", f"{D_C}/{D_R}")}
+    if set(rows) != want or any(None in r.values() for r in rows.values()):
+        raise AssertionError(f"D / #9: ptxas report incomplete: {rows}")
+    if any(r["spill_bytes"] for r in rows.values()):
+        raise AssertionError(f"D / #9: ptxas reports spills: {rows}")
+    return rows
+
+
 def gqa_ptxas() -> dict:
     """Registers and spills of every #7 instantiation (format, head-tile
     width, head-size bucket: d_head <= 128 or 256), from the build's -Xptxas
@@ -2463,7 +2659,6 @@ def phase_train() -> None:
 
 
 # phase 9: deepseek-v3-mla, full width, one layer
-DS_HEADS = 128
 DS_RUNS = [  # (paged, kv_splits, rescale, sink_tokens)
     (False, 0, "fma", 0), (True, 0, "fma", 0), (True, 4, "fma", 0), (True, 4, "amla", 0)]
 DS_FUSED = [(True, 0, "fma", 0), (False, 0, "fma", 0)]
@@ -2581,6 +2776,10 @@ def summary_line(records, launches, long_tokens):
                     "ms" in records.get((name, eltag, elS), {}):
                 extra[key] = dict(_timed(records[(name, etag, eS)], etag, eS),
                                   long_ctx=_timed(records[(name, eltag, elS)], eltag, elS))
+        if name in B64_CASE:   # D and #9: batch 64, the launch floor of the same call
+            extra["b64"] = _timed(records[(name, B64_CASE[name], 1)], B64_CASE[name], 1)
+            extra["launch_floor_ms"] = short["launch_floor_ms"]
+            extra["ms_eps_row"] = short["ms_eps_row"]   # the same call on an all-zero row
         library_ms = None
         if name in LIBRARY_ROWS:
             main_case, cases = LIBRARY_ROWS[name]
@@ -2662,7 +2861,9 @@ def main() -> int:
                       timing=False, records=records)
     k_append_checks(gen, "fp8_e4m3", 4, 640, tag="serve_shape", timing=True, records=records)
     k_append_checks(gen, "fp8_e4m3", 4, 32768, tag="long_32k", timing=True, records=records)
+    k_append_checks(gen, "fp8_e4m3", 64, 640, tag="b64", timing=True, records=records)
     k_append_checks(gen, "int8", 3, 256, tag="small_int8", timing=False, records=records)
+    token_prep_checks(gen, records)
     fetch_checks(gen, records, engine_pages=8)
     verify_checks(gen, [3, 512, 777, 1100], 9, 5, [1, 4, 8], scale, tag="verify_shape",
                   records=records)
@@ -2692,7 +2893,7 @@ def main() -> int:
     phase_autotune()
 
     # 3. one full-width layer, paged and contiguous (a counted main path)
-    layer_launches = phase_layer(gen)
+    layer_launches = phase_layer()
 
     # 4. serve.generate on full mla-7b (a counted main path)
     serve_launches, base, params, prompts, serve_tps = phase_serve()

@@ -1,6 +1,7 @@
 // Shared helpers of the SnapMLA Hopper kernels: storage formats, the exact
 // casts of repro_torch/core/quant.py, cp.async copies, the widening of a
-// packed 32-bit word, and warp reductions.
+// packed 32-bit word, warp reductions, and the register-held row of the
+// token-preparation kernels (D, #9).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, never
 // --use_fast_math: expf/logf and IEEE division keep every kernel bit-equal
@@ -12,6 +13,8 @@
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace snap {
 
@@ -188,6 +191,92 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// --- token preparation (D, #9): one row of [content | rope] by one warp ---
+// The MLA configs' widths (configs/mla_7b.py, configs/deepseek_v3_mla.py),
+// the compile-time instantiation of q_quant.cu and k_append.cu.
+constexpr int kTokenDc = 512;
+constexpr int kTokenDr = 64;
+
+// One row held in registers at compile-time widths: lane l holds content
+// values [l * kC, (l + 1) * kC) and lanes 0 .. DR / 4 - 1 four rope values
+// each. Every read is a 16-byte load, all issued before any is used; the
+// quotients are taken from the registers, so the row is read once. The
+// pointers must be 16-byte aligned.
+template <int DC, int DR>
+struct TokenRow {
+  static_assert(DC % 512 == 0, "a lane's content codes go out as 16-byte stores");
+  static_assert(DR % 4 == 0 && DR <= 128, "one float4 of rope per lane");
+  static constexpr int kC = DC / 32;
+  static constexpr int kRopeLanes = DR / 4;
+  float c[kC];
+  float4 r;
+
+  __device__ __forceinline__ void load(const float* __restrict__ content,
+                                       const float* __restrict__ rope, int lane) {
+    const float4* src = reinterpret_cast<const float4*>(content + lane * kC);
+#pragma unroll
+    for (int j = 0; j < kC / 4; ++j) {
+      const float4 v = src[j];
+      c[4 * j] = v.x; c[4 * j + 1] = v.y; c[4 * j + 2] = v.z; c[4 * j + 3] = v.w;
+    }
+    r = lane < kRopeLanes ? reinterpret_cast<const float4*>(rope)[lane]
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  // sigma = max(max|content|, EPS) * f32(1/qmax) over the whole row
+  template <int F>
+  __device__ __forceinline__ float scale() const {
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < kC; ++i) amax = fmaxf(amax, fabsf(c[i]));
+    return dynamic_scale<F>(warp_max(amax));
+  }
+
+  // cast(content / sigma), this lane's kC codes as kC / 16 16-byte stores
+  // into the row's codes at dst
+  template <int F>
+  __device__ __forceinline__ void store_content(typename Format<F>::T* __restrict__ dst,
+                                                float sig, int lane) const {
+    uint4* out = reinterpret_cast<uint4*>(dst + lane * kC);
+#pragma unroll
+    for (int s = 0; s < kC / 16; ++s) {
+      uint32_t w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        w[k] = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint8_t code = static_cast<uint8_t>(Format<F>::cast(c[16 * s + 4 * k + e] / sig));
+          w[k] |= static_cast<uint32_t>(code) << (8 * e);
+        }
+      }
+      out[s] = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+
+  // this lane's rope / sigma in float32 (meaningful on lanes < kRopeLanes)
+  __device__ __forceinline__ float4 rope_over(float sig) const {
+    return make_float4(r.x / sig, r.y / sig, r.z / sig, r.w / sig);
+  }
+};
+
+__device__ __forceinline__ uint32_t bf16_bits(float x) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
+}
+
+// four bf16 (round to nearest even), lowest address in the lowest half
+__device__ __forceinline__ uint2 pack_bf16x4(float4 v) {
+  return make_uint2(bf16_bits(v.x) | (bf16_bits(v.y) << 16),
+                    bf16_bits(v.z) | (bf16_bits(v.w) << 16));
+}
+
+// true when every pointer is 16-byte aligned
+__host__ __forceinline__ bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 }  // namespace snap

@@ -59,10 +59,10 @@ _SIGNATURES = {
     "snapmla_lse_combine": [_P] * 4 + [_I] * 4 + [_P],
     # acc_part, l_part, g_part, o, lse, B, S, H, d_c, stream
     "snapmla_amla_combine": [_P] * 5 + [_I] * 4 + [_P],
-    # fmt, q, q_c8, q_r, sigma_q, B, H, d_c, d_r, stream
-    "snapmla_fused_q_quant": [_I] + [_P] * 4 + [_I] * 4 + [_P],
-    # fmt, c_kv, k_r, content, rope, scale, seq_lens, B, N, d_c, d_r, stream
-    "snapmla_fused_k_append": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    # fmt, q, q_c8, q_r, sigma_q, B, H, d_c, d_r, full, stream
+    "snapmla_fused_q_quant": [_I] + [_P] * 4 + [_I] * 5 + [_P],
+    # fmt, c_kv, k_r, content, rope, scale, seq_lens, B, N, d_c, d_r, full, stream
+    "snapmla_fused_k_append": [_I] + [_P] * 6 + [_I] * 5 + [_P],
     # fmt, content, rope, scale, page_table, chunk_start, out, B, P, page, d_c,
     # d_r, tokens per warp, stream
     "snapmla_fetch_dequant": [_I] + [_P] * 6 + [_I] * 6 + [_P],

@@ -5,7 +5,12 @@
     ``repro/kernels/quantize/kernel.py::fused_q_quant_pallas``;
   * ``fused_k_append_cuda`` — #9; replaces ``fused_k_append_pallas``.
 
-On CPU tensors each runs its plain version (``ref.py``)."""
+Each kernel has two instantiations: one at the MLA configs' widths
+(``FULL_WIDTHS``, compile-time: 16-byte loads and stores, every loop
+unrolled) and one at runtime widths that assumes no alignment.
+``token_prep_plan`` picks the instantiation and gives the grid of a launch.
+On CPU tensors each wrapper runs its plain version (``ref.py``); on CUDA
+tensors it launches its kernel."""
 from __future__ import annotations
 
 import torch
@@ -15,11 +20,32 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.quantize import ref as R
 
 FMT_CODES = {"fp8_e4m3": 0, "int8": 1}
+# (d_c, d_r) of the compile-time instantiation: common.cuh's kTokenDc, kTokenDr
+FULL_WIDTHS = (512, 64)
+# D's rows (one warp each) per CUDA block: q_quant.cu's kQuantRows
+Q_ROWS_PER_BLOCK = 4
 
 
 def _check_fmt(name: str, fmt: str) -> None:
     if fmt not in FMT_CODES:
         raise ValueError(f"{name} takes fp8_e4m3 or int8, not {fmt!r}")
+
+
+def token_prep_plan(kernel: str, rows: int, d_c: int, d_r: int,
+                    aligned: bool) -> tuple[bool, int]:
+    """(full, blocks) of one launch of ``kernel`` ("q_quant": D, a row per
+    (token, head); "k_append": #9, a row per batch row) over ``rows`` rows.
+    ``full``: the instantiation at ``FULL_WIDTHS``, taken when the widths are
+    those and ``aligned`` (every pointer 16-byte aligned); else the
+    runtime-width one. D puts ``Q_ROWS_PER_BLOCK`` rows in a block, #9 one."""
+    if kernel not in ("q_quant", "k_append"):
+        raise ValueError(f"token_prep_plan: no kernel {kernel!r}")
+    full = aligned and (d_c, d_r) == FULL_WIDTHS
+    return full, -(-rows // Q_ROWS_PER_BLOCK) if kernel == "q_quant" else rows
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def fused_q_quant_cuda(q: torch.Tensor, d_c: int, *, fmt: str = "fp8_e4m3"):
@@ -34,8 +60,9 @@ def fused_q_quant_cuda(q: torch.Tensor, d_c: int, *, fmt: str = "fp8_e4m3"):
     q_c8 = torch.empty((B, H, d_c), dtype=quant.qdtype_for(fmt), device=q.device)
     q_r = torch.empty((B, H, d_r), dtype=torch.float32, device=q.device)
     sigma_q = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    full, _ = token_prep_plan("q_quant", B * H, d_c, d_r, _aligned(q, q_c8, q_r, sigma_q))
     _lib.launch("fused_q_quant", "snapmla_fused_q_quant", FMT_CODES[fmt], q.data_ptr(),
-                q_c8.data_ptr(), q_r.data_ptr(), sigma_q.data_ptr(), B, H, d_c, d_r)
+                q_c8.data_ptr(), q_r.data_ptr(), sigma_q.data_ptr(), B, H, d_c, d_r, int(full))
     return q_c8, q_r, sigma_q
 
 
@@ -60,7 +87,9 @@ def fused_k_append_cuda(content: torch.Tensor, rope: torch.Tensor, scale: torch.
     _lib.check(c_kv, "c_kv", torch.float32, (B, d_c), dev)
     _lib.check(k_r, "k_r", torch.float32, (B, d_r), dev)
     _lib.check(seq_lens, "seq_lens", torch.int32, (B,), dev)
+    full, _ = token_prep_plan("k_append", B, d_c, d_r,
+                              _aligned(c_kv, k_r, content, rope, scale, seq_lens))
     _lib.launch("fused_k_append", "snapmla_fused_k_append", FMT_CODES[fmt], c_kv.data_ptr(),
                 k_r.data_ptr(), content.data_ptr(), rope.data_ptr(), scale.data_ptr(),
-                seq_lens.data_ptr(), B, N, d_c, d_r)
+                seq_lens.data_ptr(), B, N, d_c, d_r, int(full))
     return content, rope, scale

@@ -93,16 +93,88 @@ def test_single_pass_kernel_matches_plain_and_one_split(cuda, fmt, page, H, d_c,
     assert torch.equal(o_b, o_a) and torch.equal(lse_b, lse_a)
 
 
+D_SHAPES = [(1, 4, 32, 16), (4, 32, 512, 64), (3, 9, 96, 32), (4, 128, 512, 64),
+            (64, 128, 512, 64), (3, 9, 512, 64), (2, 5, 512, 32)]
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data pointer is not 16-byte aligned."""
+    one_byte = t.element_size() == 1
+    buf = torch.empty(t.numel() + 1, dtype=torch.uint8 if one_byte else t.dtype, device=t.device)
+    out = buf[1:].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16
+    return out
+
+
 @pytest.mark.parametrize("fmt", ["fp8_e4m3", "int8"])
-@pytest.mark.parametrize("B,H,d_c,d_r", [(1, 4, 32, 16), (4, 32, 512, 64), (3, 9, 96, 32)])
+@pytest.mark.parametrize("B,H,d_c,d_r", D_SHAPES)
 def test_fused_q_quant_kernel_bit_exact(cuda, fmt, B, H, d_c, d_r):
+    """D at the MLA widths and runtime widths (B x H not a multiple of the
+    rows per block at (3, 9)), and on a view whose pointer is not 16-byte
+    aligned (the runtime-width instantiation)."""
     g = torch.Generator(device="cuda").manual_seed(B + H)
     q = torch.randn(B, H, d_c + d_r, generator=g, device="cuda") * 4
     q[0, 0, :d_c] = 0.0
-    for got, want in zip(QK.fused_q_quant_cuda(q, d_c, fmt=fmt),
-                         QR.fused_q_quant_ref(q, d_c, fmt)):
-        assert got.dtype == want.dtype and got.shape == want.shape
-        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    want = QR.fused_q_quant_ref(q, d_c, fmt)
+    for got, x in zip(QK.fused_q_quant_cuda(q, d_c, fmt=fmt), want):
+        assert got.dtype == x.dtype and got.shape == x.shape
+        assert torch.equal(got.view(torch.uint8), x.view(torch.uint8))
+    for got, x in zip(QK.fused_q_quant_cuda(_unaligned(q), d_c, fmt=fmt), want):
+        assert torch.equal(got.view(torch.uint8), x.view(torch.uint8))
+
+
+@pytest.mark.parametrize("fmt", ["fp8_e4m3", "int8"])
+@pytest.mark.parametrize("B,N,d_c,d_r", [(4, 640, 512, 64), (64, 128, 512, 64),
+                                         (3, 64, 96, 32), (5, 16, 32, 16), (2, 8, 512, 32)])
+def test_fused_k_append_kernel_instantiations_bit_exact(cuda, fmt, B, N, d_c, d_r):
+    """#9 at the MLA widths and runtime widths, aligned and on views whose
+    pointers are not 16-byte aligned, with an EPS-floor row and a row past
+    capacity (clamped to the last)."""
+    g = torch.Generator(device="cuda").manual_seed(B * N)
+    qdt = torch.float8_e4m3fn if fmt == "fp8_e4m3" else torch.int8
+    cache = (torch.randint(-100, 100, (B, N, d_c), generator=g, device="cuda",
+                           dtype=torch.int8).view(torch.uint8).view(qdt),
+             torch.randn(B, N, d_r, generator=g, device="cuda").bfloat16(),
+             torch.rand(B, N, generator=g, device="cuda"))
+    c = torch.randn(B, d_c, generator=g, device="cuda") * 3
+    r = torch.randn(B, d_r, generator=g, device="cuda") * 10
+    c[0] = 0.0
+    lens = torch.randint(0, N, (B,), generator=g, device="cuda", dtype=torch.int32)
+    lens[-1] = N + 5
+    want = [t.clone() for t in cache]
+    QR.fused_k_append_ref(*want, c, r, lens, fmt=fmt)
+    for copy in (torch.clone, _unaligned):
+        got = [copy(t) for t in cache]
+        QK.fused_k_append_cuda(*got, copy(c), copy(r), lens, fmt=fmt)
+        for a, b in zip(got, want):
+            _assert_bytes(a, b)
+
+
+def test_token_prep_launch_counts_and_c_rejections(cuda):
+    """D and #9 count one launch per wrapper call; their C entry points
+    refuse the full-width instantiation at other widths or on a pointer that
+    is not 16-byte aligned."""
+    q = torch.randn(4, 32, 576, device="cuda")
+    cache = init_mla_cache(CacheConfig(fmt="fp8_e4m3", page_size=16), 4, 32, 512, 64,
+                           device="cuda")
+    c, r = torch.randn(4, 512, device="cuda"), torch.randn(4, 64, device="cuda")
+    _lib.reset_launches()
+    QK.fused_q_quant_cuda(q, 512)
+    QK.fused_k_append_cuda(cache.content, cache.rope, cache.scale, c, r, cache.seq_lens)
+    QK.fused_q_quant_cuda(_unaligned(q), 512)
+    assert _lib.LAUNCHES == {"fused_q_quant": 2, "fused_k_append": 1}
+    lib, st = _lib.lib(), torch.cuda.current_stream().cuda_stream
+    out = [torch.empty(4 * 32 * n, device="cuda") for n in (512, 64, 1)]
+    ptrs = [t.data_ptr() for t in out]
+    assert lib.snapmla_fused_q_quant(0, q.data_ptr(), *ptrs, 4, 32, 512, 64, 1, st) == 0
+    assert lib.snapmla_fused_q_quant(0, q.data_ptr(), *ptrs, 4, 32, 480, 96, 1, st) != 0
+    assert lib.snapmla_fused_q_quant(0, q.data_ptr() + 4, *ptrs, 4, 32, 512, 64, 1, st) != 0
+    args = [t.data_ptr() for t in (c, r, cache.content, cache.rope, cache.scale,
+                                   cache.seq_lens)]
+    assert lib.snapmla_fused_k_append(0, *args, 4, 32, 512, 64, 1, st) == 0
+    assert lib.snapmla_fused_k_append(0, *args, 4, 32, 256, 64, 1, st) != 0
+    torch.cuda.synchronize()
 
 
 def test_launch_counts_and_rejections(cuda):
