@@ -51,6 +51,20 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                step's logits bitwise equal to the step loop's, the plain
                backend's gates, and one decode launch per layer and step
                (eager plus captured times replays);
+  4b. shard-map — ``launch.serve.generate`` on the same full mla-7b with
+               ``decode_backend="shard-map"``: each MLA layer's attention and
+               cache append run in the collective-free ``local_map`` region
+               over a (1, 1) ("data", "model") mesh, NCCL at world size 1
+               started in this process by ``launch.mesh.make_host_mesh``;
+               contiguous cache, kv_splits 0 and 4: tokens and every step's
+               logits bitwise equal to ``decode_backend="ref"``
+               (``torch_ref``), every resolve ``shard_map``, no kernel
+               launch, 0 collectives over one decode step under
+               ``CommDebugMode``; at kv_splits 0 also ``generate_fused``
+               (the region inside the captured step), bitwise equal to the
+               step loop; tok/s, and host wall per decode step against
+               device ms (torch.profiler), for both backends. The world
+               ends with the phase;
   5. engine  — ``repro_torch.serving.ServingEngine`` on full mla-7b, kernel
                backend, over the shared paged pool: E1 monolithic admission
                with staggered arrivals and a shared prefix through
@@ -1492,6 +1506,135 @@ def serve_runs(base, params, prompts, runs):
     return launches, kern, refs
 
 
+class _RecordResolves:
+    """Records the backend each MLA decode resolves to inside the block."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer as T
+        self.T, self.orig, self.names = T, T._resolve_backend, []
+
+        def recorded(*a, **kw):
+            backend = self.orig(*a, **kw)
+            self.names.append(backend.name)
+            return backend
+        T._resolve_backend = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.T._resolve_backend = self.orig
+
+
+# phase 4b: the kv_splits of the shard-map runs (contiguous cache, FMA)
+SHARD_MAP_SPLITS = (0, 4)
+
+
+def phase_shard_map(base, params, prompts, smi):
+    """``serve.generate`` (16 new tokens) on ``base`` with the shard_map
+    backend over a (1, 1) mesh (an NCCL world of one, started here by
+    ``make_host_mesh`` and destroyed at the end) against the ``ref`` backend
+    (``torch_ref``, no mesh) on the same weights and prompts, contiguous
+    cache, each of ``SHARD_MAP_SPLITS``: equal tokens, every step's logits
+    bitwise equal, every MLA decode resolved to ``shard_map`` (none falls
+    back), no kernel launched; at the first split count ``generate_fused``
+    bitwise equal to the step loop; ``CommDebugMode`` counts 0 collectives
+    over one decode step; tok/s and one decode step's host wall and device
+    ms (``_profile``) for both backends. Not a counted path: the region runs
+    the parallel form, no hand-written kernel."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    t_phase = time.time()
+    if dist.is_initialized():
+        raise AssertionError("shard-map phase: a process group exists already")
+    mesh = make_host_mesh(1, "cuda")
+    backend = str(dist.get_backend())
+    if backend != "nccl" or tuple(mesh.shape) != (1, 1):
+        raise AssertionError(f"shard-map phase: mesh {tuple(mesh.shape)} on {backend}")
+    B, S = prompts.shape
+    for splits in SHARD_MAP_SPLITS:
+        cfgs = {name: dataclasses.replace(base, kv_paged=False, kv_splits=splits,
+                                          kv_rescale="fma", kv_sink_tokens=0,
+                                          decode_backend=name, use_kernels=False)
+                for name in ("shard-map", "ref")}
+        T.SHARD_CTX = None
+        t_gen = time.time()
+        ref = serve.generate(cfgs["ref"], params, prompts, 16, return_logits=True)
+        T.SHARD_CTX = {"mesh": mesh, "dp": "data", "use_shard_map": True}
+        torch.cuda.synchronize()
+        _lib.reset_launches()
+        with _CountDecodeSteps() as steps, _RecordResolves() as resolves:
+            got = serve.generate(cfgs["shard-map"], params, prompts, 16, return_logits=True)
+        torch.cuda.synchronize()
+        lbl = f"shard-map kv_splits={splits}"
+        want = ["shard_map"] * (base.n_layers * steps.n)
+        if resolves.names != want:
+            other = sorted(set(resolves.names) - {"shard_map"})
+            raise AssertionError(f"{lbl}: {len(resolves.names)} resolves, not {len(want)} "
+                                 f"shard_map ones (others: {other})")
+        if _lib.LAUNCHES:
+            raise AssertionError(f"{lbl}: kernels launched {dict(_lib.LAUNCHES)}")
+        if not torch.isfinite(got[2]).all():
+            raise AssertionError(f"{lbl}: non-finite logits")
+        if not torch.equal(got[0], ref[0]):
+            raise AssertionError(f"{lbl}: tokens differ from the ref backend's")
+        diff = float((got[2] - ref[2]).abs().max())
+        if not torch.equal(got[2], ref[2]):
+            raise AssertionError(f"{lbl}: logits differ from the ref backend's by {diff}")
+        fused = {}
+        if splits == SHARD_MAP_SPLITS[0]:
+            # the same run through generate_fused: the region captured in the
+            # step's CUDA graph and replayed, bitwise equal to the step loop
+            stats: dict = {}
+            f_toks, f_tps, f_logits = serve.generate_fused(cfgs["shard-map"], params, prompts,
+                                                           16, return_logits=True, stats=stats)
+            torch.cuda.synchronize()
+            if not (torch.equal(f_toks, got[0]) and torch.equal(f_logits, got[2])):
+                raise AssertionError(f"{lbl}: generate_fused differs from the step loop")
+            if stats["replays"] != 14 or _lib.LAUNCHES or _lib.CAPTURED:
+                raise AssertionError(f"{lbl}: fused replays {stats['replays']}, launches "
+                                     f"{dict(_lib.LAUNCHES)} + {dict(_lib.CAPTURED)}")
+            fused = dict(fused_tokens_logits_bitwise=True, fused_tok_per_s=f_tps,
+                         fused_replays=stats["replays"], fused_capture_s=stats["capture_s"])
+        t_gen = time.time() - t_gen
+        # one decode step after the prompt: its collectives, then its times
+        t_prof = time.time()
+        state = T.init_decode_state(cfgs["shard-map"], B, S + 64, device="cuda")
+        logits, state = T.prefill(params, cfgs["shard-map"], prompts, state)
+        tok = logits.argmax(-1).to(torch.int32)
+        pos = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        with CommDebugMode() as comm:
+            T.decode_step(params, cfgs["shard-map"], tok, state, pos)
+            torch.cuda.synchronize()
+        if comm.get_total_counts():
+            raise AssertionError(f"{lbl}: {comm.get_comm_counts()} collectives in one step")
+        prof = {"shard-map": _profile(lambda: T.decode_step(params, cfgs["shard-map"], tok,
+                                                            state, pos), reps=1)}
+        T.SHARD_CTX = None
+        prof["ref"] = _profile(lambda: T.decode_step(params, cfgs["ref"], tok, state, pos),
+                               reps=1)
+        t_prof = time.time() - t_prof
+        emit(phase="shard_map", arch=base.name, layers=base.n_layers, batch=B, prompt=S,
+             gen=16, layout="contiguous", kv_splits=splits, mesh=list(mesh.shape),
+             process_group=backend, world_size=dist.get_world_size(), gpu=smi,
+             tokens_equal_ref=True, logits_bitwise_ref=True, max_logit_diff=diff,
+             resolves=len(resolves.names), decode_steps=steps.n, collectives_one_step=0,
+             tok_per_s=got[1], ref_tok_per_s=ref[1],
+             wall_ms_per_step=prof["shard-map"]["wall_ms_per_step"],
+             device_ms_per_step=prof["shard-map"]["device_ms_per_step"],
+             ref_wall_ms_per_step=prof["ref"]["wall_ms_per_step"],
+             ref_device_ms_per_step=prof["ref"]["device_ms_per_step"],
+             aten_ops_per_step=prof["shard-map"]["aten_ops_per_step"],
+             ref_aten_ops_per_step=prof["ref"]["aten_ops_per_step"],
+             generate_seconds=t_gen, profile_seconds=t_prof, **fused)
+        del state
+    dist.destroy_process_group()
+    emit(phase="shard_map_done", seconds=time.time() - t_phase)
+
+
 PROFILE_RUNS = ((True, 0, "fma"), (True, 4, "fma"), (True, 4, "amla"), (False, 0, "fma"))
 
 
@@ -2897,6 +3040,9 @@ def main() -> int:
 
     # 4. serve.generate on full mla-7b (a counted main path)
     serve_launches, base, params, prompts, serve_tps = phase_serve()
+
+    # 4b. the same model through the collective-free region at world size 1
+    phase_shard_map(base, params, prompts, smi)
 
     # 5. the serving engine on full mla-7b (counted main paths); then its
     # state off the card: E4 (host tier), E4 restartable, E5 (restartable,

@@ -18,8 +18,11 @@ fp8 and bf16 tensors have no numpy dtype: they cross through a ``uint8`` /
 ``uint16`` view of their bytes, and the manifest names their dtype in
 ml_dtypes spelling (``float8_e4m3fn``, ``bfloat16``), as the reference's
 does. ``load_checkpoint(path, tree_like)`` puts each leaf on the device and
-dtype of the matching ``tree_like`` leaf. The reference's ``shardings``
-argument (multi-device reshard on load) is not ported.
+dtype of the matching ``tree_like`` leaf; with ``shardings`` (the output of
+``launch.sharding.to_named`` over a mesh) each leaf comes back as a DTensor
+with those placements: checkpoints are logical, so loading re-places them
+on any mesh (the reference's elastic reshard on load). Every rank reads the
+same file and keeps its own shard, with no collective.
 """
 from __future__ import annotations
 
@@ -133,9 +136,11 @@ def latest_checkpoint(directory: str) -> str | None:
     return os.path.join(directory, steps[-1]) if steps else None
 
 
-def load_checkpoint(path: str, tree_like: Any):
+def load_checkpoint(path: str, tree_like: Any, shardings: Any | None = None):
     """Restore into the structure of ``tree_like``: each leaf on the device
-    and dtype of the matching ``tree_like`` leaf. Returns (tree, manifest)."""
+    and dtype of the matching ``tree_like`` leaf, or, with ``shardings`` (a
+    tree of the same structure of ``sharding.NamedPlacements``), a DTensor
+    placed by them. Returns (tree, manifest)."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     like = flatten(tree_like)
@@ -145,4 +150,8 @@ def load_checkpoint(path: str, tree_like: Any):
     with np.load(os.path.join(path, "arrays.npz")) as data:
         leaves = [from_numpy(data[e["key"]], e["dtype"]).to(device=t.device, dtype=t.dtype)
                   for e, (_, t) in zip(manifest["leaves"], like)]
-    return unflatten(tree_like, iter(leaves)), manifest
+    tree = unflatten(tree_like, iter(leaves))
+    if shardings is not None:
+        from repro_torch.launch.sharding import place
+        tree = place(tree, shardings)
+    return tree, manifest

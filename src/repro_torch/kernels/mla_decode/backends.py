@@ -2,11 +2,13 @@
 ``repro/kernels/mla_decode/backends.py``, which stays untouched).
 
 Every backend computes one step of SnapMLA decode attention with one
-signature, ``backend.decode(q: DecodeQuery, cache, cfg) -> o_latent
-[B, (q_len,) H, d_c] f32`` (a rank-4 query is the speculative verify
-block), and ``resolve_backend`` is the single selection rule,
-with the reference's ``auto`` / ``ref`` / ``kernel`` vocabulary mapped by the
-cache layout:
+signature, ``backend.decode(q: DecodeQuery, cache, cfg, ctx=None) ->
+o_latent [B, (q_len,) H, d_c] f32`` (a rank-4 query is the speculative
+verify block; ``ctx`` is the mesh context ``{"mesh", "dp"}``, read only by
+``shard_map``), plus ``supports(cfg, mesh, batch, *, paged, n_heads, dp,
+q_len) -> (ok, reason)``; ``resolve_backend`` is the single selection
+rule, with the reference's ``auto`` / ``ref`` / ``kernel`` / ``shard-map``
+vocabulary mapped by the cache layout:
 
   torch_ref            MLACache, the parallel (einsum) form
                        (``ref.snapmla_decode_parallel_any``) over the
@@ -18,6 +20,10 @@ cache layout:
   cuda_splitkv         MLACache, the hand-written Hopper kernels (single pass,
                        or split-KV + combine)
   cuda_paged_splitkv   PagedMLAPool, the same kernels through the page table
+  shard_map            MLACache, the collective-free ``local_map`` region
+                       over a (dp, model) mesh running the parallel form
+                       (``core/distributed_decode.py``; one query token per
+                       slot, needs a mesh and divisible batch and heads)
 
 The reference backends decode as the reference's ``jnp_ref`` /
 ``jnp_paged_ref`` do (backends.py:194-218): the parallel form, which has no
@@ -26,7 +32,8 @@ kernels' plain version on any device, FMA or AMLA: what a model run on the
 kernels is held to on the card (the reference has no plain AMLA backend;
 its AMLA model runs go through its Pallas kernels). Every
 backend resolves its split plan with the batch, the layout and the rescale
-(the profile's keys). The shard_map region is not ported.
+(the profile's keys). The kernel backends refuse a mesh of more than one
+rank (they run per device), and ``auto`` then falls back to the reference.
 
 ``token_cost`` / ``dispatch_cost`` are the reference's analytic traffic
 model of one decode dispatch (backends.py:278-326), which the serving
@@ -43,6 +50,7 @@ import torch
 from repro_torch.core.kvcache import paged_gather, sink_patched_content
 from repro_torch.kernels.mla_decode import ops as _ops
 from repro_torch.kernels.mla_decode import ref as _ref
+from repro_torch.launch.mesh import mesh_size
 
 
 class DecodeQuery(NamedTuple):
@@ -95,7 +103,7 @@ def _split_plan(cfg: BackendConfig, capacity: int, batch: int, layout: str,
 class DecodeBackend:
     name: str
     layout: str    # "contiguous" | "paged" — the cache type consumed
-    kind: str      # "ref" | "kernel"
+    kind: str      # "ref" | "kernel" | "shard_map"
     decode: Callable[..., torch.Tensor]
     supports: Callable[..., tuple[bool, str]]
 
@@ -122,14 +130,52 @@ def backend_names() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def _supports(layout: str):
-    def supports(paged: bool = False) -> tuple[bool, str]:
-        if paged != (layout == "paged"):
-            have = "PagedMLAPool" if paged else "MLACache"
-            need = "a paged pool" if layout == "paged" else "a contiguous MLACache"
-            return False, f"consumes {need}, cache is a {have}"
+def _layout_ok(layout: str, paged: bool) -> tuple[bool, str]:
+    if paged != (layout == "paged"):
+        have = "PagedMLAPool" if paged else "MLACache"
+        need = "a paged pool" if layout == "paged" else "a contiguous MLACache"
+        return False, f"consumes {need}, cache is a {have}"
+    return True, ""
+
+
+def _supports_ref(layout: str):
+    def supports(cfg=None, mesh=None, batch=None, *, paged=False, n_heads=None, dp=None,
+                 q_len=None) -> tuple[bool, str]:
+        return _layout_ok(layout, paged)
+    return supports
+
+
+def _supports_kernel(layout: str):
+    def supports(cfg=None, mesh=None, batch=None, *, paged=False, n_heads=None, dp=None,
+                 q_len=None) -> tuple[bool, str]:
+        ok, why = _layout_ok(layout, paged)
+        if not ok:
+            return ok, why
+        if mesh is not None and mesh_size(mesh) > 1:
+            return False, ("the CUDA decode kernels run per device; under a "
+                           f"{mesh_size(mesh)}-rank mesh use the torch_ref twin (or the "
+                           "shard_map backend)")
         return True, ""
     return supports
+
+
+def _supports_shard_map(cfg=None, mesh=None, batch=None, *, paged=False, n_heads=None,
+                        dp=None, q_len=None) -> tuple[bool, str]:
+    ok, why = _layout_ok("contiguous", paged)
+    if not ok:
+        return ok, why
+    if q_len is not None and q_len > 1:
+        return False, ("the shard_map region computes one query token per slot; "
+                       f"q_len={q_len} verify blocks need the kernel or torch_ref backends")
+    if mesh is None:
+        return False, "requires a device mesh (SHARD_CTX)"
+    from repro_torch.core.distributed_decode import shard_map_applicable
+    if batch is None or n_heads is None:
+        return False, "requires static batch and n_heads for divisibility"
+    if not shard_map_applicable(mesh, dp, batch, n_heads):
+        return False, (f"batch={batch} / n_heads={n_heads} do not divide the "
+                       "(dp, model) mesh axes")
+    return True, ""
 
 
 def _prepared(q: DecodeQuery, fmt: str):
@@ -137,7 +183,7 @@ def _prepared(q: DecodeQuery, fmt: str):
     return _ops._query(q.q_c8, q.q_r, q.sigma_q, fmt, use_kernel=False)
 
 
-def _torch_ref_decode(q: DecodeQuery, cache, cfg: BackendConfig) -> torch.Tensor:
+def _torch_ref_decode(q: DecodeQuery, cache, cfg: BackendConfig, ctx=None) -> torch.Tensor:
     plan = _split_plan(cfg, cache.capacity, q.q_c8.shape[0], "contiguous")
     o, _lse = _ref.snapmla_decode_parallel_any(
         *_prepared(q, cfg.fmt), sink_patched_content(cache), cache.rope.float(), cache.scale,
@@ -146,7 +192,8 @@ def _torch_ref_decode(q: DecodeQuery, cache, cfg: BackendConfig) -> torch.Tensor
     return o
 
 
-def _torch_paged_ref_decode(q: DecodeQuery, pool, cfg: BackendConfig) -> torch.Tensor:
+def _torch_paged_ref_decode(q: DecodeQuery, pool, cfg: BackendConfig,
+                            ctx=None) -> torch.Tensor:
     plan = _split_plan(cfg, pool.capacity, q.q_c8.shape[0], "paged", page_size=pool.page_size)
     content, rope, scale = paged_gather(pool)
     o, _lse = _ref.snapmla_decode_parallel_any(
@@ -157,7 +204,7 @@ def _torch_paged_ref_decode(q: DecodeQuery, pool, cfg: BackendConfig) -> torch.T
 
 
 def _contiguous_decode(use_kernel: bool):
-    def decode(q: DecodeQuery, cache, cfg: BackendConfig) -> torch.Tensor:
+    def decode(q: DecodeQuery, cache, cfg: BackendConfig, ctx=None) -> torch.Tensor:
         plan = _split_plan(cfg, cache.capacity, q.q_c8.shape[0], "contiguous")
         o, _lse = _ops.snapmla_decode(
             q.q_c8, q.q_r, q.sigma_q, cache, softmax_scale=cfg.softmax_scale,
@@ -168,7 +215,7 @@ def _contiguous_decode(use_kernel: bool):
 
 
 def _paged_decode(use_kernel: bool):
-    def decode(q: DecodeQuery, pool, cfg: BackendConfig) -> torch.Tensor:
+    def decode(q: DecodeQuery, pool, cfg: BackendConfig, ctx=None) -> torch.Tensor:
         plan = _split_plan(cfg, pool.capacity, q.q_c8.shape[0], "paged",
                            page_size=pool.page_size)
         o, _lse = _ops.snapmla_decode_paged(
@@ -178,18 +225,35 @@ def _paged_decode(use_kernel: bool):
     return decode
 
 
+def _shard_map_decode(q: DecodeQuery, cache, cfg: BackendConfig, ctx=None) -> torch.Tensor:
+    """The region's o_latent, gathered outside it (``full_tensor``)."""
+    if q.q_c8.dim() == 4:
+        raise ValueError("shard_map backend does not take q_len > 1 verify blocks; resolve "
+                         "with q_len to route elsewhere")
+    if not ctx or ctx.get("mesh") is None:
+        raise ValueError("shard_map backend needs ctx={'mesh': ..., 'dp': ...}")
+    from repro_torch.core.distributed_decode import mla_decode_shard_map
+    plan = _split_plan(cfg, cache.capacity, q.q_c8.shape[0], "contiguous")
+    o = mla_decode_shard_map(ctx["mesh"], ctx.get("dp"), *_prepared(q, cfg.fmt), cache,
+                             softmax_scale=cfg.softmax_scale, block_n=plan.block_n,
+                             fmt=cfg.fmt, num_splits=plan.num_splits)
+    return o.full_tensor()
+
+
 register(DecodeBackend("torch_ref", "contiguous", "ref", _torch_ref_decode,
-                       _supports("contiguous")))
+                       _supports_ref("contiguous")))
 register(DecodeBackend("torch_paged_ref", "paged", "ref", _torch_paged_ref_decode,
-                       _supports("paged")))
+                       _supports_ref("paged")))
 register(DecodeBackend("torch_pipeline", "contiguous", "ref", _contiguous_decode(False),
-                       _supports("contiguous")))
+                       _supports_ref("contiguous")))
 register(DecodeBackend("torch_paged_pipeline", "paged", "ref", _paged_decode(False),
-                       _supports("paged")))
+                       _supports_ref("paged")))
 register(DecodeBackend("cuda_splitkv", "contiguous", "kernel", _contiguous_decode(True),
-                       _supports("contiguous")))
+                       _supports_kernel("contiguous")))
 register(DecodeBackend("cuda_paged_splitkv", "paged", "kernel", _paged_decode(True),
-                       _supports("paged")))
+                       _supports_kernel("paged")))
+register(DecodeBackend("shard_map", "contiguous", "shard_map", _shard_map_decode,
+                       _supports_shard_map))
 
 
 # the H100's data-sheet rates (SXM, dense): the analytic model's time only
@@ -232,27 +296,42 @@ def dispatch_cost(backend: "DecodeBackend | str", *, tokens_visited: int,
 
 
 def canonical_name(request: str, paged: bool) -> str:
-    """Map 'ref' / 'kernel' (or an exact registry name) to a registry name
-    for the cache layout."""
+    """Map 'ref' / 'kernel' / 'shard-map' (or an exact registry name) to a
+    registry name for the cache layout."""
     if request == "ref":
         return "torch_paged_ref" if paged else "torch_ref"
     if request == "kernel":
         return "cuda_paged_splitkv" if paged else "cuda_splitkv"
+    if request == "shard-map":
+        return "shard_map"
     return request
 
 
 def resolve_backend(request: str = "auto", *, paged: bool = False,
-                    use_kernels: bool = False, q_len: int | None = None) -> DecodeBackend:
-    """Pick the decode backend. "auto" takes the kernels when ``use_kernels``
-    else the reference; an explicit request whose ``supports`` rejects the
-    configuration raises with the reason. ``q_len`` (the verify block) is
-    accepted by every registered backend: the reference's only q_len = 1
-    backend, shard_map, is not ported."""
-    del q_len
+                    batch: int | None = None, n_heads: int | None = None,
+                    mesh=None, dp=None, use_kernels: bool = False,
+                    prefer_shard_map: bool = False, cfg: BackendConfig | None = None,
+                    q_len: int | None = None) -> DecodeBackend:
+    """Pick the decode backend (backends.py:341-377). "auto" prefers, in
+    order: the shard_map region (when a mesh context asked for it and the
+    shapes divide), the kernels (when ``use_kernels`` and no multi-rank mesh
+    is in the way), else the reference; auto never fails. An explicit
+    request whose ``supports`` rejects the configuration raises with the
+    reason. ``q_len`` > 1 (the verify block) routes away from shard_map,
+    which takes one query token per slot."""
+    kw = dict(paged=paged, n_heads=n_heads, dp=dp, q_len=q_len)
     if request in (None, "", "auto"):
-        request = "kernel" if use_kernels else "ref"
+        if prefer_shard_map:
+            sm = get_backend("shard_map")
+            if sm.supports(cfg, mesh, batch, **kw)[0]:
+                return sm
+        if use_kernels:
+            k = get_backend(canonical_name("kernel", paged))
+            if k.supports(cfg, mesh, batch, **kw)[0]:
+                return k
+        return get_backend(canonical_name("ref", paged))
     backend = get_backend(canonical_name(request, paged))
-    ok, why = backend.supports(paged=paged)
+    ok, why = backend.supports(cfg, mesh, batch, **kw)
     if not ok:
         raise ValueError(f"decode backend {backend.name!r} (requested "
                          f"{request!r}) unsupported here: {why}")

@@ -44,6 +44,18 @@ capacity depends on how many tokens share a call, so the engine's batches
 and ``generate``'s static batch can drop different tokens and the oracle
 gate can fail, as the reference's does on deepseek-v3-mla. ``--engine
 --fused`` exits, as the reference's does.
+
+``--backend shard-map`` decodes each MLA layer's attention (and its cache
+append) in the collective-free ``local_map`` region over the host ``("data",
+"model")`` mesh (``core/distributed_decode.py``): without a launcher a world
+of one in this process (NCCL on the card, gloo on the CPU), under
+``torchrun`` every rank, each running the replicated step with the region
+batch-sharded and printing the same tokens:
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --smoke --backend shard-map --device cpu
+
+``--engine --backend shard-map`` is refused: the engine's pool is paged.
 """
 from __future__ import annotations
 
@@ -54,11 +66,13 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.kvcache import page_aligned_capacity
 from repro_torch.launch import steps as ST
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as T
 
 
@@ -436,9 +450,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="paged KV pool for the MLA layers (latent entries in a "
                          "page pool addressed through per-sequence page tables) "
                          "instead of the contiguous per-slot cache")
-    ap.add_argument("--backend", default="auto", choices=["auto", "ref", "kernel"],
+    ap.add_argument("--backend", default="auto", choices=["auto", "ref", "kernel", "shard-map"],
                     help="decode attention: 'ref' = plain PyTorch, 'kernel' = the "
                          "hand-written Hopper kernels (plain versions on CPU), "
+                         "'shard-map' = the collective-free local_map region over "
+                         "the host (data, model) mesh (contiguous caches; batch must "
+                         "divide the data axis; a world of one without a launcher), "
                          "'auto' = ref")
     ap.add_argument("--kv-splits", type=int, default=0,
                     help="split-KV splits, contiguous and paged caches "
@@ -562,6 +579,22 @@ def main(argv=None):
         # a contiguous cache keeps its page size and overrides the block
         cfg = dataclasses.replace(cfg, page_size=args.block_n) if args.paged \
             else dataclasses.replace(cfg, kv_block_n=args.block_n)
+    started = not dist.is_initialized()
+    if args.backend == "shard-map":
+        # the shard_map backend needs a mesh context (serve.py:632-636): the
+        # host mesh, data = every rank of the world
+        T.SHARD_CTX = {"mesh": make_host_mesh(1, device), "dp": "data",
+                       "use_shard_map": True}
+    try:
+        _serve(cfg, args, device)
+    finally:
+        if args.backend == "shard-map":
+            T.SHARD_CTX = None
+            if started and dist.is_initialized():
+                dist.destroy_process_group()
+
+
+def _serve(cfg, args, device) -> None:
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = T.init_model(gen, cfg, device=device)
@@ -582,6 +615,9 @@ def main(argv=None):
     print(f"[serve] {cfg.name} fmt={args.fmt} backend={args.backend} "
           f"rescale={args.rescale} ({mode}, {cache_kind} cache, {device}): "
           f"generated {tuple(toks.shape)} at {tps:.1f} tok/s (decode)")
+    if T.SHARD_CTX is not None:
+        print(f"[serve] rank {dist.get_rank()} of {dist.get_world_size()} "
+              f"(mesh {tuple(T.SHARD_CTX['mesh'].shape)}): tokens {toks.tolist()}")
     if args.fmt != "none":
         cfg_b = dataclasses.replace(cfg, kv_fmt="none")
         toks_b, _ = gen_fn(cfg_b, params, prompts, args.gen, **sample_kw)

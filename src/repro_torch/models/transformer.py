@@ -59,6 +59,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import distributed_decode as DD
 from repro_torch.core import mla as mla_lib
 from repro_torch.core.kvcache import (CacheConfig, gqa_append, gqa_prefill, init_gqa_cache,
                                       init_mla_cache, init_paged_mla_cache, mla_append,
@@ -229,11 +230,25 @@ def _logits(params, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bd,vd->bv", x.float(), _table(params).float())
 
 
-def _use_gqa_kernel(cfg: ModelConfig) -> bool:
+# The mesh context of the distributed decode path (transformer.py:315-319),
+# set by ``serve --backend shard-map``: {"mesh": DeviceMesh, "dp": the data
+# axis name, a tuple of names or None, "use_shard_map": bool}. None: no mesh.
+SHARD_CTX = None
+
+
+def _resolve_backend(cfg: ModelConfig, batch: int) -> BK.DecodeBackend:
+    """The MLA layers' decode backend under ``SHARD_CTX`` (transformer.py:391-397)."""
+    ctx = SHARD_CTX
+    return BK.resolve_backend(cfg.decode_backend, paged=cfg.kv_paged, batch=batch,
+                              n_heads=cfg.n_heads, mesh=ctx["mesh"] if ctx else None,
+                              dp=ctx["dp"] if ctx else None, use_kernels=cfg.use_kernels,
+                              prefer_shard_map=bool(ctx and ctx.get("use_shard_map")))
+
+
+def _use_gqa_kernel(cfg: ModelConfig, batch: int) -> bool:
     """GQA layers take the kernel where the MLA layers' backend rule picks a
     kernel backend (``decode_backend`` / ``use_kernels``)."""
-    return BK.resolve_backend(cfg.decode_backend, paged=cfg.kv_paged,
-                              use_kernels=cfg.use_kernels).kind == "kernel"
+    return _resolve_backend(cfg, batch).kind == "kernel"
 
 
 def _attn_decode(p: L.AttnParams, cfg: ModelConfig, kind: str, x_t: torch.Tensor,
@@ -259,7 +274,7 @@ def _gqa_attend(cfg: ModelConfig, q: torch.Tensor, cache, pos: torch.Tensor, win
     ``ref``."""
     kw = dict(window=window, block_n=ccfg.page_size,
               fmt=ccfg.fmt if ccfg.quantized else "none")
-    if _use_gqa_kernel(cfg):
+    if _use_gqa_kernel(cfg, q.shape[0]):
         return gqa_ops.gqa_decode(q.float(), cache, pos, **kw)
     return gqa_ref.gqa_decode_parallel_ref(q.float(), cache.k, cache.v, cache.k_scale,
                                            cache.v_scale, cache.slot_pos, pos, **kw)
@@ -288,14 +303,25 @@ def _mla_decode(p: mla_lib.MLAParams, cfg: ModelConfig, x_t: torch.Tensor, cache
 
     The reference runs ``prepare_q`` here (transformer.py:421); on a kernel
     backend the port hands the raw query to the decode kernel, whose
-    prologue runs Fused-Q-Quant (``_prepare_query``)."""
+    prologue runs Fused-Q-Quant (``_prepare_query``). On the ``shard_map``
+    backend the contiguous cache appends through the collective-free region
+    too (transformer.py:400-409). The reference's ``_wsc`` layout hints
+    (transformer.py:322-335) steer GSPMD and change no value; eager PyTorch
+    has no partitioner to steer, so they have no counterpart here."""
     mcfg = _mla_cfg(cfg)
     ccfg = _cache_cfg(cfg)
-    backend = BK.resolve_backend(cfg.decode_backend, paged=cfg.kv_paged,
-                                 use_kernels=cfg.use_kernels)
+    ctx = SHARD_CTX
+    backend = _resolve_backend(cfg, x_t.shape[0])
     c_kv, k_r = mla_lib.project_kv(p, mcfg, x_t[:, None, :], pos[:, None])
-    append = paged_mla_append if cfg.kv_paged else mla_append
-    cache = append(cache, ccfg, c_kv[:, 0], k_r[:, 0], active=active)
+    if cfg.kv_paged:
+        cache = paged_mla_append(cache, ccfg, c_kv[:, 0], k_r[:, 0], active=active)
+    elif backend.name == "shard_map":
+        # ``active`` is a batch-dim mask: it shards over dp into the region
+        sharded = DD.mla_append_shard_map(ctx["mesh"], ctx["dp"], cache, ccfg, c_kv[:, 0],
+                                          k_r[:, 0], active=active)
+        cache = DD.appended(cache, sharded)
+    else:
+        cache = mla_append(cache, ccfg, c_kv[:, 0], k_r[:, 0], active=active)
     q_c, q_r = mla_lib.project_q(p, mcfg, x_t[:, None, :], pos[:, None])
     if active is not None:
         # finished rows: zero the query (EPS keeps the scale finite)
@@ -303,7 +329,8 @@ def _mla_decode(p: mla_lib.MLAParams, cfg: ModelConfig, x_t: torch.Tensor, cache
         q_r = torch.where(active[:, None, None, None], q_r, 0.0)
     q_lat = mla_lib.absorb_q(p, q_c[:, 0])
     o_lat = backend.decode(_prepare_query(q_lat, q_r[:, 0], ccfg, backend),
-                           cache, _backend_cfg(cfg, mcfg, ccfg))
+                           cache, _backend_cfg(cfg, mcfg, ccfg),
+                           {"mesh": ctx["mesh"], "dp": ctx["dp"]} if ctx else None)
     return mla_lib.output_proj(p, o_lat.to(x_t.dtype)), cache
 
 

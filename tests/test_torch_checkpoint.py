@@ -37,6 +37,7 @@ from repro_torch.runtime import fault_tolerance as tft
 from repro_torch.serving import engine as tengine
 from repro_torch.serving import faults as tfaults
 from repro_torch.serving import scheduler as tsched
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 # ---------------------------------------------------------------------------

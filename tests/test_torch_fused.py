@@ -36,6 +36,7 @@ from repro_torch.kernels import _lib
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import transformer as TT
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, S, GEN = 3, 12, 8
 ARCHS = ("mla-7b", "llama3.2-3b", "deepseek-v3-mla")

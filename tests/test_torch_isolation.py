@@ -33,7 +33,8 @@ _REQUIRED = ("repro_torch.serving.tiering", "repro_torch.checkpoint.checkpoint",
              "repro_torch.configs.llama32_vision_90b", "repro_torch.optim.adamw",
              "repro_torch.optim.schedule", "repro_torch.optim.grad_compression",
              "repro_torch.data.pipeline", "repro_torch.runtime.straggler",
-             "repro_torch.launch.train")
+             "repro_torch.launch.train", "repro_torch.core.distributed_decode",
+             "repro_torch.launch.mesh", "repro_torch.launch.sharding")
 
 
 def test_import_every_module_without_jax():

@@ -183,8 +183,9 @@ def _jax_pool(pool: PagedMLAPool):
 
 
 def test_backend_registry_vocabulary():
-    assert TB.backend_names() == ["cuda_paged_splitkv", "cuda_splitkv", "torch_paged_pipeline",
-                                  "torch_paged_ref", "torch_pipeline", "torch_ref"]
+    assert TB.backend_names() == ["cuda_paged_splitkv", "cuda_splitkv", "shard_map",
+                                  "torch_paged_pipeline", "torch_paged_ref", "torch_pipeline",
+                                  "torch_ref"]
     assert TB.resolve_backend("auto", paged=True).name == "torch_paged_ref"
     assert TB.resolve_backend("auto", paged=True, use_kernels=True).kind == "kernel"
     assert TB.resolve_backend("kernel", paged=False).name == "cuda_splitkv"

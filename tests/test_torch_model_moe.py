@@ -36,6 +36,7 @@ from repro_torch.kernels import _lib
 from repro_torch.launch import serve as tserve
 from repro_torch.models import moe as TM
 from repro_torch.models import transformer as TT
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = ["deepseek-v3-mla", "mixtral-8x7b", "qwen3-moe-30b-a3b", "granite-3-2b"]
 B, S, GEN = 3, 12, 8

@@ -47,6 +47,7 @@ from repro_torch.serving import faults as tfaults
 from repro_torch.serving import prefix_tree as ttree
 from repro_torch.serving import scheduler as tsched
 from repro_torch.serving import speculative as tspec
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PAGE, CHUNK = 16, 16
 

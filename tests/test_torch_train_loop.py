@@ -24,6 +24,7 @@ from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import AdamWState, init_adamw
 from repro_torch.runtime.fault_tolerance import PreemptionHandler
 from repro_torch.runtime.straggler import StragglerConfig, StragglerDetector
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 CFG = DataConfig(vocab_size=128, seq_len=16, global_batch=8, seed=7)
 
