@@ -147,11 +147,19 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
                phase 8, the fused loop bitwise equal to the step loop, #7
                12 and 5 times per decode step (a 'dec' layer: self, then
                cross), one step profiled;
-  8c. train  — ``launch.train.train_loop`` on mla-7b (4 of 30 layers, batch 8,
-               seq 512) and whisper-base (full, batch 8, seq 448, its aux
+  8c. train  — ``launch.train.train_loop`` through its mesh (an NCCL world
+               of one, (1, 1)) on mla-7b (4 of 30 layers, batch 8, seq 512)
+               and whisper-base (full, batch 8, seq 448, its aux
                embeddings), 20 steps each: finite, falling loss; ms per
                step, tokens/s, peak memory, model FLOP/s against the f32
-               peak; a preempt-and-resume round on whisper-base;
+               peak; on mla-7b, step 1's loss and grad_norm bitwise equal to
+               ``make_train_step`` on plain tensors from the same seed and
+               steps 2-3 within rel 1e-6, and the meshed step and the plain
+               one timed in turns; a preempt-and-resume round on
+               whisper-base;
+  8d. dry run — ``launch.dryrun.run_cell`` (mla-7b x decode_32k x pod, 2
+               layers) in a subprocess on the host: a fake 256-rank world
+               over meta tensors, its record on its own line;
   9. deepseek — deepseek-v3-mla at full width (128 heads, q-LoRA, 256
                experts top-8 + 1 shared) cut to one layer, after every other
                model is freed: ``serve.generate`` contiguous kv0, paged kv0,
@@ -2721,10 +2729,79 @@ def train_flops(cfg, batch, seq) -> float:
     return 6.0 * ((cfg.param_count() - enc) * batch * seq + enc * batch * cfg.n_aux_tokens)
 
 
-def phase_train() -> None:
-    """``launch.train.train_loop`` on the card, float32 (TF32 off), AdamW,
-    remat per superblock: mla-7b at full width cut to 4 of 30 layers (1.15 B
-    parameters; params + grads + two moments ~18.5 GB; all 30 layers would
+TRAIN_MESH_TURNS = 3            # timed step pairs (meshed, plain) of phase 8c
+
+
+def train_mesh_checks(cfg, batch, seq, steps, lr, out, mesh) -> dict:
+    """The meshed loop ``out`` (``train_loop`` on ``mesh``, a world of one)
+    against ``make_train_step`` on plain tensors from the same seed and
+    batches: step 1's loss and grad_norm bitwise, steps 2-3 within rel
+    1e-6 (the embedding's backward sums with atomics); then the meshed step
+    (``train.sharded_step`` on the plain state placed on ``mesh``) and the
+    plain step timed in turns from that state, ``TRAIN_MESH_TURNS`` each
+    (synchronized wall per step)."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import sharded_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, init_adamw, tree_map
+    fn = ST.make_train_step(cfg, AdamWConfig(lr=lr), warmup_steps=max(2, steps // 10),
+                            total_steps=steps)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    p = T.init_model(gen, cfg, device="cuda")
+    o = init_adamw(p)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0,
+                    n_aux_tokens=cfg.n_aux_tokens, d_model=cfg.d_model)
+
+    def batch_at(i):
+        return {k: v.to("cuda") for k, v in synth_batch(dc, i).items()}
+    plain = []
+    for i in range(3):
+        p, o, m = fn(p, o, batch_at(i), i)
+        plain.append((float(m["loss"]), float(m["grad_norm"])))
+    meshed = list(zip(out["losses"][:3], out["grad_norms"][:3]))
+    if meshed[0] != plain[0]:
+        raise AssertionError(f"train mesh: step 1 {meshed[0]} != plain {plain[0]}")
+    rel = max(abs(a - b) / abs(b) for mp, pp in zip(meshed[1:], plain[1:])
+              for a, b in zip(mp, pp))
+    if rel > 1e-6:
+        raise AssertionError(f"train mesh: steps 2-3 {meshed[1:]} vs plain {plain[1:]}")
+    named = (SH.to_named(SH.param_pspecs(p, mesh), mesh),
+             SH.to_named(SH.param_pspecs(o, mesh), mesh))
+    mp_, mo_ = SH.place(tree_map(torch.clone, p), named[0]), \
+        SH.place(tree_map(torch.clone, o), named[1])
+    mstep = sharded_step(fn, mesh)
+    bnamed = SH.to_named(SH.batch_pspecs(batch_at(0), mesh), mesh)
+    t_mesh, t_plain, turn_rel = [], [], 0.0
+    for i in range(3, 3 + TRAIN_MESH_TURNS):
+        b = batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mp_, mo_, mm = mstep(mp_, mo_, SH.place(b, bnamed), i)
+        lm = float(mm["loss"])
+        torch.cuda.synchronize()
+        t_mesh.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        p, o, m = fn(p, o, b, i)
+        lp = float(m["loss"])
+        torch.cuda.synchronize()
+        t_plain.append(time.perf_counter() - t0)
+        turn_rel = max(turn_rel, abs(lm - lp) / abs(lp))
+    return dict(step1_loss_gnorm_bitwise=True, steps23_max_rel=rel, plain_first3=plain,
+                meshed_ms_per_step=statistics.median(t_mesh) * 1e3,
+                plain_ms_per_step=statistics.median(t_plain) * 1e3,
+                meshed_ms=[t * 1e3 for t in t_mesh], plain_ms=[t * 1e3 for t in t_plain],
+                turns_max_loss_rel=turn_rel)
+
+
+def phase_train(smi) -> None:
+    """``launch.train.train_loop`` on the card through its mesh (an NCCL
+    world of one started here by ``make_host_mesh``, a (1, 1) mesh,
+    destroyed at the end), float32 (TF32 off), AdamW, remat per superblock:
+    mla-7b at full width cut to 4 of 30 layers (1.15 B parameters; params + grads + two moments ~18.5 GB; all 30 layers would
     be ~95 GB) and whisper-base at full width and depth with its aux
     embeddings, 20 steps each from seeded weights and ``synth_batch``: every
     loss finite and falling by tests/test_train_loop.py's own assertion
@@ -2737,8 +2814,11 @@ def phase_train() -> None:
     bits may differ)."""
     import shutil
     import torch
+    import torch.distributed as dist
     from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.train import train_loop
+    mesh = make_host_mesh(1, "cuda")
     unbroken = {}
     for arch, layers, batch, seq, steps, lr in TRAIN_RUNS:
         full = get_config(arch)
@@ -2747,7 +2827,7 @@ def phase_train() -> None:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         out = train_loop(cfg, steps=steps, batch=batch, seq=seq, ckpt_dir=None, lr=lr,
-                         log_every=5, device="cuda")
+                         log_every=5, device="cuda", mesh=mesh)
         wall = time.time() - t0
         losses = out["losses"]
         first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
@@ -2766,8 +2846,18 @@ def phase_train() -> None:
              peak_gib=torch.cuda.max_memory_allocated() / 2**30,
              model_flops_per_step=flops, model_tflops_per_s=flops / step_s / 1e12,
              share_of_f32_peak=flops / step_s / PEAK["f32"], wall_s=wall,
-             stragglers=out["flagged_stragglers"])
+             stragglers=out["flagged_stragglers"], mesh=list(mesh.shape),
+             process_group=str(dist.get_backend()))
         unbroken[arch] = (cfg, batch, seq, steps, lr, losses)
+        if arch == "mla-7b":
+            params = out.pop("params")
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            t1 = time.time()
+            emit(phase="train_mesh", arch=arch, layers=cfg.n_layers, batch=batch, seq=seq,
+                 gpu=smi, **train_mesh_checks(cfg, batch, seq, steps, lr, out,
+                                                           mesh), checks_s=time.time() - t1)
         del out
         gc.collect()
         torch.cuda.empty_cache()
@@ -2786,7 +2876,7 @@ def phase_train() -> None:
     cfg, batch, seq, steps, lr, losses = unbroken["whisper-base"]
     shutil.rmtree(ROOT / TRAIN_CKPT, ignore_errors=True)
     kw = dict(steps=steps, batch=batch, seq=seq, ckpt_dir=str(ROOT / TRAIN_CKPT), lr=lr,
-              log_every=100, device="cuda")
+              log_every=100, device="cuda", mesh=mesh)
     cut = train_loop(cfg, preemption=PreemptAfter(), ckpt_every=1000, **kw)
     rest = train_loop(cfg, ckpt_every=1000, **kw)
     diff = max(abs(a - b) for a, b in zip(rest["losses"], losses[10:]))
@@ -2799,6 +2889,34 @@ def phase_train() -> None:
          resumed_to=rest["final_step"], resumed_losses=rest["losses"],
          max_loss_diff_vs_unbroken=diff, bitwise_vs_unbroken=rest["losses"] == losses[10:])
     shutil.rmtree(ROOT / TRAIN_CKPT, ignore_errors=True)
+    del cut, rest
+    gc.collect()
+    dist.destroy_process_group()
+
+
+# phase 8d: one dry-run cell on the host (fake 256-rank world, meta tensors)
+DRYRUN_CELL = dict(arch="mla-7b", shape="decode_32k", mesh_kind="pod", extra={"n_layers": 2},
+                   variant="baseline")
+DRYRUN_LIMIT_S = 30.0
+
+
+def phase_dryrun() -> None:
+    """``launch.dryrun.run_cell`` on ``DRYRUN_CELL`` in a subprocess (its
+    own fake process group of 256 ranks; no card): exit 0, status ok, 256
+    chips, within ``DRYRUN_LIMIT_S``; the record on its own line."""
+    import os
+    code = ("import json; from repro_torch.launch import dryrun as D; D.fake_world(256); "
+            f"print(json.dumps(D.run_cell(**{DRYRUN_CELL!r}), default=str))")
+    t0 = time.time()
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=300, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    wall = time.time() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"dry run: exit {p.returncode}: {p.stderr[-2000:]}")
+    rec = json.loads(p.stdout.strip().splitlines()[-1])
+    if rec["status"] != "ok" or rec["n_chips"] != 256 or wall > DRYRUN_LIMIT_S:
+        raise AssertionError(f"dry run: {rec['status']}, {rec.get('n_chips')} chips, {wall:.1f} s")
+    emit(phase="dryrun", subprocess_s=wall, limit_s=DRYRUN_LIMIT_S, record=rec)
 
 
 # phase 9: deepseek-v3-mla, full width, one layer
@@ -3098,11 +3216,16 @@ def main() -> int:
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
 
-    # 8c. the single-device training path: mla-7b (4 of 30 layers) and
+    # 8c. the training path through its mesh of one: mla-7b (4 of 30 layers) and
     # whisper-base (full), 20 steps each, and a preempt-and-resume round
     t0 = time.time()
-    phase_train()
+    phase_train(smi)
     emit(phase="train_done", seconds=time.time() - t0)
+
+    # 8d. one dry-run cell, host only, in a subprocess
+    t0 = time.time()
+    phase_dryrun()
+    emit(phase="dryrun_done", seconds=time.time() - t0)
 
     # 9. deepseek-v3-mla at full width, one layer: serve.generate and the
     # engine through the MLA kernels at 128 heads (counted main paths)

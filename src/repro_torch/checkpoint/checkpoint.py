@@ -23,6 +23,12 @@ dtype of the matching ``tree_like`` leaf; with ``shardings`` (the output of
 with those placements: checkpoints are logical, so loading re-places them
 on any mesh (the reference's elastic reshard on load). Every rank reads the
 same file and keeps its own shard, with no collective.
+
+A tree with DTensor leaves (the sharded train loop's) saves the same
+checkpoint as its full tensors would: every rank gathers each leaf
+(``full_tensor()``, a collective, so every rank of the mesh calls
+``save_checkpoint``), rank 0 alone writes and publishes, and every rank
+waits at a barrier until it has.
 """
 from __future__ import annotations
 
@@ -44,8 +50,15 @@ def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+def _is_dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A host numpy copy of ``t``'s bytes (fp8 / bf16 as their integer view)."""
+    """A host numpy copy of ``t``'s bytes (fp8 / bf16 as their integer view;
+    a DTensor gathered whole first)."""
+    if _is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().cpu().contiguous()
     raw = _RAW.get(t.dtype)
     return (t.view(raw) if raw is not None else t).numpy()
@@ -103,18 +116,22 @@ def save_checkpoint(directory: str, step: int, tree: Any,
     """Write ``<directory>/step_<step>`` atomically and return its path.
     ``keep`` (when set) prunes the directory down to the newest ``keep``
     published checkpoints after the new one lands."""
-    os.makedirs(directory, exist_ok=True)
+    leaves = flatten(tree)
+    sharded = any(_is_dtensor(t) for _, t in leaves)
     final = os.path.join(directory, f"step_{step:08d}")
+    arrays = {f"leaf_{i:05d}": to_numpy(leaf) for i, (_, leaf) in enumerate(leaves)}
+    if sharded:
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            dist.barrier()
+            return final
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    arrays, index = {}, []
-    for i, (name, leaf) in enumerate(flatten(tree)):
-        key = f"leaf_{i:05d}"
-        arrays[key] = to_numpy(leaf)
-        index.append({"key": key, "path": name, "dtype": dtype_name(leaf.dtype),
-                      "shape": list(leaf.shape)})
+    index = [{"key": f"leaf_{i:05d}", "path": name, "dtype": dtype_name(leaf.dtype),
+              "shape": list(leaf.shape)} for i, (name, leaf) in enumerate(leaves)]
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     manifest = {"step": step, "leaves": index}
     manifest.update(extra_manifest or {})
@@ -126,6 +143,9 @@ def save_checkpoint(directory: str, step: int, tree: Any,
     if keep is not None and keep >= 1:
         for stale in _published(directory)[:-keep]:
             shutil.rmtree(os.path.join(directory, stale))
+    if sharded:
+        import torch.distributed as dist
+        dist.barrier()
     return final
 
 

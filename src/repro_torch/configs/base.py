@@ -81,8 +81,21 @@ class ModelConfig:
     use_kernels: bool = False
     # "auto" | "ref" | "kernel" | an exact backend name
     decode_backend: str = "auto"
+    # the dry run's shape grid (``launch/steps.shape_applicable``)
+    subquadratic: bool = False       # can run the long_500k decode
+    has_decoder: bool = True         # an encoder-only arch would be False
     max_seq_len: int = 131072
     tie_embeddings: bool = True
+
+    def scaled(self, **overrides) -> "ModelConfig":
+        """This config with ``overrides`` replaced (base.py:191), e.g.
+        ``n_layers`` to cut the depth of a dry-run cell. The reference's
+        ``cost_exact`` flag has no counterpart: it unrolls the reference's
+        ``lax.scan`` over layers and flash blocks so that XLA's cost analysis
+        counts every iteration, and the port's layers are a Python list and
+        its flash blocks a Python loop, so every count here is at full depth
+        already."""
+        return dataclasses.replace(self, **overrides)
 
     @property
     def pattern_len(self) -> int:

@@ -12,6 +12,7 @@ CONFIG = ModelConfig(
     d_ff=21504, vocab_size=262144,
     layer_pattern=("swa", "swa", "swa", "swa", "swa", "attn"),
     window=1024, rope_theta=1000000.0, act="gelu",
+    subquadratic=True,  # dominantly local; global layers are linear per decode step
     max_seq_len=524288,
 )
 

@@ -11,6 +11,7 @@ CONFIG = ModelConfig(
     d_ff=0, vocab_size=32000,
     layer_pattern=("swa",), window=4096, rope_theta=1000000.0, act="silu",
     moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=14336, capacity_factor=1.25),
+    subquadratic=True,  # SWA bounds every layer's cache
     max_seq_len=524288,
 )
 

@@ -13,6 +13,7 @@ CONFIG = ModelConfig(
     d_ff=12288, vocab_size=256000,
     layer_pattern=("rglru", "rglru", "swa"), window=2048,
     rope_theta=10000.0, act="gelu",
+    subquadratic=True,
     max_seq_len=524288,
 )
 

@@ -11,6 +11,7 @@ CONFIG = ModelConfig(
     d_ff=0, vocab_size=50304,
     layer_pattern=("mlstm",) * 7 + ("slstm",),
     act="gelu",
+    subquadratic=True,
     max_seq_len=524288,
 )
 

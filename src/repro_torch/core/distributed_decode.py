@@ -27,6 +27,8 @@ Needs B % dp == 0 and H % model == 0 (``shard_map_applicable``).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.core.kvcache import MLACache, mla_append, sink_patched_content
@@ -50,8 +52,13 @@ def shard_map_applicable(mesh, dp_axes, batch: int, n_heads: int) -> bool:
 def _shard(t: torch.Tensor, mesh, placements):
     """``t`` (the same full tensor on every rank) as a DTensor whose local
     tensor is this rank's shard, a view of ``t``: no copy, no collective.
-    Mesh dimensions sharding one tensor dimension split it major first."""
+    Mesh dimensions sharding one tensor dimension split it major first. A
+    DTensor (the dry run's sharded step) is redistributed to ``placements``
+    instead, before the region."""
     from torch.distributed.tensor import DTensor, Shard
+    if isinstance(t, DTensor):
+        return t if tuple(t.placements) == tuple(placements) else \
+            t.redistribute(mesh, placements)
     coord = mesh.get_coordinate()
     local = t
     for m, pl in enumerate(placements):
@@ -66,13 +73,33 @@ def _shard(t: torch.Tensor, mesh, placements):
                               shape=t.shape, stride=t.stride())
 
 
+# entered around every region body: the dry run passes its collective
+# counter's scope here, to count what a region issues (nothing)
+_REGION_SCOPE = contextlib.nullcontext
+
+
+@contextlib.contextmanager
+def region_scope(scope):
+    """Enter ``scope()`` around every region body while this is open."""
+    global _REGION_SCOPE
+    prev, _REGION_SCOPE = _REGION_SCOPE, scope
+    try:
+        yield
+    finally:
+        _REGION_SCOPE = prev
+
+
 def _region(fn, mesh, specs, out_specs):
     """``fn`` as a ``local_map`` region: (tensors) -> DTensors, each placed
     by its spec."""
     from torch.distributed.tensor.experimental import local_map
     ins = tuple(placements_for(s, mesh) for s in specs)
     outs = tuple(placements_for(s, mesh) for s in out_specs)
-    mapped = local_map(fn, out_placements=outs, in_placements=ins, device_mesh=mesh)
+
+    def body(*local):
+        with _REGION_SCOPE():
+            return fn(*local)
+    mapped = local_map(body, out_placements=outs, in_placements=ins, device_mesh=mesh)
 
     def run(*tensors):
         return mapped(*(_shard(t, mesh, pl) for t, pl in zip(tensors, ins)))

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import quant
+from repro_torch.core.placement import index_put
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,9 +138,9 @@ def mla_append(cache: MLACache, cfg: CacheConfig, c_kv: torch.Tensor,
         content = _where_rows(active, content, cache.content[rows, row])
         rope = _where_rows(active, rope, cache.rope[rows, row])
         scale = torch.where(active, scale, cache.scale[rows, row])
-    cache.content[rows, row] = content
-    cache.rope[rows, row] = rope
-    cache.scale[rows, row] = scale.float()
+    index_put("mla_append", cache.content, (rows, row), content)
+    index_put("mla_append", cache.rope, (rows, row), rope)
+    index_put("mla_append", cache.scale, (rows, row), scale.float())
     step = 1 if active is None else active.to(cache.seq_lens.dtype)
     return cache._replace(seq_lens=cache.seq_lens + step,
                           sink=sink_append(cache, c_kv, idx, active))
@@ -158,7 +159,8 @@ def sink_append(cache: MLACache, c_kv: torch.Tensor, idx: torch.Tensor,
         ok = ok & active
     rows = torch.arange(c_kv.shape[0], device=c_kv.device)
     i = torch.clamp(idx, max=S_k - 1)
-    cache.sink[rows, i] = torch.where(ok[:, None], c_kv.float(), cache.sink[rows, i])
+    index_put("sink_append", cache.sink, (rows, i),
+              torch.where(ok[:, None], c_kv.float(), cache.sink[rows, i]))
     return cache.sink
 
 
@@ -240,11 +242,11 @@ def gqa_append(cache: GQACache, cfg: CacheConfig, k: torch.Tensor, v: torch.Tens
         ks = _where_rows(active, ks, cache.k_scale[rows, slot])
         vs = _where_rows(active, vs, cache.v_scale[rows, slot])
         sp = torch.where(active, sp, cache.slot_pos[rows, slot])
-    cache.k[rows, slot] = kq
-    cache.v[rows, slot] = vq
-    cache.k_scale[rows, slot] = ks.float()
-    cache.v_scale[rows, slot] = vs.float()
-    cache.slot_pos[rows, slot] = sp
+    index_put("gqa_append", cache.k, (rows, slot), kq)
+    index_put("gqa_append", cache.v, (rows, slot), vq)
+    index_put("gqa_append", cache.k_scale, (rows, slot), ks.float())
+    index_put("gqa_append", cache.v_scale, (rows, slot), vs.float())
+    index_put("gqa_append", cache.slot_pos, (rows, slot), sp)
     step = 1 if active is None else active.to(cache.seq_lens.dtype)
     return cache._replace(seq_lens=cache.seq_lens + step)
 
@@ -263,11 +265,12 @@ def gqa_prefill(cache: GQACache, cfg: CacheConfig, k: torch.Tensor,
     kq, vq, ks, vs = kq[:, keep], vq[:, keep], ks[:, keep], vs[:, keep]
     positions = positions[keep]
     slots = (positions % cap if cfg.window else positions).long()
-    cache.k[:, slots] = kq.to(cache.k.dtype)
-    cache.v[:, slots] = vq.to(cache.v.dtype)
-    cache.k_scale[:, slots] = ks.float()
-    cache.v_scale[:, slots] = vs.float()
-    cache.slot_pos[:, slots] = positions.expand(B, -1)
+    every = slice(None)
+    index_put("gqa_prefill", cache.k, (every, slots), kq.to(cache.k.dtype))
+    index_put("gqa_prefill", cache.v, (every, slots), vq.to(cache.v.dtype))
+    index_put("gqa_prefill", cache.k_scale, (every, slots), ks.float())
+    index_put("gqa_prefill", cache.v_scale, (every, slots), vs.float())
+    index_put("gqa_prefill", cache.slot_pos, (every, slots), positions.expand(B, -1))
     return cache._replace(seq_lens=torch.full_like(cache.seq_lens, S))
 
 

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.models.layers import _normal, apply_rope, rms_norm, rope_freqs
+from repro_torch.models.layers import _normal, apply_rope, einsum, matmul, rms_norm, rope_freqs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,10 +79,10 @@ def project_q(params: MLAParams, cfg: MLAConfig, h: torch.Tensor,
               positions: torch.Tensor):
     """h [..., S, d] -> (q_c [..., S, H, d_h], q_r [..., S, H, d_r] RoPE'd)."""
     if params.w_dq is not None:
-        ql = rms_norm(h @ params.w_dq, params.q_norm)
-        q = torch.einsum("...sk,khd->...shd", ql, params.w_uq)
+        ql = rms_norm(matmul(h, params.w_dq), params.q_norm)
+        q = einsum("...sk,khd->...shd", ql, params.w_uq)
     else:
-        q = torch.einsum("...sk,khd->...shd", h, params.w_uq)
+        q = einsum("...sk,khd->...shd", h, params.w_uq)
     q_c, q_r = q[..., : cfg.d_head], q[..., cfg.d_head:]
     sin, cos = rope_freqs(positions, cfg.d_rope, cfg.rope_theta)
     q_r = apply_rope(q_r, sin[..., None, :], cos[..., None, :])
@@ -92,21 +92,21 @@ def project_q(params: MLAParams, cfg: MLAConfig, h: torch.Tensor,
 def project_kv(params: MLAParams, cfg: MLAConfig, h: torch.Tensor,
                positions: torch.Tensor):
     """h [..., S, d] -> (c_kv [..., S, d_c] normed, k_r [..., S, d_r] RoPE'd)."""
-    c_kv = rms_norm(h @ params.w_dkv, params.kv_norm)
-    k_r = h @ params.w_kr
+    c_kv = rms_norm(matmul(h, params.w_dkv), params.kv_norm)
+    k_r = matmul(h, params.w_kr)
     sin, cos = rope_freqs(positions, cfg.d_rope, cfg.rope_theta)
     return c_kv, apply_rope(k_r, sin, cos)
 
 
 def absorb_q(params: MLAParams, q_c: torch.Tensor) -> torch.Tensor:
     """q_c [..., H, d_h] -> latent-space query q~ [..., H, d_c] (Eq. 5)."""
-    return torch.einsum("...hd,chd->...hc", q_c, params.w_uk)
+    return einsum("...hd,chd->...hc", q_c, params.w_uk)
 
 
 def output_proj(params: MLAParams, o_latent: torch.Tensor) -> torch.Tensor:
     """o_latent [..., H, d_c] -> [..., d] via W_UV then W_O (absorbed pair)."""
-    o_head = torch.einsum("...hc,chd->...hd", o_latent, params.w_uv)
-    return torch.einsum("...hd,hdk->...k", o_head, params.w_o)
+    o_head = einsum("...hc,chd->...hd", o_latent, params.w_uv)
+    return einsum("...hd,hdk->...k", o_head, params.w_o)
 
 
 # ---------------------------------------------------------------------------
@@ -119,17 +119,17 @@ def mla_attention(params: MLAParams, cfg: MLAConfig, h: torch.Tensor,
     and softmax as the reference is (mla.py:129)."""
     q_c, q_r = project_q(params, cfg, h, positions)        # [B,S,H,dh],[B,S,H,dr]
     c_kv, k_r = project_kv(params, cfg, h, positions)      # [B,S,dc],[B,S,dr]
-    k_c = torch.einsum("...sc,chd->...shd", c_kv, params.w_uk)
-    v = torch.einsum("...sc,chd->...shd", c_kv, params.w_uv)
-    logits = (torch.einsum("...qhd,...khd->...hqk", q_c, k_c)
-              + torch.einsum("...qhd,...kd->...hqk", q_r, k_r)) * cfg.softmax_scale
+    k_c = einsum("...sc,chd->...shd", c_kv, params.w_uk)
+    v = einsum("...sc,chd->...shd", c_kv, params.w_uv)
+    logits = (einsum("...qhd,...khd->...hqk", q_c, k_c)
+              + einsum("...qhd,...kd->...hqk", q_r, k_r)) * cfg.softmax_scale
     S = h.shape[-2]
     if causal:
         mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=h.device))
         logits = torch.where(mask, logits, float("-inf"))
     p = torch.softmax(logits.float(), dim=-1).to(h.dtype)
-    o = torch.einsum("...hqk,...khd->...qhd", p, v)
-    return torch.einsum("...qhd,hdk->...qk", o, params.w_o)
+    o = einsum("...hqk,...khd->...qhd", p, v)
+    return einsum("...qhd,hdk->...qk", o, params.w_o)
 
 
 # ---------------------------------------------------------------------------
@@ -146,12 +146,12 @@ def mla_decode_absorbed(params: MLAParams, cfg: MLAConfig, h_t: torch.Tensor,
     valid slots in float32, as the reference's."""
     q_c, q_r = project_q(params, cfg, h_t[:, None, :], positions[:, None])
     q_lat = absorb_q(params, q_c[:, 0])                           # [B, H, d_c]
-    logits = (torch.einsum("bhc,bnc->bhn", q_lat.float(), cache_c.float())
-              + torch.einsum("bhr,bnr->bhn", q_r[:, 0].float(), cache_kr.float())
+    logits = (einsum("bhc,bnc->bhn", q_lat.float(), cache_c.float())
+              + einsum("bhr,bnr->bhn", q_r[:, 0].float(), cache_kr.float())
               ) * cfg.softmax_scale
     n = cache_c.shape[1]
     mask = (torch.arange(n, device=h_t.device)[None, None, :]
             < seq_lens.to(h_t.device).long()[:, None, None])
     p = torch.softmax(torch.where(mask, logits, float("-inf")), dim=-1)
-    o_lat = torch.einsum("bhn,bnc->bhc", p, cache_c.float())
+    o_lat = einsum("bhn,bnc->bhc", p, cache_c.float())
     return output_proj(params, o_lat.to(h_t.dtype))

@@ -36,6 +36,7 @@ import math
 import torch
 
 from repro_torch.core import quant
+from repro_torch.core.placement import einsum, unsharded
 
 NEG_INF = -1e30
 
@@ -114,12 +115,14 @@ def gqa_decode_parallel_ref(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         raise ValueError(f"cache length {N} is not a multiple of block_n={block_n}")
     nb = N // block_n
     qmax = quant.qmax_for(fmt) if fmt != "none" else 1.0
-    qg = q.float().reshape(B, Hkv, g, dh)
-    s = torch.einsum("bhgd,bnhd->bhgn", qg, k8.float())
+    # grouping the heads, and splitting the slots into blocks, cannot keep a
+    # sharding that Hkv or nb does not divide
+    qg = unsharded("gqa_group_heads", q, 1).float().reshape(B, Hkv, g, dh)
+    s = einsum("bhgd,bnhd->bhgn", qg, k8.float())
     s = s * k_scale.float().permute(0, 2, 1)[:, :, None, :] / math.sqrt(dh)
     valid = _valid_slots(slot_pos, positions, window)
     s = torch.where(valid[:, None, None, :], s, float("-inf"))
-    sb = s.reshape(B, Hkv, g, nb, block_n)
+    sb = unsharded("gqa_split_blocks", s, 3).reshape(B, Hkv, g, nb, block_n)
     m_k = torch.amax(sb, dim=-1)                                       # [B, Hkv, g, nb]
     e = torch.where(torch.isfinite(sb), torch.exp(sb - m_k[..., None]), 0.0)
     vsb = v_scale.float().permute(0, 2, 1).reshape(B, Hkv, 1, nb, block_n)
@@ -132,12 +135,12 @@ def gqa_decode_parallel_ref(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         sp = torch.ones_like(sp)
         p8 = p_fused
     vb = v8.float().permute(0, 2, 1, 3).reshape(B, Hkv, nb, block_n, dh)
-    o_k = torch.einsum("bhgkn,bhknd->bhgkd", p8, vb)
+    o_k = einsum("bhgkn,bhknd->bhgkd", p8, vb)
     l_k = torch.sum(e, dim=-1)
     m_star = torch.amax(m_k, dim=-1, keepdim=True)
     w = torch.exp(m_k - m_star)
-    num = torch.einsum("bhgk,bhgkd->bhgd", w * sp, o_k)
-    den = torch.einsum("bhgk,bhgk->bhg", w, l_k)
+    num = einsum("bhgk,bhgkd->bhgd", w * sp, o_k)
+    den = einsum("bhgk,bhgk->bhg", w, l_k)
     return (num / den[..., None]).reshape(B, H, dh)
 
 

@@ -55,6 +55,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quant
+from repro_torch.core.placement import einsum
 from repro_torch.kernels.mla_decode import amla
 
 NEG_INF = -1e30
@@ -199,7 +200,7 @@ def lse_combine_ref(o_partial: torch.Tensor, lse_partial: torch.Tensor):
     m_star = torch.amax(lse_partial, dim=1)                        # [B, H]
     w = torch.exp(lse_partial - m_star[:, None, :])                # [B, S, H]
     den = torch.sum(w, dim=1)
-    num = torch.einsum("bsh,bshc->bhc", w, o_partial)
+    num = einsum("bsh,bshc->bhc", w, o_partial)
     return num / den[..., None], m_star + torch.log(den)
 
 
@@ -347,8 +348,8 @@ def snapmla_decode_parallel_ref(q_c8, q_r, sigma_q, content, rope, sigma_k, seq_
         raise ValueError(f"cache length {N} is not a multiple of block_n={block_n}")
     nb = N // block_n
     dev = q_c8.device
-    s = (torch.einsum("bhc,bnc->bhn", q_c8.float(), content.float())
-         + torch.einsum("bhr,bnr->bhn", q_r.float(), rope.float()))
+    s = (einsum("bhc,bnc->bhn", q_c8.float(), content.float())
+         + einsum("bhr,bnr->bhn", q_r.float(), rope.float()))
     s = s * (sigma_q.float()[:, :, None] * sigma_k.float()[:, None, :]) * softmax_scale
     mask = torch.arange(N, device=dev)[None, None, :] < seq_lens.to(dev).long()[:, None, None]
     s = torch.where(mask, s, float("-inf"))
@@ -357,13 +358,13 @@ def snapmla_decode_parallel_ref(q_c8, q_r, sigma_q, content, rope, sigma_k, seq_
     e = torch.where(torch.isfinite(sb), torch.exp(sb - m_k[..., None]), 0.0)
     # Key Step 2: fuse the per-token V scale, block-wise dynamic quantization
     p8, sp = _quantize_p(e * sigma_k.float().reshape(B, 1, nb, block_n), fmt)
-    o_k = torch.einsum("bhkn,bknc->bhkc", p8,
+    o_k = einsum("bhkn,bknc->bhkc", p8,
                        content.float().reshape(B, nb, block_n, d_c))  # [B, H, nb, d_c]
     l_k = torch.sum(e, dim=-1)
     m_star = torch.amax(m_k, dim=-1, keepdim=True)
     w = torch.exp(m_k - m_star)
-    num = torch.einsum("bhk,bhkc->bhc", w * sp, o_k)
-    den = torch.einsum("bhk,bhk->bh", w, l_k)
+    num = einsum("bhk,bhkc->bhc", w * sp, o_k)
+    den = einsum("bhk,bhk->bh", w, l_k)
     return num / den[..., None], m_star[..., 0] + torch.log(den)
 
 

@@ -24,6 +24,7 @@ import torch.distributed as dist
 
 PRODUCTION_SHAPE = (16, 16)           # 256 chips per pod
 MULTI_POD_SHAPE = (2, 16, 16)
+MESH_SIZES = {"pod": 256, "multipod": 512}   # the dry run's worlds
 
 
 def backend_for(device_type: str) -> str:

@@ -305,9 +305,12 @@ def placements_for(spec, mesh) -> tuple:
     """``spec`` as DTensor placements over ``mesh``'s dimensions: ``Shard(i)``
     on each mesh axis tensor dimension i names (a tuple of axes shards that
     dimension over each of them, major first, in mesh order), else
-    ``Replicate()``."""
+    ``Replicate()``. An axis of size 1 replicates (one rank holds the whole
+    dimension either way, and DTensor then needs no rule to keep a sharding
+    through a reshape)."""
     from torch.distributed.tensor import Replicate, Shard
     names = axis_names(mesh)
+    sizes = axis_sizes(mesh)
     out = [Replicate()] * len(names)
     for dim, axes in enumerate(spec):
         if axes is None:
@@ -321,7 +324,7 @@ def placements_for(spec, mesh) -> tuple:
             if out[m] != Replicate():
                 raise ValueError(f"{spec}: mesh axis {names[m]!r} shards two dimensions")
             out[m] = Shard(dim)
-    return tuple(out)
+    return tuple(Replicate() if sizes[names[m]] == 1 else pl for m, pl in enumerate(out))
 
 
 def to_named(pspecs, mesh):

@@ -1,6 +1,10 @@
-"""Train / prefill / decode / chunked-prefill / verify steps, sampling and
-the fused decode loop (port of ``repro/launch/steps.py``; the dry-run's
-shape specs are not ported).
+"""Train / prefill / decode / chunked-prefill / verify steps, sampling, the
+fused decode loop and the dry run's input specs (port of
+``repro/launch/steps.py``).
+
+``input_specs`` builds every (architecture x input shape) cell's arguments
+as ``meta`` tensors: the reference's ``ShapeDtypeStruct`` stand-ins, with
+shapes and dtypes and no storage, which the step functions run on whole.
 
 ``make_fused_decode`` is the reference's one-dispatch decode (a ``lax.scan``
 over the steps with the caches donated): here ``DecodeGraph`` runs one decode
@@ -18,8 +22,28 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import _lib
 from repro_torch.models import transformer as T
-from repro_torch.optim.adamw import AdamWConfig, adamw_update, tree_leaves, tree_unflatten
+from repro_torch.optim.adamw import (AdamWConfig, adamw_update, init_adamw, tree_leaves,
+                                    tree_unflatten)
 from repro_torch.optim.schedule import warmup_cosine
+
+# (seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
+    """Whether ``cfg`` runs the cell ``shape`` (steps.py:30-36), and why not."""
+    seq, gb, kind = SHAPES[shape]
+    if kind == "decode" and not cfg.has_decoder:
+        return False, "encoder-only arch has no decode step"
+    if shape == "long_500k" and not cfg.subquadratic:
+        return False, ("pure full-attention arch; long_500k needs sub-quadratic "
+                       "attention (DESIGN.md §5)")
+    return True, ""
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
@@ -333,3 +357,62 @@ def make_fused_decode(cfg: ModelConfig, n_steps: int, *, temperature: float = 0.
         return out + (all_logits,) if return_logits else out
 
     return fused_decode
+
+
+# ---------------------------------------------------------------------------
+# The dry run's input specs: meta tensors (no allocation)
+# ---------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def params_spec(cfg: ModelConfig, dtype=torch.bfloat16):
+    """``init_model``'s tree on ``meta``: every leaf's shape and dtype."""
+    return T.init_model(torch.Generator(), cfg, dtype=dtype, device=META)
+
+
+def state_spec(cfg: ModelConfig, batch: int, max_len: int):
+    """The decode state of ``batch`` rows over ``max_len`` tokens, on
+    ``meta``; the encoder families' ``aux`` rows (float32) live in it after
+    prefill."""
+    s = T.init_decode_state(cfg, batch, max_len, device=META)
+    if cfg.n_aux_tokens:
+        s["aux"] = torch.empty((batch, cfg.n_aux_tokens, cfg.d_model), dtype=torch.float32,
+                               device=META)
+    return s
+
+
+def _ints(*shape):
+    return torch.empty(shape, dtype=torch.int32, device=META)
+
+
+def input_specs(cfg: ModelConfig, shape: str, param_dtype=torch.bfloat16):
+    """(step kind, the step's arguments as ``meta`` tensors) of the cell
+    ``shape`` (steps.py:281-306): ``train`` (params, AdamW state, batch,
+    step), ``prefill`` (params, tokens, state[, aux]) or ``decode`` (params,
+    token, state, pos). Tokens are int32, aux rows float32."""
+    seq, gb, kind = SHAPES[shape]
+    ok, why = shape_applicable(cfg, shape)
+    if not ok:
+        raise ValueError(f"{cfg.name} x {shape}: {why}")
+    params = params_spec(cfg, param_dtype)
+    aux = torch.empty((gb, cfg.n_aux_tokens, cfg.d_model), dtype=torch.float32,
+                      device=META) if cfg.n_aux_tokens else None
+    if kind == "train":
+        batch = {"tokens": _ints(gb, seq), "labels": _ints(gb, seq)}
+        if aux is not None:
+            batch["aux_embed"] = aux
+        return "train", (params, init_adamw(params), batch, _ints())
+    if kind == "prefill":
+        args = (params, _ints(gb, seq), T.init_decode_state(cfg, gb, seq, device=META))
+        return "prefill", args + ((aux,) if aux is not None else ())
+    # decode: one new token against a cache of ``seq``
+    return "decode", (params, _ints(gb), state_spec(cfg, gb, seq), _ints(gb))
+
+
+def step_fn_for(cfg: ModelConfig, kind: str, remat: bool = True):
+    if kind == "train":
+        return make_train_step(cfg, remat=remat)
+    if kind == "prefill":
+        return make_prefill_step(cfg)
+    return make_decode_step(cfg)

@@ -17,6 +17,35 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import placement as PL
+from repro_torch.core.placement import gather_rows, unsharded, whole_grad
+
+
+def promoted(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """``ts`` cast to their common dtype, as JAX promotes the operands of a
+    dot whose dtypes differ (a float32 activation against bfloat16 weights
+    gives a float32 product, where torch would raise); a no-op, and so
+    bitwise, when the dtypes agree."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t if t.dtype == dt else t.to(dt) for t in ts)
+
+
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``placement.einsum`` (``torch.einsum``, run on the local shards of
+    DTensors) over ``promoted`` operands."""
+    return PL.einsum(eq, *promoted(*ops))
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over ``promoted`` operands (a 2-D ``b``); on DTensors the
+    same product as ``einsum``."""
+    a, b = promoted(a, b)
+    if PL.has_dtensor((a, b)):
+        return PL.local_einsum("...i,ij->...j", a, b)
+    return a @ b
+
 
 def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
@@ -94,9 +123,9 @@ def init_attn_params(gen: torch.Generator, cfg: AttnConfig, dtype=torch.float32,
 def project_qkv(params: AttnParams, cfg: AttnConfig, x: torch.Tensor,
                 positions: torch.Tensor):
     """x [B, S, d] -> q [B, S, H, dh], k, v [B, S, Hkv, dh] (RoPE on q, k)."""
-    q = torch.einsum("bsd,dhk->bshk", x, params.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, params.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, params.wv)
+    q = einsum("bsd,dhk->bshk", x, params.wq)
+    k = einsum("bsd,dhk->bshk", x, params.wk)
+    v = einsum("bsd,dhk->bshk", x, params.wv)
     if params.bq is not None:
         q, k, v = q + params.bq, k + params.bk, v + params.bv
     if cfg.use_rope:
@@ -106,6 +135,15 @@ def project_qkv(params: AttnParams, cfg: AttnConfig, x: torch.Tensor,
     return q, k, v
 
 
+def _group_heads(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """q [B, S, H, dh] -> [B, S, Hkv, H / Hkv, dh] (a reshape; on a DTensor
+    the head dimension is made whole first, and the gradient's grouped
+    dimensions before it flows back)."""
+    B, S, H, dh = q.shape
+    qg = unsharded("group_heads", q, 2).reshape(B, S, n_kv, H // n_kv, dh)
+    return whole_grad("group_heads_grad", qg, 2, 3)
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
          window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """Reference attention with GQA head sharing and the sliding window:
@@ -113,8 +151,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
     B, Sq, H, dh = q.shape
     Hkv, Sk = k.shape[2], k.shape[1]
     g = H // Hkv
-    qg = q.reshape(B, Sq, Hkv, g, dh).float()
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(dh)
+    qg = _group_heads(q, Hkv).float()
+    logits = einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(dh)
     qpos = torch.arange(Sq, device=q.device) + q_offset
     kpos = torch.arange(Sk, device=q.device)
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
@@ -124,7 +162,7 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
         mask &= kpos[None, :] > qpos[:, None] - window
     logits = torch.where(mask, logits, float("-inf"))
     p = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    o = einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, Sq, H, dh).to(q.dtype)
 
 
@@ -137,14 +175,14 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool =
     Sk, Hkv = k.shape[1], k.shape[2]
     g = H // Hkv
     nblocks = -(-Sk // block_k)
-    qg = q.reshape(B, Sq, Hkv, g, dh).float() / math.sqrt(dh)
+    qg = _group_heads(q, Hkv).float() / math.sqrt(dh)
     qpos = torch.arange(Sq, device=q.device) + q_offset
     m = torch.full((B, Hkv, g, Sq), float("-inf"), device=q.device)
     l = torch.zeros((B, Hkv, g, Sq), device=q.device)
     acc = torch.zeros((B, Hkv, g, Sq, dh), device=q.device)
     for j in range(nblocks):
         lo, hi = j * block_k, min((j + 1) * block_k, Sk)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k[:, lo:hi].float())
+        s = einsum("bqhgd,bkhd->bhgqk", qg, k[:, lo:hi].float())
         kpos = torch.arange(lo, hi, device=q.device)
         valid = torch.ones((Sq, hi - lo), dtype=torch.bool, device=q.device)
         if causal:
@@ -156,7 +194,7 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool =
         e = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + torch.sum(e, dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", e,
+        acc = acc * corr[..., None] + einsum("bhgqk,bkhd->bhgqd", e,
                                                    v[:, lo:hi].float())
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]            # [B, Hkv, g, Sq, dh]
@@ -171,20 +209,20 @@ def attention_block(params: AttnParams, cfg: AttnConfig, x: torch.Tensor,
         o = flash_sdpa(q, k, v, causal=causal, window=cfg.window)
     else:
         o = sdpa(q, k, v, causal=causal, window=cfg.window)
-    return torch.einsum("bshk,hkd->bsd", o, params.wo)
+    return einsum("bshk,hkd->bsd", o, params.wo)
 
 
 def cross_attention_block(params: AttnParams, cfg: AttnConfig, x: torch.Tensor,
                           kv_src: torch.Tensor) -> torch.Tensor:
     """Cross attention (layers.py:222): queries from x [B, Sq, d], keys and
     values from kv_src [B, Sk, d]; no RoPE, no mask, the plain ``sdpa``."""
-    q = torch.einsum("bsd,dhk->bshk", x, params.wq)
-    k = torch.einsum("bsd,dhk->bshk", kv_src, params.wk)
-    v = torch.einsum("bsd,dhk->bshk", kv_src, params.wv)
+    q = einsum("bsd,dhk->bshk", x, params.wq)
+    k = einsum("bsd,dhk->bshk", kv_src, params.wk)
+    v = einsum("bsd,dhk->bshk", kv_src, params.wv)
     if params.bq is not None:
         q, k, v = q + params.bq, k + params.bk, v + params.bv
     o = sdpa(q, k, v, causal=False)
-    return torch.einsum("bshk,hkd->bsd", o, params.wo)
+    return einsum("bshk,hkd->bsd", o, params.wo)
 
 
 class MLPParams(NamedTuple):
@@ -216,10 +254,10 @@ _ACTS = {"silu": F.silu, "gelu": lambda t: F.gelu(t, approximate="tanh"),
 def mlp(params: MLPParams, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
     act = _ACTS[activation]
     if params.w_gate is not None:
-        h = act(x @ params.w_gate) * (x @ params.w_up)
+        h = act(matmul(x, params.w_gate)) * matmul(x, params.w_up)
     else:
-        h = act(x @ params.w_up)
-    return h @ params.w_down
+        h = act(matmul(x, params.w_up))
+    return matmul(h, params.w_down)
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32,
@@ -228,9 +266,11 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype=torch.float32
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """table[tokens]; on DTensors the lookup follows the tokens' sharding
+    (``placement.gather_rows``)."""
+    return gather_rows("embed", table, tokens)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: x [B, S, d] @ table.T -> [B, S, V] (f32 logits)."""
-    return torch.einsum("bsd,vd->bsv", x.float(), table.float())
+    return einsum("bsd,vd->bsv", x.float(), table.float())

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.placement import replicated
 from repro_torch.models.layers import _ACTS, _normal
 
 
@@ -81,6 +82,40 @@ def _shared(params: MoEParams, xt: torch.Tensor, act) -> torch.Tensor:
     return hs @ params.shared_down
 
 
+def _dispatch(xt: torch.Tensor, ids: torch.Tensor, E: int, C: int, k: int):
+    """Sort-based dispatch: the rank of each (token, choice) pair within its
+    expert, in token order; pairs at rank >= C go to the overflow row E*C.
+    Returns (the expert buffer [E, C, d], each pair's row ``dest``, ``keep``
+    and ``sort_idx``, all in sorted pair order)."""
+    T, d = xt.shape
+    flat_ids = ids.reshape(-1)                                       # [T*k]
+    sort_idx = torch.argsort(flat_ids, stable=True)
+    sorted_ids = flat_ids[sort_idx]
+    first_of_expert = torch.searchsorted(sorted_ids, sorted_ids, side="left")
+    rank = torch.arange(T * k, device=xt.device) - first_of_expert
+    keep = rank < C
+    dest = torch.where(keep, sorted_ids * C + rank, E * C)
+    token_of = sort_idx // k
+    # every dropped pair writes zeros into the overflow row, so the
+    # duplicate indices there leave a defined result
+    buf = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=xt.device)
+    buf[dest] = xt[token_of] * keep[:, None].to(xt.dtype)
+    return buf[:E * C].reshape(E, C, d), dest, keep, sort_idx
+
+
+def _combine(eout: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor,
+             sort_idx: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Back to (token, choice) order, weighted by the router: [T, d]."""
+    E, C, d = eout.shape
+    T, k = weights.shape
+    flat_out = torch.cat([eout.reshape(E * C, d),
+                          torch.zeros((1, d), dtype=eout.dtype, device=eout.device)])
+    pair_out = flat_out[dest] * keep[:, None].to(eout.dtype)         # sorted order
+    unsorted = torch.zeros((T * k, d), dtype=eout.dtype, device=eout.device)
+    unsorted[sort_idx] = pair_out
+    return torch.einsum("tkd,tk->td", unsorted.reshape(T, k, d), weights.to(eout.dtype))
+
+
 def moe_layer(params: MoEParams, cfg: MoEConfig, x: torch.Tensor,
               act: str = "silu") -> tuple[torch.Tensor, torch.Tensor]:
     """x [..., T, d] -> (out [..., T, d], dropped fraction, a 0-d float32
@@ -92,36 +127,16 @@ def moe_layer(params: MoEParams, cfg: MoEConfig, x: torch.Tensor,
     T = xt.shape[0]
     E, k = cfg.n_experts, cfg.top_k
     weights, ids = _route(params, cfg, xt)
-
-    # sort-based dispatch: the rank of each (token, choice) pair within its
-    # expert, in token order; pairs at rank >= C go to the overflow row E*C
-    flat_ids = ids.reshape(-1)                                       # [T*k]
-    sort_idx = torch.argsort(flat_ids, stable=True)
-    sorted_ids = flat_ids[sort_idx]
-    first_of_expert = torch.searchsorted(sorted_ids, sorted_ids, side="left")
-    rank = torch.arange(T * k, device=x.device) - first_of_expert
     C = max(1, int(T * k * cfg.capacity_factor / E))
-    keep = rank < C
-    dest = torch.where(keep, sorted_ids * C + rank, E * C)
-    token_of = sort_idx // k
-
-    # every dropped pair writes zeros into the overflow row, so the
-    # duplicate indices there leave a defined result
-    buf = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=x.device)
-    buf[dest] = xt[token_of] * keep[:, None].to(xt.dtype)
-    buf = buf[:E * C].reshape(E, C, d)
+    # the sort dispatch and the combine index by data-dependent rows, which
+    # DTensor cannot shard: on DTensors they run replicated
+    buf, dest, keep, sort_idx = replicated(
+        "moe_dispatch", lambda a, b: _dispatch(a, b, E, C, k), xt, ids)
 
     # the stacked expert MLPs (batched over every expert of the buffer)
     h = fn(torch.bmm(buf, params.w_gate)) * torch.bmm(buf, params.w_up)
     eout = torch.bmm(h, params.w_down)                               # [E, C, d]
-
-    # combine: back to (token, choice) order, weighted by the router
-    flat_out = torch.cat([eout.reshape(E * C, d),
-                          torch.zeros((1, d), dtype=eout.dtype, device=x.device)])
-    pair_out = flat_out[dest] * keep[:, None].to(eout.dtype)         # sorted order
-    unsorted = torch.zeros((T * k, d), dtype=eout.dtype, device=x.device)
-    unsorted[sort_idx] = pair_out
-    out = torch.einsum("tkd,tk->td", unsorted.reshape(T, k, d), weights.to(eout.dtype))
+    out = replicated("moe_combine", _combine, eout, dest, keep, sort_idx, weights)
 
     if params.shared_gate is not None:
         out = out + _shared(params, xt, fn)

@@ -21,7 +21,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _normal
+from repro_torch.core.placement import local_scan
+from repro_torch.models.layers import _normal, einsum, matmul
 
 RGLRU_C = 8.0
 CONV_W = 4
@@ -95,37 +96,45 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _gates(params: RGLRUParams, u: torch.Tensor):
     """(a, sqrt(1 - a^2) * i * u) of the RG-LRU cell, float32."""
-    r = torch.sigmoid(u @ params.w_a + params.b_a)
-    i = torch.sigmoid(u @ params.w_x + params.b_x)
+    r = torch.sigmoid(matmul(u, params.w_a) + params.b_a)
+    i = torch.sigmoid(matmul(u, params.w_x) + params.b_x)
     log_a = -RGLRU_C * F.softplus(params.log_lambda.float()) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * u)
     return a, gated
 
 
+def _scan(a: torch.Tensor, gated: torch.Tensor, h0: torch.Tensor | None) -> torch.Tensor:
+    """h_t = a_t h_(t-1) + gated_t over t (dimension 1), from ``h0[:, 0]``
+    (0 when None): [B, S, dr] -> every h_t."""
+    h = torch.empty_like(gated)
+    prev = None if h0 is None else h0[:, 0]
+    for t in range(gated.shape[1]):
+        prev = gated[:, t] if prev is None else a[:, t] * prev + gated[:, t]
+        h[:, t] = prev
+    return h
+
+
 def rglru_block(params: RGLRUParams, x: torch.Tensor, state: RGLRUState | None = None):
     """Training / prefill: x [B, S, d] -> (y [B, S, d], the final
     ``RGLRUState``), from ``state`` (zeros when None)."""
-    gate = _gelu(x @ params.w_gate_branch)
-    u, conv_tail = _causal_conv(x @ params.w_in, params.conv_w, params.conv_b,
+    gate = _gelu(matmul(x, params.w_gate_branch))
+    u, conv_tail = _causal_conv(matmul(x, params.w_in), params.conv_w, params.conv_b,
                                 None if state is None else state.conv)
     a, gated = _gates(params, u.float())
-    h = torch.empty_like(gated)
-    prev = None if state is None else state.h
-    for t in range(x.shape[1]):
-        prev = gated[:, t] if prev is None else a[:, t] * prev + gated[:, t]
-        h[:, t] = prev
-    y = (h.to(x.dtype) * gate) @ params.w_out
+    h0 = None if state is None else state.h[:, None].expand_as(gated)
+    h = local_scan("rglru_scan", _scan, a, gated, h0)
+    y = matmul(h.to(x.dtype) * gate, params.w_out)
     return y, RGLRUState(h=h[:, -1], conv=conv_tail)
 
 
 def rglru_step(params: RGLRUParams, x_t: torch.Tensor, state: RGLRUState):
     """Decode: x_t [B, d] -> (y [B, d], the new state). O(1) per token."""
-    gate = _gelu(x_t @ params.w_gate_branch)
-    u = x_t @ params.w_in                                    # [B, dr]
+    gate = _gelu(matmul(x_t, params.w_gate_branch))
+    u = matmul(x_t, params.w_in)                             # [B, dr]
     conv_in = torch.cat([state.conv, u[:, None].to(state.conv.dtype)], dim=1)  # [B, W, dr]
-    u_c = torch.einsum("bwd,wd->bd", conv_in, params.conv_w) + params.conv_b
+    u_c = einsum("bwd,wd->bd", conv_in, params.conv_w) + params.conv_b
     a, gated = _gates(params, u_c.float())
     h = a * state.h + gated
-    y = (h.to(x_t.dtype) * gate) @ params.w_out
+    y = matmul(h.to(x_t.dtype) * gate, params.w_out)
     return y, RGLRUState(h=h, conv=conv_in[:, 1:])

@@ -227,13 +227,35 @@ def _table(params) -> torch.Tensor:
 def _logits(params, x: torch.Tensor) -> torch.Tensor:
     """Unembedding of the final normed hidden state: [B, V] f32."""
     x = L.rms_norm(x, params["ln_f"])
-    return torch.einsum("bd,vd->bv", x.float(), _table(params).float())
+    return L.einsum("bd,vd->bv", x.float(), _table(params).float())
 
 
 # The mesh context of the distributed decode path (transformer.py:315-319),
 # set by ``serve --backend shard-map``: {"mesh": DeviceMesh, "dp": the data
 # axis name, a tuple of names or None, "use_shard_map": bool}. None: no mesh.
 SHARD_CTX = None
+
+
+def _wsc(x: torch.Tensor, *spec) -> torch.Tensor:
+    """The reference's layout hint (transformer.py:322-335): under
+    ``SHARD_CTX``, a DTensor ``x`` is redistributed to ``spec`` ("dp" the
+    context's data axes, "model" dropped where it does not divide the
+    dimension). It changes no value; a plain tensor, or no context, passes
+    unchanged."""
+    ctx = SHARD_CTX
+    if ctx is None or type(x).__name__ != "DTensor":
+        return x
+    from repro_torch.launch.mesh import model_axis_size
+    from repro_torch.launch.sharding import P, placements_for
+    mesh, parts = ctx["mesh"], []
+    for p_, dim in zip(spec, x.shape):
+        if p_ == "model" and dim % model_axis_size(mesh):
+            p_ = None
+        elif p_ == "dp":
+            p_ = ctx["dp"]
+        parts.append(p_)
+    pl = placements_for(P(*parts), mesh)
+    return x if tuple(x.placements) == pl else x.redistribute(mesh, pl)
 
 
 def _resolve_backend(cfg: ModelConfig, batch: int) -> BK.DecodeBackend:
@@ -263,8 +285,9 @@ def _attn_decode(p: L.AttnParams, cfg: ModelConfig, kind: str, x_t: torch.Tensor
     if active is not None:
         q = torch.where(active[:, None, None, None], q, 0.0)
     cache = gqa_append(cache, ccfg, k[:, 0], v[:, 0], active=active)
-    o = _gqa_attend(cfg, q[:, 0], cache, pos, acfg.window, ccfg)
-    return torch.einsum("bhk,hkd->bd", o.to(x_t.dtype), p.wo), cache
+    qd = _wsc(q[:, 0].float(), "dp", "model", None)
+    o = _wsc(_gqa_attend(cfg, qd, cache, pos, acfg.window, ccfg), "dp", "model", None)
+    return L.einsum("bhk,hkd->bd", o.to(x_t.dtype), p.wo), cache
 
 
 def _gqa_attend(cfg: ModelConfig, q: torch.Tensor, cache, pos: torch.Tensor, window: int,
@@ -284,12 +307,12 @@ def _cross_decode(p: L.AttnParams, cfg: ModelConfig, x_t: torch.Tensor, cache):
     """One-token cross attention against the static quantized aux cache
     (transformer.py:360-371): no RoPE, every filled slot valid (the query
     sits at ``CROSS_POS``, past every slot), the cache never written."""
-    q = torch.einsum("bd,dhk->bhk", x_t, p.wq)
+    q = L.einsum("bd,dhk->bhk", x_t, p.wq)
     if p.bq is not None:
         q = q + p.bq
     pos = torch.full((x_t.shape[0],), CROSS_POS, dtype=torch.int32, device=x_t.device)
     o = _gqa_attend(cfg, q, cache, pos, 0, _cache_cfg(cfg, "attn"))
-    return torch.einsum("bhk,hkd->bd", o.to(x_t.dtype), p.wo)
+    return L.einsum("bhk,hkd->bd", o.to(x_t.dtype), p.wo)
 
 
 def _xgate(p, x: torch.Tensor) -> torch.Tensor:
@@ -305,9 +328,9 @@ def _mla_decode(p: mla_lib.MLAParams, cfg: ModelConfig, x_t: torch.Tensor, cache
     backend the port hands the raw query to the decode kernel, whose
     prologue runs Fused-Q-Quant (``_prepare_query``). On the ``shard_map``
     backend the contiguous cache appends through the collective-free region
-    too (transformer.py:400-409). The reference's ``_wsc`` layout hints
-    (transformer.py:322-335) steer GSPMD and change no value; eager PyTorch
-    has no partitioner to steer, so they have no counterpart here."""
+    too (transformer.py:400-409). ``_wsc`` places the latent query and
+    output as the reference's layout hints do (a no-op off a DTensor
+    step)."""
     mcfg = _mla_cfg(cfg)
     ccfg = _cache_cfg(cfg)
     ctx = SHARD_CTX
@@ -327,10 +350,11 @@ def _mla_decode(p: mla_lib.MLAParams, cfg: ModelConfig, x_t: torch.Tensor, cache
         # finished rows: zero the query (EPS keeps the scale finite)
         q_c = torch.where(active[:, None, None, None], q_c, 0.0)
         q_r = torch.where(active[:, None, None, None], q_r, 0.0)
-    q_lat = mla_lib.absorb_q(p, q_c[:, 0])
+    q_lat = _wsc(mla_lib.absorb_q(p, q_c[:, 0]), "dp", "model", None)
     o_lat = backend.decode(_prepare_query(q_lat, q_r[:, 0], ccfg, backend),
                            cache, _backend_cfg(cfg, mcfg, ccfg),
                            {"mesh": ctx["mesh"], "dp": ctx["dp"]} if ctx else None)
+    o_lat = _wsc(o_lat, "dp", "model", None)
     return mla_lib.output_proj(p, o_lat.to(x_t.dtype)), cache
 
 
@@ -509,7 +533,7 @@ def _prefill_layer(p, cfg: ModelConfig, kind: str, x: torch.Tensor, cache,
         o = L.flash_sdpa(q, k, v, causal=True, window=acfg.window)
         self_c = gqa_prefill(cache["self"] if kind == "dec" else cache,
                              _cache_cfg(cfg, kind), k, v)
-        x = x + torch.einsum("bshk,hkd->bsd", o, p["mixer"].wo)
+        x = x + L.einsum("bshk,hkd->bsd", o, p["mixer"].wo)
         if kind == "dec":
             x = x + L.cross_attention_block(p["cross"], acfg, L.rms_norm(x, p["ln_cross"]),
                                             aux)
@@ -523,8 +547,8 @@ def _prefill_layer(p, cfg: ModelConfig, kind: str, x: torch.Tensor, cache,
 def _fill_cross_cache(attn_p: L.AttnParams, cfg: ModelConfig, aux: torch.Tensor, cache):
     """Project the aux rows into a cross layer's K / V and quantize them into
     its static cache, in place (transformer.py:581-586)."""
-    k = torch.einsum("bsd,dhk->bshk", aux, attn_p.wk)
-    v = torch.einsum("bsd,dhk->bshk", aux, attn_p.wv)
+    k = L.einsum("bsd,dhk->bshk", aux, attn_p.wk)
+    v = L.einsum("bsd,dhk->bshk", aux, attn_p.wv)
     if attn_p.bk is not None:
         k, v = k + attn_p.bk, v + attn_p.bv
     return gqa_prefill(cache, _cache_cfg(cfg, "attn"), k, v)
@@ -635,5 +659,5 @@ def verify_step(params, cfg: ModelConfig, tokens: torch.Tensor, state,
         x, pool = _verify_mla_layer(p, cfg, x, pool, start)
         new_layers.append(pool)
     x = L.rms_norm(x, params["ln_f"])
-    logits = torch.einsum("bkd,vd->bkv", x.float(), _table(params).float())
+    logits = L.einsum("bkd,vd->bkv", x.float(), _table(params).float())
     return logits, {**state, "layers": new_layers}

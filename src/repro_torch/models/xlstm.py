@@ -21,7 +21,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _normal
+from repro_torch.core.placement import replicated
+from repro_torch.models.layers import _normal, einsum
 
 
 class MLSTMParams(NamedTuple):
@@ -56,6 +57,12 @@ class SLSTMState(NamedTuple):
     n: torch.Tensor          # [B, H, dh]
     h: torch.Tensor          # [B, H, dh]
     m: torch.Tensor          # [B, H, dh]
+
+
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; DTensor has no sharding rule for its backward, so
+    on DTensors it runs replicated."""
+    return replicated("logsigmoid", F.logsigmoid, x)
 
 
 def init_mlstm_params(gen: torch.Generator, d: int, n_heads: int, d_head: int,
@@ -109,11 +116,11 @@ def mlstm_block(params: MLSTMParams, x: torch.Tensor):
     form: x [B, S, d] -> (y [B, S, d], the final ``MLSTMState``)."""
     S = x.shape[1]
     dh = params.w_q.shape[2]
-    q = torch.einsum("bsd,dhk->bshk", x, params.w_q) / math.sqrt(dh)
-    k = torch.einsum("bsd,dhk->bshk", x, params.w_k)
-    v = torch.einsum("bsd,dhk->bshk", x, params.w_v)
-    i_log = (torch.einsum("bsd,dh->bsh", x, params.w_i) + params.b_i).float()
-    f_log = F.logsigmoid((torch.einsum("bsd,dh->bsh", x, params.w_f) + params.b_f).float())
+    q = einsum("bsd,dhk->bshk", x, params.w_q) / math.sqrt(dh)
+    k = einsum("bsd,dhk->bshk", x, params.w_k)
+    v = einsum("bsd,dhk->bshk", x, params.w_v)
+    i_log = (einsum("bsd,dh->bsh", x, params.w_i) + params.b_i).float()
+    f_log = _logsigmoid((einsum("bsd,dh->bsh", x, params.w_f) + params.b_f).float())
     f_cum = torch.cumsum(f_log, dim=1)                               # [B, S, H]
     # D[t, s] = f_cum[t] - f_cum[s] + i_log[s] for s <= t
     dmat = f_cum[:, :, None, :] - f_cum[:, None, :, :] + i_log[:, None, :, :]
@@ -121,66 +128,81 @@ def mlstm_block(params: MLSTMParams, x: torch.Tensor):
     dmat = torch.where(mask, dmat, float("-inf"))                   # [B, T, S, H]
     m = torch.amax(dmat, dim=2, keepdim=True)                       # [B, T, 1, H]
     dexp = torch.exp(dmat - m)
-    ct = torch.einsum("bthk,bshk->btsh", q.float(), k.float()) * dexp
+    ct = einsum("bthk,bshk->btsh", q.float(), k.float()) * dexp
     norm = torch.maximum(torch.abs(torch.sum(ct, dim=2)), torch.exp(-m[:, :, 0]))
-    h = torch.einsum("btsh,bshk->bthk", ct, v.float()) / norm[..., None]
-    o_gate = torch.sigmoid(torch.einsum("bsd,dhk->bshk", x, params.w_o_gate))
+    h = einsum("btsh,bshk->bthk", ct, v.float()) / norm[..., None]
+    o_gate = torch.sigmoid(einsum("bsd,dhk->bshk", x, params.w_o_gate))
     y = _head_norm(h.to(x.dtype), params.gn_gain) * o_gate
-    y = torch.einsum("bshk,hkd->bsd", y, params.w_out)
+    y = einsum("bshk,hkd->bsd", y, params.w_out)
     # the final recurrent state, for the prefill -> decode handoff
     m_fin = f_cum[:, -1:, :] - f_cum + i_log                        # decay to the last step
     w = torch.exp(m_fin - torch.amax(m_fin, dim=1, keepdim=True))
-    c_fin = torch.einsum("bsh,bshk,bshl->bhkl", w, k.float(), v.float())
-    n_fin = torch.einsum("bsh,bshk->bhk", w, k.float())
+    c_fin = einsum("bsh,bshk,bshl->bhkl", w, k.float(), v.float())
+    n_fin = einsum("bsh,bshk->bhk", w, k.float())
     return y, MLSTMState(c=c_fin, n=n_fin, m=torch.amax(m_fin, dim=1))
 
 
 def mlstm_step(params: MLSTMParams, x_t: torch.Tensor, state: MLSTMState):
     """Decode: x_t [B, d] -> (y [B, d], the new state). O(dh^2) per token."""
     dh = params.w_q.shape[2]
-    q = torch.einsum("bd,dhk->bhk", x_t, params.w_q).float() / math.sqrt(dh)
-    k = torch.einsum("bd,dhk->bhk", x_t, params.w_k).float()
-    v = torch.einsum("bd,dhk->bhk", x_t, params.w_v).float()
-    i_log = (torch.einsum("bd,dh->bh", x_t, params.w_i) + params.b_i).float()
-    f_log = F.logsigmoid((torch.einsum("bd,dh->bh", x_t, params.w_f) + params.b_f).float())
+    q = einsum("bd,dhk->bhk", x_t, params.w_q).float() / math.sqrt(dh)
+    k = einsum("bd,dhk->bhk", x_t, params.w_k).float()
+    v = einsum("bd,dhk->bhk", x_t, params.w_v).float()
+    i_log = (einsum("bd,dh->bh", x_t, params.w_i) + params.b_i).float()
+    f_log = _logsigmoid((einsum("bd,dh->bh", x_t, params.w_f) + params.b_f).float())
     m_new = torch.maximum(f_log + state.m, i_log)
     f_p = torch.exp(f_log + state.m - m_new)[..., None]
     i_p = torch.exp(i_log - m_new)[..., None]
     c = f_p[..., None] * state.c + i_p[..., None] * k[..., :, None] * v[..., None, :]
     n = f_p * state.n + i_p * k
-    denom = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, q)), torch.exp(-m_new))
-    h = torch.einsum("bhkl,bhk->bhl", c, q) / denom[..., None]
-    o_gate = torch.sigmoid(torch.einsum("bd,dhk->bhk", x_t, params.w_o_gate))
+    denom = torch.maximum(torch.abs(einsum("bhk,bhk->bh", n, q)), torch.exp(-m_new))
+    h = einsum("bhkl,bhk->bhl", c, q) / denom[..., None]
+    o_gate = torch.sigmoid(einsum("bd,dhk->bhk", x_t, params.w_o_gate))
     y = _head_norm(h.to(x_t.dtype), params.gn_gain) * o_gate
-    return torch.einsum("bhk,hkd->bd", y, params.w_out), MLSTMState(c, n, m_new)
+    return einsum("bhk,hkd->bd", y, params.w_out), MLSTMState(c, n, m_new)
 
 
-def slstm_step(params: SLSTMParams, x_t: torch.Tensor, state: SLSTMState):
-    """x_t [B, d] -> (y [B, d], the new state)."""
-    pre = torch.einsum("bd,gdhk->gbhk", x_t, params.w).float()
-    rec = torch.einsum("bhk,ghkl->gbhl", state.h, params.r.float())
+def _slstm_cell(params: SLSTMParams, pre: torch.Tensor, state: SLSTMState):
+    """One step of the sLSTM recurrence from its input projection ``pre``
+    [4, B, H, dh] (float32): the new ``SLSTMState``."""
+    rec = einsum("bhk,ghkl->gbhl", state.h, params.r.float())
     z_, i_, f_, o_ = pre + rec + params.b.float()[:, None]
     z = torch.tanh(z_)
     o = torch.sigmoid(o_)
-    f_log = F.logsigmoid(f_)
+    f_log = _logsigmoid(f_)
     m_new = torch.maximum(f_log + state.m, i_)
     i_p = torch.exp(i_ - m_new)
     f_p = torch.exp(f_log + state.m - m_new)
     c = f_p * state.c + i_p * z
     n = torch.maximum(f_p * state.n + i_p, torch.exp(-m_new))
-    h = o * (c / n)
-    y = _head_norm(h.to(x_t.dtype), params.gn_gain)
-    return torch.einsum("bhk,hkd->bd", y, params.w_out), SLSTMState(c, n, h, m_new)
+    return SLSTMState(c, n, o * (c / n), m_new)
+
+
+def slstm_step(params: SLSTMParams, x_t: torch.Tensor, state: SLSTMState):
+    """x_t [B, d] -> (y [B, d], the new state)."""
+    new = _slstm_cell(params, einsum("bd,gdhk->gbhk", x_t, params.w).float(), state)
+    y = _head_norm(new.h.to(x_t.dtype), params.gn_gain)
+    return einsum("bhk,hkd->bd", y, params.w_out), new
 
 
 def slstm_block(params: SLSTMParams, x: torch.Tensor, state: SLSTMState | None = None):
     """Training / prefill: the step over time. x [B, S, d] -> (y [B, S, d],
-    the final ``SLSTMState``)."""
+    the final ``SLSTMState``). The input projection, the head norm and the
+    output projection of every step run batched over time, outside the
+    recurrence (each step's value is the same; the reference scans the whole
+    step). On DTensors it runs replicated: a step of the recurrence then
+    costs no DTensor dispatch."""
+    return replicated("slstm_block", _slstm_block, params, x, state)
+
+
+def _slstm_block(params: SLSTMParams, x: torch.Tensor, state: SLSTMState | None):
     B, S, _ = x.shape
     st = state if state is not None else init_slstm_state(B, params.w.shape[2],
                                                           params.w.shape[3], x.device)
-    ys = []
+    pre = einsum("bsd,gdhk->gsbhk", x, params.w).float()
+    hs = []
     for t in range(S):
-        y, st = slstm_step(params, x[:, t], st)
-        ys.append(y)
-    return torch.stack(ys, dim=1), st
+        st = _slstm_cell(params, pre[:, t], st)
+        hs.append(st.h)
+    y = _head_norm(torch.stack(hs, dim=1).to(x.dtype), params.gn_gain)
+    return einsum("bshk,hkd->bsd", y, params.w_out), st

@@ -2,8 +2,10 @@
 the ``shard_map`` backend, ``SHARD_CTX``, ``serve --backend shard-map``,
 ``load_checkpoint(shardings=)``) against the reference's, and in one spawned
 4-rank gloo world (``torch_dist_world.py``) on meshes (2, 2), (4, 1) and
-(1, 4) against the one-process plain backend. Every number is drawn from a
-numpy seed."""
+(1, 4) against the one-process plain backend; the sharded train loop
+(``train_loop(mesh=)``, checkpoints saved from DTensors) in the same world
+against a world of one, and one sharded step against the reference's
+sharded jit. Every number is drawn from a numpy seed."""
 import dataclasses
 import multiprocessing
 import os
@@ -25,15 +27,18 @@ from repro.kernels.mla_decode import ref as JR
 from repro.launch import steps as jsteps
 from repro.models import transformer as JT
 from repro_torch import bridge
-from repro_torch.checkpoint.checkpoint import flatten, save_checkpoint
+from repro_torch.checkpoint.checkpoint import flatten, load_checkpoint, save_checkpoint
 from repro_torch.configs import get_smoke_config as t_smoke
 from repro_torch.core import distributed_decode as TD
 from repro_torch.core import kvcache as tkv
 from repro_torch.kernels.mla_decode import backends as TB
 from repro_torch.kernels.mla_decode import ref as TR
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import steps as TS
+from repro_torch.launch.train import train_loop
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as TT
+from repro_torch.optim.adamw import tree_leaves
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -436,3 +441,143 @@ def test_world_serve_generate_gives_ref_tokens(world):
         assert torch.equal(rank["serve"]["tokens"], want)
         assert rank["step_collectives"] == {"all_gather_into_tensor": 2 * cfg.n_layers}
         assert not rank["jax_loaded"]
+
+
+# ---------------------------------------------------------------------------
+# the train loop on a mesh
+# ---------------------------------------------------------------------------
+
+def _one_process_run(arch):
+    """``train_loop`` on a world of one started (and ended) by the loop."""
+    assert not dist.is_initialized()
+    r = train_loop(t_smoke(arch), ckpt_dir=None, device="cpu", **W.TRAIN)
+    assert not dist.is_initialized()
+    return r
+
+
+@pytest.fixture(scope="module")
+def one_process_runs():
+    return {arch: _one_process_run(arch) for arch in W.TRAIN_ARCHS}
+
+
+@pytest.mark.parametrize("arch", W.TRAIN_ARCHS)
+@pytest.mark.parametrize("shape", W.TRAIN_MESHES)
+def test_world_train_loop_matches_one_process(world, one_process_runs, arch, shape):
+    """``train_loop`` on a (2, 2) and a (4, 1) mesh: every rank's losses
+    within rtol 1e-5 and its final parameters within atol 1e-6 of the run on
+    a world of one (only the order of the reductions differs); the
+    grad_norm covers the whole gradient and the loss is the mean over the
+    whole batch, not a mean of per-rank means."""
+    want = one_process_runs[arch]
+    for rank in world:
+        got = rank[("train", arch, shape)]
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+        np.testing.assert_allclose(got["grad_norms"], want["grad_norms"], rtol=1e-5)
+        leaves = tree_leaves(want["params"])
+        assert len(got["params"]) == len(leaves)
+        for g, w in zip(got["params"], leaves):
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+
+
+def test_world_preempt_resume_across_meshes(world):
+    """A run on the (2, 2) mesh preempted after step 2 (its checkpoint
+    written once, by rank 0) and resumed on the (4, 1) mesh ends within
+    1e-6 of the unbroken run on the (2, 2) mesh."""
+    arch = W.TRAIN_ARCHS[0]
+    for r, rank in enumerate(world):
+        want = rank[("train", arch, W.TRAIN_MESHES[0])]
+        got = rank["preempt"]
+        assert got["status"] == "preempted" and got["final_step"] == W.PREEMPT_AT
+        assert got["published"] == [f"step_{W.PREEMPT_AT:08d}"]
+        assert got["writes"] == (1 if r == 0 else 0)
+        assert got["resumed_final"] == W.TRAIN["steps"]
+        np.testing.assert_allclose(got["resumed_losses"], want["losses"][W.PREEMPT_AT:],
+                                   rtol=1e-6)
+        assert len(got["params"]) == len(want["params"])
+        for g, w in zip(got["params"], want["params"]):
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+
+
+def test_world_train_step_collectives(world, record_property):
+    """One sharded train step on the (2, 2) mesh issues collectives (the
+    gradient's reductions and the FSDP gathers); the counts are recorded."""
+    for rank in world:
+        counts = rank["train_collectives"]
+        assert counts.get("all_reduce", 0) + counts.get("reduce_scatter_tensor", 0) > 0
+        assert counts.get("all_gather_into_tensor", 0) > 0
+    record_property("train_step_collectives", world[0]["train_collectives"])
+
+
+def test_world_checkpoint_saved_on_mesh_loads_on_one_process(world_started, world):
+    """The checkpoint the world saved from its (4, 1) placement loads in one
+    process with no mesh and equals the tree it placed."""
+    root, _ = world_started
+    got, manifest = load_checkpoint(str(root / "saved_on_4x1" / "step_00000001"),
+                                    W.ckpt_tree())
+    assert manifest["step"] == 1
+    for (p, g), (_, w) in zip(flatten(got), flatten(W.ckpt_tree())):
+        assert torch.equal(g, w), p
+
+
+def test_checkpoint_of_dtensors_equals_one_device_save(mesh11, tmp_path):
+    """``save_checkpoint`` of DTensors (a world of one, the training
+    placements) writes the bytes and manifest a save of the plain tensors
+    writes."""
+    from repro_torch.launch import sharding as SH
+    params = W.ckpt_tree()
+    placed = SH.place(params, SH.to_named(SH.param_pspecs(params, mesh11), mesh11))
+    a = save_checkpoint(str(tmp_path / "a"), 3, placed, {"x": 1})
+    b = save_checkpoint(str(tmp_path / "b"), 3, params, {"x": 1})
+    for name in ("manifest.json", "arrays.npz"):
+        with open(os.path.join(a, name), "rb") as fa, open(os.path.join(b, name), "rb") as fb:
+            assert fa.read() == fb.read(), name
+
+
+def test_sharded_train_step_matches_reference(mesh11):
+    """One ``train.sharded_step`` at a world of one against the reference's
+    train step jitted with its in / out shardings on a (1, 1) mesh of Auto
+    axes (``make_host_mesh`` makes Explicit axes under jax 0.9), on the same
+    bridged weights and batch: new params, moments and metrics within the
+    train-step tests' 1e-5."""
+    from jax.sharding import AxisType
+    from jax.sharding import PartitionSpec as JP
+
+    from repro.launch import sharding as JSH
+    from repro.optim.adamw import init_adamw as j_init_adamw
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.train import sharded_step
+    from repro_torch.optim.adamw import init_adamw
+    from torch_grad_check import batch, jax_model
+    arch = "mla-7b"
+    jcfg, jparams, tparams = jax_model(arch)
+    toks, labels, _ = batch(jcfg)
+    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
+    jopt = j_init_adamw(jparams)
+    jstep = jsteps.make_train_step(jcfg, warmup_steps=2, total_steps=10)
+    jmesh = jax.make_mesh((1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    ins = (JSH.param_pspecs(jparams, jmesh), JSH.param_pspecs(jopt, jmesh),
+           JSH.batch_pspecs(jb, jmesh), JP())
+    metrics = jax.eval_shape(jstep, jparams, jopt, jb, jnp.int32(3))[2]
+    outs = (ins[0], ins[1], jax.tree.map(lambda _: JP(), metrics))
+    with jmesh:
+        jp, jo, jm = jax.jit(jstep, in_shardings=JSH.to_named(ins, jmesh),
+                             out_shardings=JSH.to_named(outs, jmesh))(
+            jparams, jopt, jb, jnp.int32(3))
+    topt = init_adamw(tparams)
+    tb = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)}
+    placed = (SH.place(tparams, SH.to_named(SH.param_pspecs(tparams, mesh11), mesh11)),
+              SH.place(topt, SH.to_named(SH.param_pspecs(topt, mesh11), mesh11)),
+              SH.place(tb, SH.to_named(SH.batch_pspecs(tb, mesh11), mesh11)))
+    tp, to, tm = sharded_step(TS.make_train_step(t_smoke(arch), warmup_steps=2,
+                                                 total_steps=10), mesh11)(*placed, 3)
+    tol = dict(rtol=1e-5, atol=1e-5)
+    for got, want in ((tp, jp), (to.mu, jo.mu), (to.nu, jo.nu)):
+        want = flatten(bridge.params_from_jax(jax.tree.map(np.asarray, want)))
+        got = flatten(got)
+        assert [p for p, _ in got] == [p for p, _ in want]
+        for (path, g), (_, w) in zip(got, want):
+            assert type(g).__name__ == "DTensor", path
+            np.testing.assert_allclose(g.full_tensor().numpy(), w.numpy(), err_msg=path, **tol)
+    assert set(tm) == set(jm)
+    for k in jm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), err_msg=k, **tol)

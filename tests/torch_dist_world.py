@@ -5,9 +5,12 @@ Every rank runs ``run``: on each mesh of ``MESHES`` (over a world of
 ``WORLD`` ranks, ``("data", "model")``) the decode region and the append
 (under ``CommDebugMode``), ``to_named``'s local shard shapes and
 ``load_checkpoint(shardings=)``; then ``serve.generate`` on the smoke
-mla-7b with the ``shard-map`` backend over ``make_host_mesh(1)``. It saves
-what it saw to ``<out_dir>/rank<r>.pt``; the test process compares. Imports
-neither JAX nor the JAX package (``jax`` is blocked in the rank)."""
+mla-7b with the ``shard-map`` backend over ``make_host_mesh(1)``; then
+``train_loop`` on each of ``TRAIN_MESHES`` for ``TRAIN_ARCHS``, a preempted
+run on the first mesh resumed on the second, one step's collectives, and a
+checkpoint saved from DTensors. It saves what it saw to
+``<out_dir>/rank<r>.pt``; the test process compares. Imports neither JAX
+nor the JAX package (``jax`` is blocked in the rank)."""
 import dataclasses
 import os
 import sys
@@ -22,6 +25,23 @@ REGION_CASES = (("fp8_e4m3", 1), ("fp8_e4m3", 4), ("int8", 1), ("int8", 4))
 B, H, D_C, D_R, N, S, PAGE, SINK = 4, 8, 32, 16, 64, 50, 32, 3
 SCALE = 0.1
 SERVE_B, SERVE_S, SERVE_GEN = 4, 12, 6
+TRAIN_MESHES = ((2, 2), (4, 1))
+TRAIN_ARCHS = ("mla-7b", "llama3.2-3b")
+TRAIN = dict(steps=4, batch=4, seq=16, log_every=100)
+PREEMPT_AT = 2
+
+
+class PreemptAfter:
+    """``requested`` turns True at the train loop's ``n``-th check (after
+    step ``n``)."""
+
+    def __init__(self, n: int):
+        self.n, self.count = n, 0
+
+    @property
+    def requested(self) -> bool:
+        self.count += 1
+        return self.count >= self.n
 
 
 def region_inputs(fmt: str, seed: int = 0, sink: int = 0):
@@ -122,6 +142,73 @@ def _mesh_checks(mesh, shape, ckpt_dir, out):
         "leaves": len(got)}
 
 
+def _train_checks(root: str, out: dict) -> None:
+    """``train_loop`` on each mesh of ``TRAIN_MESHES``; a run preempted
+    after step ``PREEMPT_AT`` on the first mesh, its checkpoint written by
+    rank 0 alone, resumed on the second; the collectives of one sharded step;
+    a checkpoint saved from the (4, 1) placement of ``ckpt_tree()``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.checkpoint import checkpoint as C
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.train import sharded_step, train_loop
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import init_adamw, tree_leaves
+
+    meshes = {shape: init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+              for shape in TRAIN_MESHES}
+    for arch in TRAIN_ARCHS:
+        cfg = get_smoke_config(arch)
+        for shape, mesh in meshes.items():
+            r = train_loop(cfg, ckpt_dir=None, mesh=mesh, device="cpu", **TRAIN)
+            out[("train", arch, shape)] = {
+                "losses": r["losses"], "grad_norms": r["grad_norms"],
+                "params": [t.full_tensor() for t in tree_leaves(r["params"])]}
+
+    writes = []
+    savez = C.np.savez
+    C.np.savez = lambda *a, **k: (writes.append(a[0]), savez(*a, **k))
+    cfg = get_smoke_config(TRAIN_ARCHS[0])
+    first, second = (meshes[s] for s in TRAIN_MESHES)
+    ckpt = os.path.join(root, "train_ckpt")
+    cut = train_loop(cfg, ckpt_dir=ckpt, ckpt_every=1000, mesh=first, device="cpu",
+                     preemption=PreemptAfter(PREEMPT_AT), **TRAIN)
+    published = sorted(os.listdir(ckpt))
+    rest = train_loop(cfg, ckpt_dir=ckpt, ckpt_every=1000, mesh=second, device="cpu",
+                      **TRAIN)
+    C.np.savez = savez
+    out["preempt"] = {"status": cut["status"], "final_step": cut["final_step"],
+                      "writes": len(writes), "published": published,
+                      "resumed_losses": rest["losses"], "resumed_final": rest["final_step"],
+                      "params": [t.full_tensor() for t in tree_leaves(rest["params"])]}
+
+    mesh = meshes[TRAIN_MESHES[0]]
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = T.init_model(gen, cfg, device="cpu")
+    opt = init_adamw(params)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN["seq"],
+                      global_batch=TRAIN["batch"], seed=0)
+    batch = synth_batch(data, 0)
+    placed = (SH.place(params, SH.to_named(SH.param_pspecs(params, mesh), mesh)),
+              SH.place(opt, SH.to_named(SH.param_pspecs(opt, mesh), mesh)),
+              SH.place(batch, SH.to_named(SH.batch_pspecs(batch, mesh), mesh)))
+    step = sharded_step(ST.make_train_step(cfg), mesh)
+    with CommDebugMode() as comm:
+        step(*placed, 0)
+    out["train_collectives"] = {str(k).split(".")[-1]: v
+                                for k, v in comm.get_comm_counts().items()}
+
+    tree = ckpt_tree()
+    mesh = meshes[(4, 1)]
+    C.save_checkpoint(os.path.join(root, "saved_on_4x1"), 1,
+                      SH.place(tree, SH.to_named(SH.param_pspecs(tree, mesh), mesh)))
+
+
 def run(rank: int, world: int, init_file: str, ckpt_dir: str, out_dir: str) -> None:
     sys.modules["jax"] = None                 # any `import jax` in the rank raises
     torch.set_num_threads(1)
@@ -153,6 +240,7 @@ def run(rank: int, world: int, init_file: str, ckpt_dir: str, out_dir: str) -> N
     out["step_collectives"] = {str(k).split(".")[-1]: v
                                for k, v in comm.get_comm_counts().items()}
     T.SHARD_CTX = None
+    _train_checks(out_dir, out)
     out["jax_loaded"] = sys.modules.get("jax") is not None
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
