@@ -15,13 +15,13 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import _lib
 from repro_torch.models import transformer as T
+from repro_torch.obs.trace import span
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update, init_adamw, tree_leaves,
                                     tree_unflatten)
 from repro_torch.optim.schedule import warmup_cosine
@@ -281,6 +281,17 @@ class DecodeGraph:
         self.graph.replay()
         return self._logits
 
+    def release(self) -> None:
+        """Drop the captured graph and its private pool: the graph's logits
+        buffer is let go and the pool is handed back to the caching
+        allocator, which frees its memory to the device when it next runs
+        short. The static buffers and the state stay; ``replay`` needs a new
+        ``capture``."""
+        self._logits = None
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+
 
 def make_fused_decode(cfg: ModelConfig, n_steps: int, *, temperature: float = 0.0,
                       top_k: int = 0, top_p: float = 0.0, eos_id: int | None = None,
@@ -304,24 +315,43 @@ def make_fused_decode(cfg: ModelConfig, n_steps: int, *, temperature: float = 0.
     is captured once as a CUDA graph, and the graph is replayed for steps
     2..n; after each replay the host only enqueues the copies of the token
     (and the logits) into their output slots, and it synchronizes once at
-    the end. A failed capture raises. On CPU tensors, which only a caller
+    the end. The graph and its private pool are released before the call
+    returns. A failed capture raises. On CPU tensors, which only a caller
     can ask for, the same step runs eagerly n times.
 
-    ``stats`` (a dict) receives ``capture_s`` (the first step and the
-    capture, on the host clock), ``steps_timed`` and ``decode_s`` (the steps
-    after the first and their wall), ``replays`` and ``graph_launches`` (the
-    kernel launches recorded into the graph; they run at every replay)."""
+    Each call records its phases as host ranges in ``torch.profiler``'s
+    trace (``obs.trace.span``; nothing is recorded without a profiler):
+    ``snapmla.round``, the whole call, and inside it in this order
+    ``snapmla.round.buffers`` (the static buffers, the token and logits
+    outputs), ``.eager`` (the first step's host launches), ``.capture``
+    (``DecodeGraph.capture`` with instantiation; card, n > 1),
+    ``.first_sync`` (the wait for the eager step's device work; card),
+    ``.replays`` (steps 2..n with their copies and the final synchronize;
+    the eager steps on the CPU) and ``.release`` (card).
+
+    ``stats`` (a dict) receives, from the same clock reads as those ranges
+    (host seconds): ``capture_s`` (the first step and the capture, to the
+    end of ``first_sync``), ``eager_s`` (the first step's launches),
+    ``steps_timed`` and ``decode_s`` (the steps after the first and their
+    wall, ``replays``), ``release_s`` (``release``), ``replays`` (graph
+    replays) and ``graph_launches`` (the kernel launches recorded into the
+    graph; they run at every replay)."""
     def fused_decode(params, token, state, start_pos, generator=None, stats=None):
-        loop = DecodeGraph(cfg, params, token, state, start_pos, temperature=temperature,
-                           top_k=top_k, top_p=top_p, eos_id=eos_id,
-                           gate_finished=gate_finished, generator=generator)
-        dev = loop.tok.device
-        if dev.type not in ("cpu", "cuda"):
-            raise ValueError(f"unsupported device {dev}")
-        B = loop.tok.shape[0]
-        toks = torch.empty((B, n_steps), dtype=torch.int32, device=dev)
-        all_logits = torch.empty((B, n_steps, cfg.vocab_size), dtype=torch.float32,
-                                 device=dev) if return_logits else None
+        with span("snapmla.round"):
+            return _round(params, token, state, start_pos, generator, stats)
+
+    def _round(params, token, state, start_pos, generator, stats):
+        with span("snapmla.round.buffers"):
+            loop = DecodeGraph(cfg, params, token, state, start_pos, temperature=temperature,
+                               top_k=top_k, top_p=top_p, eos_id=eos_id,
+                               gate_finished=gate_finished, generator=generator)
+            dev = loop.tok.device
+            if dev.type not in ("cpu", "cuda"):
+                raise ValueError(f"unsupported device {dev}")
+            B = loop.tok.shape[0]
+            toks = torch.empty((B, n_steps), dtype=torch.int32, device=dev)
+            all_logits = torch.empty((B, n_steps, cfg.vocab_size), dtype=torch.float32,
+                                     device=dev) if return_logits else None
 
         def keep(i, logits):
             toks[:, i].copy_(loop.tok)
@@ -329,30 +359,38 @@ def make_fused_decode(cfg: ModelConfig, n_steps: int, *, temperature: float = 0.
                 all_logits[:, i].copy_(logits)
 
         on_card = dev.type == "cuda"
-        info = dict(capture_s=0.0, steps_timed=max(n_steps - 1, 0), decode_s=0.0,
-                    replays=max(n_steps - 1, 0) if on_card else 0, graph_launches={})
+        eager, first_sync = span("snapmla.round.eager"), span("snapmla.round.first_sync")
+        replays, release = span("snapmla.round.replays"), span("snapmla.round.release")
         if n_steps:
-            t0 = time.perf_counter()
-            if on_card:
-                side = torch.cuda.Stream(device=dev)
-                side.wait_stream(torch.cuda.current_stream(dev))
-                with torch.cuda.stream(side):
+            with eager:
+                if on_card:
+                    side = torch.cuda.Stream(device=dev)
+                    side.wait_stream(torch.cuda.current_stream(dev))
+                    with torch.cuda.stream(side):
+                        keep(0, loop.step())
+                else:
                     keep(0, loop.step())
-                if n_steps > 1:
-                    loop.capture(side)
-                torch.cuda.current_stream(dev).wait_stream(side)
-                torch.cuda.synchronize(dev)
-            else:
-                keep(0, loop.step())
-            t1 = time.perf_counter()
-            for i in range(1, n_steps):
-                keep(i, loop.replay() if on_card else loop.step())
             if on_card:
-                torch.cuda.synchronize(dev)
-            info.update(capture_s=t1 - t0, decode_s=time.perf_counter() - t1,
-                        graph_launches=loop.graph_launches)
+                if n_steps > 1:
+                    with span("snapmla.round.capture"):
+                        loop.capture(side)
+                with first_sync:
+                    torch.cuda.current_stream(dev).wait_stream(side)
+                    torch.cuda.synchronize(dev)
+            with replays:
+                for i in range(1, n_steps):
+                    keep(i, loop.replay() if on_card else loop.step())
+                if on_card:
+                    torch.cuda.synchronize(dev)
+        if on_card:
+            with release:
+                loop.release()
         if stats is not None:
-            stats.update(info)
+            stats.update(capture_s=(first_sync.t1 if on_card else eager.t1) - eager.t0,
+                         eager_s=eager.s, steps_timed=max(n_steps - 1, 0), decode_s=replays.s,
+                         release_s=release.s,
+                         replays=max(n_steps - 1, 0) if on_card else 0,
+                         graph_launches=loop.graph_launches)
         out = (toks, loop.state, loop.ok)
         return out + (all_logits,) if return_logits else out
 

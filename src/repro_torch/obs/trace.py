@@ -35,12 +35,28 @@ Tracer state (events, open spans, the span-id cursor) rides
 ``export_state``/``restore_state`` through engine checkpoints, so a
 preempted-and-restored run continues the SAME trace: span ids stay unique
 and the resumed steps append exactly where the snapshot stopped.
+
+PROFILER SPANS.  :class:`span` is the other half of the module: a host range
+recorded into ``torch.profiler``'s trace, on the clock of the device kernels
+the profiler records beside it, so an idle gap on the device can be put down
+to the host phase it fell in (the fused decode loop's ``snapmla.round.*``,
+``launch/steps.make_fused_decode``). It opens a function-scope range
+(``torch._C._profiler._RecordFunctionFast``), not ``record_function``'s
+user-scope one: Kineto adds a device-side annotation to a user-scope range,
+spanning the kernels it launched, which a trace reader would take for a
+kernel. It never synchronizes and never allocates; with no profiler
+recording it reads the clock twice and checks the profiler's state. Its own
+``time.perf_counter`` reads at entry and exit (``t0``, ``t1``, ``s``) are
+what the caller's host timings take, so the trace and the caller's numbers
+come from the same boundaries.
 """
 from __future__ import annotations
 
 import json
 import time
 from typing import Any
+
+from torch._C._profiler import _RecordFunctionFast
 
 TICKS_PER_STEP = 1000
 # fixed per-step sub-windows (virtual clock): [begin, end) tick offsets
@@ -331,3 +347,33 @@ def validate_chrome_trace(payload: dict, *,
         raise ValueError("invalid trace:\n  " + "\n  ".join(problems))
     return {"events": len(events), "requests": len(req_tracks),
             "spans": spans, "terminal": len(terminal)}
+
+
+class span:
+    """``with span(name) as sp:`` records the block as the host range
+    ``name`` in ``torch.profiler``'s trace (none without a profiler) and keeps
+    the block's ``time.perf_counter`` bounds as ``sp.t0`` / ``sp.t1`` (0.0
+    until entered / left) and its seconds as ``sp.s``. One block at a time: a
+    ``span`` may be entered again after it has been left."""
+
+    __slots__ = ("name", "t0", "t1", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.t0 = self.t1 = 0.0
+        self._range = None
+
+    def __enter__(self) -> "span":
+        self._range = _RecordFunctionFast(self.name)
+        self._range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.t1 = time.perf_counter()
+        self._range.__exit__(*exc)
+        self._range = None
+
+    @property
+    def s(self) -> float:
+        return self.t1 - self.t0

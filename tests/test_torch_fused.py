@@ -273,6 +273,58 @@ def test_copy_back_copies_replaced_leaves_and_rejects_changes():
             tsteps._copy_back(state, {"layers": [bad]})
 
 
+def _bits(x):
+    return x.view(torch.uint8) if x.dtype == torch.float8_e4m3fn else x
+
+
+def test_fused_round_spans_nest_in_order_and_change_no_bit(models, prompts):
+    """Under ``torch.profiler`` each ``make_fused_decode`` call records one
+    ``snapmla.round`` host range with the CPU path's phases inside it, in
+    order, and every output (tokens, ``ok``, logits, the state) is bitwise
+    the same as without the profiler; ``stats`` has every key."""
+    tparams = models["mla-7b"][2]
+    cfg = t_cfg("mla-7b", kv_paged=True)
+    n, calls = 4, 2
+    fused = tsteps.make_fused_decode(cfg, n, return_logits=True)
+
+    def rounds():
+        state = TT.init_decode_state(cfg, B, tserve._decode_capacity(cfg, S, n * calls + 1),
+                                     device="cpu")
+        logits, state = TT.prefill(tparams, cfg, torch.from_numpy(prompts), state)
+        tok, pos = logits.argmax(-1).to(torch.int32), torch.full((B,), S, dtype=torch.int32)
+        outs = []
+        for _ in range(calls):
+            stats: dict = {}
+            toks, state, ok, lg = fused(tparams, tok, state, pos, stats=stats)
+            outs.append((toks, ok, lg, stats))
+            tok, pos = toks[:, -1], pos + n
+        return outs, state
+
+    plain, plain_state = rounds()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        traced, traced_state = rounds()
+    spans = sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.name().startswith("snapmla.")), key=lambda x: (x[1], -x[2]))
+    tops = [x for x in spans if x[0] == "snapmla.round"]
+    assert len(tops) == calls and len(spans) == 4 * calls
+    for _, a, b in tops:
+        inner = [x for x in spans if x[0] != "snapmla.round" and a <= x[1] and x[2] <= b]
+        assert [x[0] for x in inner] == ["snapmla.round.buffers", "snapmla.round.eager",
+                                         "snapmla.round.replays"]
+        assert all(x[2] <= y[1] for x, y in zip(inner, inner[1:]))
+    keys = {"capture_s", "eager_s", "steps_timed", "decode_s", "release_s", "replays",
+            "graph_launches"}
+    for (ta, oka, la, sa), (tb, okb, lb, sb) in zip(plain, traced):
+        assert torch.equal(ta, tb) and torch.equal(la, lb) and bool(oka) and bool(okb)
+        assert set(sa) == set(sb) == keys
+        assert sb["capture_s"] == sb["eager_s"] > 0 and sb["decode_s"] > 0
+        assert sb["release_s"] == 0.0 and sb["replays"] == 0 and sb["steps_timed"] == n - 1
+    for a, b in zip(plain_state["layers"], traced_state["layers"]):
+        for x, y in zip(a, b):
+            assert torch.equal(_bits(x), _bits(y))
+
+
 @pytest.mark.parametrize("flags", [[], ["--paged", "--kv-splits", "2", "--rescale", "amla"],
                                    ["--arch", "llama3.2-3b"],
                                    ["--arch", "deepseek-v3-mla", "--temperature", "0.8",

@@ -9,7 +9,10 @@ one), on the smoke configs with the hand-written kernels:
   * a decode-kernel scratch that no eager step has grown makes the capture
     raise;
   * sampling runs inside the graph: reproducible per seed, inside the top-k
-    support, and equal to ``generate``'s draws with the same seed.
+    support, and equal to ``generate``'s draws with the same seed;
+  * under ``torch.profiler`` a call records its six phases inside one
+    ``snapmla.round`` as host ranges only (no device event of that name),
+    records the same launches into the graph and returns the same bits.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_fused_cuda.py
 """
@@ -121,3 +124,40 @@ def test_sampling_runs_inside_the_graph(cuda):
     assert torch.equal(a, b) and torch.equal(a, c)
     top = torch.topk(logits, 8, dim=-1).indices                    # [B, GEN, 8]
     assert (top == a[..., None].long()).any(-1).all()
+
+
+PHASES = ["snapmla.round.buffers", "snapmla.round.eager", "snapmla.round.capture",
+          "snapmla.round.first_sync", "snapmla.round.replays", "snapmla.round.release"]
+
+
+@pytest.mark.parametrize("run", ["mla_paged_kv2", "deepseek_paged_kv0"])
+def test_profiled_round_records_host_spans_only_and_changes_nothing(cuda, run):
+    cfg, params, prompts, kernel = model(run)
+    pos = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    fused = ST.make_fused_decode(cfg, GEN, return_logits=True)
+    plain_stats: dict = {}
+    want = fused(params, *prefilled(cfg, params, prompts), pos, stats=plain_stats)
+    tok, state = prefilled(cfg, params, prompts)
+    stats: dict = {}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = fused(params, tok, state, pos, stats=stats)
+    events = list(prof.profiler.kineto_results.events())
+    on_device = [e for e in events if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert on_device, "the profiler recorded no device activity"
+    assert not [e.name() for e in on_device if e.name().startswith("snapmla.")]
+    spans = sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+                    if e.name().startswith("snapmla.")), key=lambda x: (x[1], -x[2]))
+    assert [x[0] for x in spans] == ["snapmla.round"] + PHASES
+    _, a, b = spans[0]
+    assert all(a <= x[1] and x[2] <= b for x in spans[1:])
+    assert all(x[2] <= y[1] for x, y in zip(spans[1:], spans[2:]))
+    assert stats["graph_launches"] == plain_stats["graph_launches"] == {kernel: cfg.n_layers}
+    assert stats["replays"] == GEN - 1 and stats["release_s"] > 0
+    assert stats["capture_s"] >= stats["eager_s"] > 0
+    (ta, sa, oka, la), (tb, sb, okb, lb) = want, got
+    assert torch.equal(ta, tb) and torch.equal(la, lb) and bool(oka) and bool(okb)
+    for x, y in zip(sa["layers"], sb["layers"]):
+        for u, v in zip(x, y):
+            assert torch.equal(u.view(torch.uint8), v.view(torch.uint8)) \
+                if u.dtype == torch.float8_e4m3fn else torch.equal(u, v)
