@@ -227,6 +227,7 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 AMLA_O, AMLA_LSE = dict(rtol=0.0, atol=1e-4), dict(rtol=0.0, atol=1e-5)
 
 SRC_DECODE = "src/repro_torch/csrc/mla_decode.cu"
+SRC_SM90 = "src/repro_torch/csrc/mla_decode_sm90.cu"
 SRC_QQUANT = "src/repro_torch/csrc/q_quant.cu"
 SRC_KAPPEND = "src/repro_torch/csrc/k_append.cu"
 SRC_FETCH = "src/repro_torch/csrc/fetch_dequant.cu"
@@ -237,6 +238,8 @@ TPU_QUANT = "src/repro/kernels/quantize/kernel.py"
 TPU_FETCH = "src/repro/kernels/quantize/fetch_dequant.py"
 KERNELS = {  # launch-counter name -> (source, the TPU kernel it replaces, mode)
     "paged_splitkv_decode": (SRC_DECODE, f"{TPU_DECODE}:794", "fma"),
+    # A's sm90 design: the fp8 FMA q_len = 1 split calls at the MLA widths
+    "paged_splitkv_decode_sm90": (SRC_SM90, f"{TPU_DECODE}:794", "fma"),
     "paged_single_pass_decode": (SRC_DECODE, f"{TPU_DECODE}:694", "fma"),
     "lse_combine": (SRC_DECODE, f"{TPU_DECODE}:614", "fma"),
     "fused_q_quant": (SRC_QQUANT, f"{TPU_QUANT}:50", None),
@@ -264,6 +267,9 @@ KERNELS = {  # launch-counter name -> (source, the TPU kernel it replaces, mode)
 # kernels no model path calls (the reference's callers are not on a model
 # path either): held against their plain versions in phase 2 only
 OFF_PATH = {"fetch_dequant": "its caller chunked_prefill_attention has no model path",
+            "paged_splitkv_decode": "the sm90 design takes every fp8 FMA q_len = 1 split "
+                                    "call of the model paths; the exact A runs int8 / none "
+                                    "pools, returned partials and calls pinned to it",
             "lse_combine": "folded into the FMA split kernels' epilogue on every model path; "
                            "a launch only where a caller keeps the partials",
             "amla_combine": "folded into the AMLA split kernels' epilogue on every model path; "
@@ -282,6 +288,7 @@ SUMMARY_CASES = {
     "fetch_dequant": (("engine_shape", 0), ("long_32k", 0)),
     **{k: (("verify_shape", 1), ("long_32k_verify", 8)) for k in KERNELS if "verify" in k},
     "gqa_decode": (("gqa_llama_serve", 0), ("gqa_long_32k", 0)),
+    # A's sm90 design at the two cells' shapes (filled in by sm90_checks)
 }
 # the cases of each row's extra measurements in the summary line: (main
 # shape, splits), (long case, splits) for a kernel name and its kind's splits
@@ -701,6 +708,68 @@ def decode_checks(gen, fmt, lens, P, splits_list, scale, *, tag, timing, records
         _record(records, "fused_q_quant", tag, 1, 0.0,
                 (lambda: QK.fused_q_quant_cuda(qin, D_C, fmt=fmt)) if timing else None,
                 lambda: QR.fused_q_quant_ref(qin, D_C, fmt), bound)
+
+
+# A's sm90 design at the benchmark cells' shapes: (tag, batch, heads), pages
+# of 128 tokens, 273 a row, contexts drawn from 16,384-32,768; its gates
+# against the plain version: the mean over live (row, head) of |o - o_plain|
+# / |o_plain| (2-norm over d_c; the design reads ~3e-4, its card tests) and
+# the largest lse difference (the design reads ~3e-4)
+SM90_CASES = (("cell_mla7b", 32, H), ("cell_dsv3", 64, DS_HEADS))
+SM90_REL_MEAN, SM90_LSE = 2.0 ** -9, 2.0 ** -10
+
+
+def sm90_checks(gen, scale, records):
+    """A's sm90 design (``paged_splitkv_decode_sm90``: the wrapper's own
+    route, the raw query's D folded, C folded) against the plain version at
+    each cell's shape and the sm90 rule's split count, within SM90_REL_MEAN
+    and SM90_LSE; ms beside the plain version's, the bound's and the exact
+    design's (the same call pinned to it)."""
+    import torch
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.mla_decode import kernel as K
+    from repro_torch.kernels.mla_decode import ref as R
+    name, P = "paged_splitkv_decode_sm90", 273
+    cases = []
+    for tag, batch, heads in SM90_CASES:
+        lens = torch.randint(16384, 32769, (batch,), generator=torch.Generator().manual_seed(
+            batch)).tolist()
+        q, _, pool, raw = make_case(gen, "fp8_e4m3", lens, P, extra=0, heads=heads)
+        pgd = tuple(pool)
+        S = K.sm90_num_splits(batch, heads, P * PAGE, PAGE, _lib.sm_count(0))
+        kw = dict(softmax_scale=scale, num_splits=S)
+        fn = lambda: K.mla_decode_paged_splitkv_cuda(*raw, None, *pgd, **kw)  # noqa: E731
+        plain = lambda: R.snapmla_decode_paged_splitkv_ref(*q, *pgd, **kw)  # noqa: E731
+        _lib.reset_launches()
+        o, lse = fn()
+        torch.cuda.synchronize()
+        if dict(_lib.LAUNCHES) != {name: 1}:
+            raise AssertionError(f"{tag}: launches {dict(_lib.LAUNCHES)}, not one {name}")
+        o_r, lse_r = plain()
+        if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+            raise AssertionError(f"{tag} {name}: non-finite output")
+        rel = float(((o - o_r).norm(dim=-1) / o_r.norm(dim=-1)).mean())
+        lse_err = float((lse - lse_r).abs().max())
+        err = float((o - o_r).abs().max())
+        if rel > SM90_REL_MEAN or lse_err > SM90_LSE:
+            raise AssertionError(f"{tag} {name}: o relative error (mean) {rel} > "
+                                 f"{SM90_REL_MEAN} or lse error {lse_err} > {SM90_LSE}")
+        _record(records, name, tag, S, err, fn, plain, decode_bound(lens, "fp8_e4m3", S, P,
+                                                                    heads))
+        with K.forced_design("exact"):
+            exact_ms = kernel_ms(fn)
+        records[(name, tag, S)].update(tokens=sum(lens), heads=heads, batch=batch,
+                                       rel_err_mean=rel, lse_max_err=lse_err,
+                                       exact_ms=exact_ms)
+        emit(phase="kernels", case=tag, kernel=name, batch=batch, heads=heads, splits=S,
+             tokens=sum(lens), rel_err_mean=rel, rel_limit=SM90_REL_MEAN,
+             lse_max_err=lse_err, lse_limit=SM90_LSE, **{k: records[(name, tag, S)][k] for k in
+                                                      ("ms", "exact_ms", "plain_ms",
+                                                       "bound_ms", "bound_by")})
+        cases.append((tag, S))
+        del q, pool, raw, pgd, o, lse, o_r, lse_r
+        torch.cuda.empty_cache()
+    SUMMARY_CASES[name] = tuple(cases)
 
 
 def fold_split(tag, name, fmt, rescale, S, layout, q, raw, cache_args, call_kw, *, time_it):
@@ -1332,7 +1401,8 @@ def phase_serve():
     launches, kern, refs = serve_runs(base, params, prompts, SERVE_RUNS)
     for run in FUSED_RUNS:
         _add(launches, fused_gate(f"mla-7b {run}", serve_cfg(base, run, "kernel"), params,
-                                  prompts, kern[run], refs[run], decode_kernel(run)))
+                                  prompts, kern[run], refs[run],
+                                  decode_kernel(run, heads=base.n_heads)))
     return launches, base, params, prompts, kern[(True, 0, "fma", 0)][1]
 
 
@@ -1349,14 +1419,28 @@ def serve_cfg(base, run, backend):
                                use_kernels=backend == "kernel")
 
 
-def planned_splits(run, capacity=640, batch=4) -> int:
+def planned_splits(run, capacity=640, batch=4, heads=H) -> int:
     """The split count a serve run's decode resolves to (the port's rule:
-    kv_splits, else the H100 split profile's plan, else the heuristic) at
-    the cache ``capacity`` (a 512-token prompt + 16: 640) and ``batch``."""
+    kv_splits, else the sm90 design's rule where its design takes the call,
+    else the H100 split profile's plan, else the heuristic) at the cache
+    ``capacity`` (a 512-token prompt + 16: 640), ``batch`` and ``heads``."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.mla_decode import kernel as K
     from repro_torch.kernels.mla_decode import ops
     paged, splits, rescale, _ = run
+    if not splits and _sm90(run):
+        splits = K.sm90_num_splits(batch, heads, capacity, PAGE, _lib.sm_count(0))
     return ops.resolve_num_splits(splits, capacity, PAGE, batch,
                                   "paged" if paged else "contiguous", rescale)
+
+
+def _sm90(run) -> bool:
+    """Whether a serve run's split calls take A's sm90 design (fp8 pools,
+    q_len 1, the MLA widths)."""
+    from repro_torch.kernels.mla_decode import kernel as K
+    paged, _, rescale, _ = run
+    return paged and K.decode_design(fmt="fp8_e4m3", rescale=rescale, q_rank=3, d_c=D_C,
+                                     d_r=D_R, page=PAGE) == "sm90"
 
 
 def serve_shape(prompts, gen_steps=16):
@@ -1365,15 +1449,17 @@ def serve_shape(prompts, gen_steps=16):
     return page_aligned_capacity(prompts.shape[1] + gen_steps, PAGE), prompts.shape[0]
 
 
-def decode_kernel(run, capacity=640, batch=4) -> str:
+def decode_kernel(run, capacity=640, batch=4, heads=H) -> str:
     """The one attention launch of an MLA decode step on a serve run:
     Fused-Q-Quant runs in the decode kernel's prologue, the combine (C or
-    #4) in its epilogue; one planned split is the single pass."""
+    #4) in its epilogue; one planned split is the single pass; a split call
+    A's sm90 design takes is that design's."""
     paged, _, rescale, _ = run
-    split = planned_splits(run, capacity, batch) > 1
-    return (("paged_" if paged else "") + ("splitkv_decode" if split else
-                                           "single_pass_decode")
-            + ("_amla" if rescale == "amla" else ""))
+    if planned_splits(run, capacity, batch, heads) == 1:
+        name = "single_pass_decode"
+    else:
+        name = "splitkv_decode_sm90" if _sm90(run) else "splitkv_decode"
+    return ("paged_" if paged else "") + name + ("_amla" if rescale == "amla" else "")
 
 
 def _add(total: dict, part: dict) -> None:
@@ -1394,7 +1480,8 @@ def fused_gate(lbl, cfg, params, prompts, loop, plain, kernel, gen_steps=16,
     layer; ``kernel`` None: no launch at all) and decode step and nothing
     else (D, C and #4 stay folded), counted as the launches made eagerly
     (the first decode step) plus those recorded into the graph times its
-    replays. ``aux``: the encoder families' aux embeddings; with
+    replays. The first step is held on the rows ``serve_runs`` compared
+    (the fused tokens are the step loop's). ``aux``: the encoder families' aux embeddings; with
     ``need_bitwise`` logits that are not bitwise equal to the step loop's
     fail. A counted main path. Returns its launches."""
     import torch
@@ -1424,10 +1511,9 @@ def fused_gate(lbl, cfg, params, prompts, loop, plain, kernel, gen_steps=16,
     rel = float((logits - l_logits).abs().max() / l_logits.abs().max())
     if rel > 1e-2 or (need_bitwise and not bitwise):
         raise AssertionError(f"fused {lbl}: logits rel diff {rel} from the step loop's")
-    first = float((logits[:, 1] - plain[2][:, 1]).abs().max() / plain[2][:, 1].abs().max())
-    if first > 1e-2 or not torch.equal(toks[:, 0], plain[0][:, 0]):
-        raise AssertionError(f"fused {lbl}: first-step logits rel err {first} against the "
-                             "plain backend, or other prefill tokens")
+    first = _first_step_err(logits, plain[2], plain[3], f"fused {lbl}")
+    if not torch.equal(toks[:, 0], plain[0][:, 0]):
+        raise AssertionError(f"fused {lbl}: other prefill tokens than the plain backend's")
     emit(phase="fused", run=lbl, layers=cfg.n_layers, batch=prompts.shape[0],
          prompt=prompts.shape[1], gen=gen_steps, tokens_equal_step_loop=True,
          logits_bitwise_step_loop=bitwise, max_logit_rel_diff_step_loop=rel,
@@ -1444,27 +1530,34 @@ def serve_runs(base, params, prompts, runs):
     rescale, sink_tokens), kernel backend against the plain backend (the
     kernels' plain version, ``serve_cfg(..., "plain")``): finite logits,
     equal prefill tokens, the first decode step within 1e-2 of the largest
-    logit, one attention launch per layer and decode step, and
-    each contiguous run's paged twin bit-identical. The kernel runs are the
-    counted path. Returns (launches, the kernel runs' outputs, the plain
-    runs' outputs)."""
+    logit (an MoE model's rows whose first step routes otherwise in the two
+    runs set aside: ``_MoERouting``), one attention launch per layer and
+    decode step, and each contiguous run's paged twin bit-identical. The
+    kernel runs are the counted path. Returns (launches, the kernel runs'
+    outputs, the plain runs' outputs and, last, the rows the first step
+    compares)."""
     import torch
     from repro_torch.kernels import _lib
     from repro_torch.launch import serve
 
-    refs = {run: serve.generate(serve_cfg(base, run, "plain"), params, prompts, 16,
-                                return_logits=True)
-            for run in runs}
+    B = prompts.shape[0]
+    refs, routes = {}, {}
+    for run in runs:
+        with _MoERouting(B, base.n_layers) as routes[run]:
+            refs[run] = serve.generate(serve_cfg(base, run, "plain"), params, prompts, 16,
+                                       return_logits=True)
     kern, run_launches, launches = {}, {}, {}
     for run in runs:
         torch.cuda.synchronize()
         _lib.reset_launches()                 # a counted serve run starts here
-        with _CountDecodeSteps() as steps:
+        with _CountDecodeSteps() as steps, _MoERouting(B, base.n_layers) as route:
             kern[run] = serve.generate(serve_cfg(base, run, "kernel"), params, prompts, 16,
                                        return_logits=True)
         torch.cuda.synchronize()
         got = run_launches[run] = dict(_lib.LAUNCHES)   # ... and ends here
-        want = {decode_kernel(run, *serve_shape(prompts)): base.n_layers * steps.n}
+        refs[run] += (route.same_first_step(routes[run]),)
+        want = {decode_kernel(run, *serve_shape(prompts), base.n_heads):
+                base.n_layers * steps.n}
         if got != want:
             raise AssertionError(f"serve {run}: launches {got} != {want} for {steps.n} decode "
                                  f"steps")
@@ -1472,7 +1565,7 @@ def serve_runs(base, params, prompts, runs):
             launches[k] = launches.get(k, 0) + v
     for run in runs:
         toks, tps, logits = kern[run]
-        r_toks, r_tps, r_logits = refs[run]
+        r_toks, r_tps, r_logits, rows = refs[run]
         paged, splits, rescale, sink = run
         lbl = f"serve paged={paged} kv_splits={splits} rescale={rescale} sink={sink}"
         if not (torch.isfinite(logits).all() and torch.isfinite(r_logits).all()):
@@ -1482,36 +1575,100 @@ def serve_runs(base, params, prompts, runs):
         # its query and its new latent to fp8, where a one-ulp difference moves
         # a code by a whole fp8 step; over 30 random-weight layers that grows
         # to a few 1e-3 of the largest logit (measured on mla-7b: 2.7e-3, H100
-        # run)
-        first = float((logits[:, 1] - r_logits[:, 1]).abs().max()
-                      / r_logits[:, 1].abs().max())
-        if first > 1e-2:
-            raise AssertionError(f"{lbl}: first-step logits rel err {first}")
+        # run; A's sm90 design 9.4e-3)
+        first = _first_step_err(logits, r_logits, rows, lbl)
         if not torch.equal(toks[:, 0], r_toks[:, 0]):
             raise AssertionError(f"{lbl}: prefill tokens differ")
         emit(phase="serve", arch=base.name, layers=base.n_layers, batch=prompts.shape[0],
              prompt=prompts.shape[1], gen=16,
              layout="paged" if paged else "contiguous", kv_splits=splits, rescale=rescale,
              sink_tokens=sink, tok_per_s=tps, ref_tok_per_s=r_tps,
+             first_step_rows_compared=int(rows.sum()), first_step_rows_routed_otherwise=int(
+                 (~rows).sum()),
              greedy_agreement_vs_ref=float((toks == r_toks).float().mean()),
              first_step_logits_rel_err=first, launches=run_launches[run])
+    from repro_torch.kernels.mla_decode import kernel as K
+    shape = serve_shape(prompts) + (base.n_heads,)
     for paged, splits, rescale, sink in runs:   # the two layouts: bit-identical
         if paged or sink or (True, splits, rescale, 0) not in kern:
             continue
-        plans = [planned_splits((p, splits, rescale, 0), *serve_shape(prompts))
-                 for p in (False, True)]
-        if plans[0] != plans[1]:     # the profile plans the two layouts apart
-            emit(phase="serve", arch=base.name, check="contiguous vs paged", kv_splits=splits,
-                 rescale=rescale, skipped=f"planned splits {plans} (contiguous, paged)")
-            continue
-        a, b = kern[(False, splits, rescale, 0)], kern[(True, splits, rescale, 0)]
+        twin = (True, splits, rescale, 0)
+        routed = decode_kernel(twin, *shape)
+        with K.forced_design("exact"):   # the exact design's bits, in both layouts
+            plans = [planned_splits((p, splits, rescale, 0), *shape) for p in (False, True)]
+            if plans[0] != plans[1]:     # the profile plans the two layouts apart
+                emit(phase="serve", arch=base.name, check="contiguous vs paged",
+                     kv_splits=splits, rescale=rescale,
+                     skipped=f"planned splits {plans} (contiguous, paged)")
+                continue
+            b = kern[twin] if decode_kernel(twin, *shape) == routed else serve.generate(
+                serve_cfg(base, twin, "kernel"), params, prompts, 16, return_logits=True)
+        a = kern[(False, splits, rescale, 0)]
         diff = float((a[2] - b[2]).abs().max())
         if not torch.equal(a[0], b[0]) or diff:
             raise AssertionError(f"serve {base.name} kv_splits={splits} {rescale}: contiguous "
                                  f"and paged runs differ (max logit diff {diff})")
         emit(phase="serve", arch=base.name, check="contiguous vs paged", kv_splits=splits,
-             rescale=rescale, identical_tokens=True, max_logit_diff=diff)
+             rescale=rescale, identical_tokens=True, max_logit_diff=diff,
+             paged_rerun_on_exact=b is not kern[twin])
     return launches, kern, refs
+
+
+def _first_step_err(logits, r_logits, rows, lbl) -> float:
+    """The first decode step's largest logit difference over the largest
+    logit, on ``rows``; raises past 1e-2 or with no row to compare."""
+    if not bool(rows.any()):
+        raise AssertionError(f"{lbl}: every row's first step routes otherwise than the plain "
+                             "backend's")
+    a, b = logits[rows, 1], r_logits[rows, 1]
+    first = float((a - b).abs().max() / b.abs().max())
+    if first > 1e-2:
+        raise AssertionError(f"{lbl}: first-step logits rel err {first}")
+    return first
+
+
+class _MoERouting:
+    """Records each MoE call of a ``generate`` run inside the block: the
+    top-k experts of every token and which of its pairs the capacity rule
+    kept. ``same_first_step(other)``: [B] rows whose first decode step (its
+    ``layers`` MoE calls of ``batch`` tokens) routes alike in both runs; a
+    router near-tie sends a token to other experts (or, through the
+    capacity rule, drops another row's pair) and moves its whole logits
+    row, which says nothing of the attention. All rows for a dense model."""
+
+    def __init__(self, batch, layers):
+        self.batch, self.layers, self.calls = batch, layers, []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.moe, self.route, self.dispatch = moe, moe._route, moe._dispatch
+
+        def routed(params, cfg, xt):
+            weights, ids = self.route(params, cfg, xt)
+            self.calls.append([ids.clone()])
+            return weights, ids
+
+        def dispatched(xt, ids, E, C, k):
+            out = self.dispatch(xt, ids, E, C, k)
+            keep = torch.empty_like(out[2])
+            keep[out[3]] = out[2]
+            self.calls[-1].append(keep.reshape(ids.shape))
+            return out
+        moe._route, moe._dispatch = routed, dispatched
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route, self.moe._dispatch = self.route, self.dispatch
+
+    def same_first_step(self, other):
+        import torch
+        first = [[c for c in r.calls if c[0].shape[0] == self.batch][:self.layers]
+                 for r in (self, other)]
+        same = torch.ones(self.batch, dtype=torch.bool, device="cuda")
+        for (ids, keep), (ids_o, keep_o) in zip(*first):
+            same &= ((ids == ids_o) & (keep == keep_o)).all(-1)
+        return same
 
 
 class _RecordResolves:
@@ -1711,7 +1868,6 @@ def engine_kit(base, params):
     import torch
     from repro_torch.core.kvcache import page_aligned_capacity
     from repro_torch.kernels import _lib
-    from repro_torch.kernels.mla_decode import ops
     from repro_torch.launch import serve
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     from repro_torch.serving.scheduler import Request
@@ -1878,10 +2034,11 @@ def engine_kit(base, params):
         under AMLA) in its epilogue, a chunk step the fused fetch-dequant."""
         L, d = base.n_layers, eng.dispatches
         sfx = "_amla" if amla else ""
-        splits = ops.resolve_num_splits(eng.cfg.kv_splits, eng.span_pages * eng.page, eng.page,
-                                        eng.ecfg.max_batch, "paged", "amla" if amla else "fma")
-        decode = "paged_splitkv_decode" if splits > 1 else "paged_single_pass_decode"
-        want = {decode + sfx: L * d["decode"],
+        if eng.page != PAGE:
+            raise AssertionError(f"engine page {eng.page} != {PAGE}")
+        decode = decode_kernel((True, eng.cfg.kv_splits, "amla" if amla else "fma", 0),
+                               eng.span_pages * eng.page, eng.ecfg.max_batch, base.n_heads)
+        want = {decode: L * d["decode"],
                 "paged_splitkv_decode_verify" + sfx: L * d["verify"],
                 "paged_fetch_dequant": L * d["chunk"]}
         return {k: v for k, v in want.items() if v}
@@ -2922,7 +3079,7 @@ def phase_dryrun() -> None:
 # phase 9: deepseek-v3-mla, full width, one layer
 DS_RUNS = [  # (paged, kv_splits, rescale, sink_tokens)
     (False, 0, "fma", 0), (True, 0, "fma", 0), (True, 4, "fma", 0), (True, 4, "amla", 0)]
-DS_FUSED = [(True, 0, "fma", 0), (False, 0, "fma", 0)]
+DS_FUSED = [(True, 0, "fma", 0), (False, 0, "fma", 0), (True, 4, "fma", 0)]
 # a decode batch whose MoE calls take C = max(1, int(64 * 8 * 1.25 / 256)) = 2
 # rows per expert (prompt 128 keeps its prefill small)
 DS_WIDE = (64, 128)
@@ -2953,7 +3110,8 @@ def phase_deepseek():
     launches, kern, refs = serve_runs(base, params, prompts, DS_RUNS)
     for run in DS_FUSED:
         _add(launches, fused_gate(f"deepseek {run}", serve_cfg(base, run, "kernel"), params,
-                                  prompts, kern[run], refs[run], decode_kernel(run)))
+                                  prompts, kern[run], refs[run],
+                                  decode_kernel(run, heads=base.n_heads)))
     batch, plen = DS_WIDE
     wide = torch.randint(0, base.vocab_size, (batch, plen),
                          generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
@@ -2964,7 +3122,7 @@ def phase_deepseek():
     _add(launches, got)
     _add(launches, fused_gate(f"deepseek {run} batch {batch}", serve_cfg(base, run, "kernel"),
                               params, wide, kern[run], refs[run],
-                              decode_kernel(run, *serve_shape(wide))))
+                              decode_kernel(run, *serve_shape(wide), base.n_heads)))
     emit(phase="deepseek_wide", batch=batch, prompt=plen, decode_capacity_per_expert=cap,
          held_to_plain=["generate", "generate_fused"])
     del kern, refs, wide
@@ -3054,7 +3212,8 @@ def summary_line(records, launches, long_tokens):
             plain_ms=short["plain_ms"], bound_ms=short["bound_ms"],
             bound_by=short["bound_by"], library_ms=library_ms, case=tag, splits=S,
             off_main_path=OFF_PATH.get(name), folded_into=FOLDED_INTO.get(name),
-            long_ctx=dict(case=ltag, tokens=long_tokens, splits=lS, ms=longc["ms"],
+            long_ctx=dict(case=ltag, tokens=longc.get("tokens", long_tokens), splits=lS,
+                          ms=longc["ms"],
                           plain_ms=longc["plain_ms"], bound_ms=longc["bound_ms"],
                           bound_by=longc["bound_by"]), **extra))
     return json.dumps({"kernels": rows})
@@ -3105,53 +3264,59 @@ def main() -> int:
     scale = 1.0 / (128 + D_R) ** 0.5             # mla-7b softmax scale
     records: dict = {}
     t0 = time.time()
-    decode_checks(gen, "fp8_e4m3", [527, 512, 520, 513], 5, [4, 1], scale,
-                  tag="serve_shape", timing=True, records=records)
-    long_lens = [0, PAGE, 32768, 20000]
-    decode_checks(gen, "fp8_e4m3", long_lens, 256, [1, 4, 8], scale, tag="long_32k",
-                  timing=True, records=records)
-    decode_checks(gen, "fp8_e4m3", [527, 512, 520, 513], 5, [4, 1], scale, tag="sink",
-                  timing=True, records=records, layouts=("contiguous",), sink_tokens=4)
-    emit(phase="kernels", case="sink", sink_tokens=4,
-         ms={f"{k[0]} S={k[2]}": v["ms"] for k, v in records.items()
-             if k[1] == "sink" and "ms" in v},
-         ms_unguarded={f"{k[0]} S={k[2]}": records[(k[0], "serve_shape", k[2])]["ms"]
-                       for k, v in records.items() if k[1] == "sink" and "ms" in v})
-    for fmt in ("int8", "none"):
-        decode_checks(gen, fmt, [0, PAGE, 4000], 32, [1, 4], scale, tag=f"small_{fmt}",
-                      timing=False, records=records)
-    k_append_checks(gen, "fp8_e4m3", 4, 640, tag="serve_shape", timing=True, records=records)
-    k_append_checks(gen, "fp8_e4m3", 4, 32768, tag="long_32k", timing=True, records=records)
-    k_append_checks(gen, "fp8_e4m3", 64, 640, tag="b64", timing=True, records=records)
-    k_append_checks(gen, "int8", 3, 256, tag="small_int8", timing=False, records=records)
-    token_prep_checks(gen, records)
-    fetch_checks(gen, records, engine_pages=8)
-    verify_checks(gen, [3, 512, 777, 1100], 9, 5, [1, 4, 8], scale, tag="verify_shape",
-                  records=records)
-    verify_checks(gen, long_lens, 256, 4, [1, 4, 8], scale, tag="long_32k_verify",
-                  records=records)
-    # the same kernels at deepseek-v3-mla's 128 heads (its softmax scale is
-    # mla-7b's: d_head 128, d_rope 64)
-    serve_lens = [527, 512, 520, 513]
-    decode_checks(gen, "fp8_e4m3", serve_lens, 5, [4, 1], scale, tag="serve_shape_h128",
-                  timing=True, records=records, heads=DS_HEADS)
-    decode_checks(gen, "fp8_e4m3", long_lens, 256, [1, 4, 8], scale, tag="long_32k_h128",
-                  timing=True, records=records, heads=DS_HEADS)
-    verify_checks(gen, serve_lens, 5, 5, [1, 4], scale, tag="serve_shape_h128_verify",
-                  records=records, heads=DS_HEADS)
-    verify_checks(gen, long_lens, 256, 4, [1, 4, 8], scale, tag="long_32k_h128_verify",
-                  records=records, heads=DS_HEADS)
-    no_verify_checks(gen, variant_lib, scale)
-    mla_ptxas()
-    width_sweep(gen, scale)
-    width_sweep(gen, scale, heads=DS_HEADS, sfx="_h128")
-    timed = [f for f in FOLDS if "folded_ms" in f]
-    emit(phase="kernels", check="folded D / C / #4", widths=list(K.HEAD_WIDTHS),
-         calls=len(FOLDS),
-         mismatches=0, cases=sorted({f["case"] for f in FOLDS}),
-         timed=len(timed), all_no_slower=all(f["no_slower"] for f in timed), times=timed)
-    emit(phase="kernels_done", seconds=time.time() - t0)
-    phase_autotune()
+    # A's sm90 design at the cells' shapes, on the wrapper's own route; then
+    # every kernel's bits, with A pinned to its exact design (the sm90 design
+    # takes A's fp8 FMA q_len = 1 split calls at the MLA widths, within
+    # tolerances: its row here, tests/test_torch_sm90_cuda.py)
+    sm90_checks(gen, scale, records)
+    with K.forced_design("exact"):
+        decode_checks(gen, "fp8_e4m3", [527, 512, 520, 513], 5, [4, 1], scale,
+                      tag="serve_shape", timing=True, records=records)
+        long_lens = [0, PAGE, 32768, 20000]
+        decode_checks(gen, "fp8_e4m3", long_lens, 256, [1, 4, 8], scale, tag="long_32k",
+                      timing=True, records=records)
+        decode_checks(gen, "fp8_e4m3", [527, 512, 520, 513], 5, [4, 1], scale, tag="sink",
+                      timing=True, records=records, layouts=("contiguous",), sink_tokens=4)
+        emit(phase="kernels", case="sink", sink_tokens=4,
+             ms={f"{k[0]} S={k[2]}": v["ms"] for k, v in records.items()
+                 if k[1] == "sink" and "ms" in v},
+             ms_unguarded={f"{k[0]} S={k[2]}": records[(k[0], "serve_shape", k[2])]["ms"]
+                           for k, v in records.items() if k[1] == "sink" and "ms" in v})
+        for fmt in ("int8", "none"):
+            decode_checks(gen, fmt, [0, PAGE, 4000], 32, [1, 4], scale, tag=f"small_{fmt}",
+                          timing=False, records=records)
+        k_append_checks(gen, "fp8_e4m3", 4, 640, tag="serve_shape", timing=True, records=records)
+        k_append_checks(gen, "fp8_e4m3", 4, 32768, tag="long_32k", timing=True, records=records)
+        k_append_checks(gen, "fp8_e4m3", 64, 640, tag="b64", timing=True, records=records)
+        k_append_checks(gen, "int8", 3, 256, tag="small_int8", timing=False, records=records)
+        token_prep_checks(gen, records)
+        fetch_checks(gen, records, engine_pages=8)
+        verify_checks(gen, [3, 512, 777, 1100], 9, 5, [1, 4, 8], scale, tag="verify_shape",
+                      records=records)
+        verify_checks(gen, long_lens, 256, 4, [1, 4, 8], scale, tag="long_32k_verify",
+                      records=records)
+        # the same kernels at deepseek-v3-mla's 128 heads (its softmax scale is
+        # mla-7b's: d_head 128, d_rope 64)
+        serve_lens = [527, 512, 520, 513]
+        decode_checks(gen, "fp8_e4m3", serve_lens, 5, [4, 1], scale, tag="serve_shape_h128",
+                      timing=True, records=records, heads=DS_HEADS)
+        decode_checks(gen, "fp8_e4m3", long_lens, 256, [1, 4, 8], scale, tag="long_32k_h128",
+                      timing=True, records=records, heads=DS_HEADS)
+        verify_checks(gen, serve_lens, 5, 5, [1, 4], scale, tag="serve_shape_h128_verify",
+                      records=records, heads=DS_HEADS)
+        verify_checks(gen, long_lens, 256, 4, [1, 4, 8], scale, tag="long_32k_h128_verify",
+                      records=records, heads=DS_HEADS)
+        no_verify_checks(gen, variant_lib, scale)
+        mla_ptxas()
+        width_sweep(gen, scale)
+        width_sweep(gen, scale, heads=DS_HEADS, sfx="_h128")
+        timed = [f for f in FOLDS if "folded_ms" in f]
+        emit(phase="kernels", check="folded D / C / #4", widths=list(K.HEAD_WIDTHS),
+             calls=len(FOLDS),
+             mismatches=0, cases=sorted({f["case"] for f in FOLDS}),
+             timed=len(timed), all_no_slower=all(f["no_slower"] for f in timed), times=timed)
+        emit(phase="kernels_done", seconds=time.time() - t0)
+        phase_autotune()
 
     # 3. one full-width layer, paged and contiguous (a counted main path)
     layer_launches = phase_layer()

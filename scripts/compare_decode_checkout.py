@@ -130,7 +130,9 @@ class OtherBuild:
     def __init__(self, other: Path, source: str, entries: tuple[str, ...]):
         from repro_torch.kernels import _lib
         csrc = other / "src" / "repro_torch" / "csrc"
-        src = (csrc / source).read_bytes() + (csrc / "common.cuh").read_bytes()
+        src = b"".join((csrc / name).read_bytes() for name in (source, "common.cuh",
+                                                                "mla_merge.cuh")
+                       if (csrc / name).exists())
         digest = hashlib.sha256(src).hexdigest()[:16]
         out = _lib.BUILD_DIR / f"other_{Path(source).stem}_{digest}.so"
         log_path = out.with_suffix(".log")
@@ -536,6 +538,7 @@ def main() -> int:
         return 2
     import chip_smoke as CS
     from repro_torch.kernels import _lib
+    from repro_torch.kernels.mla_decode import kernel as K
     other_dir = Path(args[0]).resolve()
     _lib.lib(verbose=True)
     device = torch.cuda.get_device_name(0)
@@ -547,7 +550,8 @@ def main() -> int:
                            ("snapmla_decode", "snapmla_lse_combine", "snapmla_amla_combine"))
         other_k1 = OtherBuild(other_dir, "fetch_dequant.cu", ("snapmla_fetch_dequant",))
         scale = 1.0 / (128 + CS.D_R) ** 0.5
-        total = decode_cases(other, gen, scale, device)
+        with K.forced_design("exact"):   # this checkout's A as the other's: its exact design
+            total = decode_cases(other, gen, scale, device)
         total["fetch"] = fetch_cases(other_k1, gen, device)
         bad = ptxas_check(_lib.BUILD_LOG, other.log + other_k1.log)
         sources = ["mla_decode.cu", "fetch_dequant.cu"] + sources

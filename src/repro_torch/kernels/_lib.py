@@ -37,9 +37,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("mla_decode.cu", "q_quant.cu", "k_append.cu", "fetch_dequant.cu",
-           "gqa_decode.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("mla_decode.cu", "mla_decode_sm90.cu", "q_quant.cu", "k_append.cu",
+           "fetch_dequant.cu", "gqa_decode.cu")
+HEADERS = ("common.cuh", "mla_merge.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -55,6 +55,10 @@ _SIGNATURES = {
     # lse, tickets, B, H, d_c, d_r, block, P, num_splits, blocks_per_split,
     # softmax_scale, q_len, width, stream
     "snapmla_decode": [_I] * 3 + [_P] * 11 + [_I] + [_P] * 6 + [_I] * 8 + [_F, _I, _I, _P],
+    # q_c8, q_r, sigma_q, q_lat, q_rope, content, rope, scale, page_table,
+    # seq_lens, o_part, lse_part, o, lse, tickets, B, H, n_pages, page, P,
+    # num_splits, pages_per_split, softmax_scale, stream
+    "snapmla_decode_sm90": [_P] * 15 + [_I] * 7 + [_F, _P],
     # o_part, lse_part, o, lse, B, S, H, d_c, stream
     "snapmla_lse_combine": [_P] * 4 + [_I] * 4 + [_P],
     # acc_part, l_part, g_part, o, lse, B, S, H, d_c, stream

@@ -216,11 +216,11 @@ def _contiguous_decode(use_kernel: bool):
 
 def _paged_decode(use_kernel: bool):
     def decode(q: DecodeQuery, pool, cfg: BackendConfig, ctx=None) -> torch.Tensor:
-        plan = _split_plan(cfg, pool.capacity, q.q_c8.shape[0], "paged",
-                           page_size=pool.page_size)
+        # the pool's page is its block: snapmla_decode_paged resolves the
+        # split count (an unset one by the design the call takes)
         o, _lse = _ops.snapmla_decode_paged(
             q.q_c8, q.q_r, q.sigma_q, pool, softmax_scale=cfg.softmax_scale, fmt=cfg.fmt,
-            num_splits=plan.num_splits, use_kernel=use_kernel, rescale=cfg.rescale)
+            num_splits=cfg.num_splits, use_kernel=use_kernel, rescale=cfg.rescale)
         return o
     return decode
 

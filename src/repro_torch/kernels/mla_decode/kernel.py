@@ -4,7 +4,9 @@
 
   * ``mla_decode_paged_splitkv_cuda`` — kernel A (paged split-KV, q_len = 1)
     with kernel C (FMA) or #4 (AMLA) folded into its epilogue; replaces
-    ``repro/kernels/mla_decode/kernel.py::mla_decode_paged_splitkv_pallas``;
+    ``repro/kernels/mla_decode/kernel.py::mla_decode_paged_splitkv_pallas``.
+    Its FMA fp8 q_len = 1 route at the MLA widths runs the tensor-core design
+    ``csrc/mla_decode_sm90.cu`` (``decode_design`` is the rule);
   * ``mla_decode_paged_cuda`` — kernel B (the same kernel in single-pass
     mode); replaces ``mla_decode_paged_pallas``;
   * ``mla_decode_splitkv_cuda`` — #2, kernel A over a contiguous cache, with
@@ -43,11 +45,27 @@ last-block merge), grown on demand outside any CUDA-graph capture; it
 assumes one stream, as the port uses: two folded launches in flight on two
 streams would share it.
 
+Two designs compute kernel A. The exact one (``mla_decode.cu``) agrees with
+the plain version bit for bit and serves every mode. The sm90 one
+(``mla_decode_sm90.cu``: 64 heads a CUDA block, fp8 ``wgmma`` for QK and PV,
+float32 sums promoted every 32 products) takes the calls that need none of
+the exact design's modes: an fp8 pool, FMA, one query token, d_c 512 and d_r
+64, pages of 64 or 128 tokens, C folded, 16-byte aligned tensors. Its sums run
+in float32 in another order, so its outputs are the plain version's within
+tolerances, not its bits. ``decode_design`` is the rule; ``forced_design``
+pins the exact one for a test that holds bits. A call the sm90 design takes
+that sets no split count takes its split rule, ``sm90_num_splits``
+(``design_num_splits``, which ``ops.snapmla_decode_paged`` asks).
+``_lib.LAUNCHES`` counts the two apart: ``paged_splitkv_decode`` and
+``paged_splitkv_decode_sm90``.
+
 A wrapper runs its plain PyTorch version (``ref.py``) only when it is handed
 CPU tensors; for CUDA tensors it launches the kernel or raises. On the CPU a
 raw query runs ``fused_q_quant_ref`` and then the plain version.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -68,6 +86,14 @@ RAW_FMTS = ("fp8_e4m3", "int8")
 # the most splits #4 folds at (mla_decode.cu: kMaxAmlaFoldSplits): its shift
 # table must fit one CUDA block's shared memory
 AMLA_FOLD_MAX_SPLITS = 4096
+# the sm90 design's widths and pages (mla_decode_sm90.cu: kDc, kDr, its
+# instantiations) and the heads of one of its CUDA blocks (kHeads)
+SM90_D_C, SM90_D_R, SM90_PAGES, SM90_HEADS = 512, 64, (64, 128), 64
+# the sm90 design's split rule (sm90_num_splits): the tokens a split aims
+# at, and the fewest pages a split holds
+SM90_SPLIT_TOKENS = 8192
+SM90_MIN_PAGES = 8
+_FORCED_DESIGN: list = []
 
 
 def _check_raw(fmt: str) -> None:
@@ -95,6 +121,81 @@ def launch_plan(*, raw: bool, fmt: str, single_pass: bool, rescale: str,
     if return_partials or (amla and num_splits > AMLA_FOLD_MAX_SPLITS):
         return "amla_combine" if amla else "lse_combine"
     return "folded"
+
+
+def decode_design(*, fmt: str, rescale: str, q_rank: int, d_c: int, d_r: int, page: int,
+                  return_partials: bool = False, aligned: bool = True) -> str:
+    """Which design computes a paged split-KV decode call: "sm90" (the
+    tensor-core kernel, ``mla_decode_sm90.cu``) for an fp8 pool under FMA
+    with one query token (a rank-3 query: a rank-4 verify block, even of one
+    token, keeps its rank through the exact design), d_c 512, d_r 64, a page
+    of 64 or 128 tokens, C folded (no partials returned) and 16-byte aligned
+    tensors; every other call "exact" (``mla_decode.cu``, bit for bit the
+    plain version). Contiguous caches (and with them the sink guard) and the
+    single pass take the exact design without asking."""
+    if _FORCED_DESIGN:
+        return _FORCED_DESIGN[-1]
+    sm90 = (fmt == "fp8_e4m3" and rescale == "fma" and q_rank == 3 and d_c == SM90_D_C
+            and d_r == SM90_D_R and page in SM90_PAGES and not return_partials and aligned)
+    return "sm90" if sm90 else "exact"
+
+
+@contextlib.contextmanager
+def forced_design(design: str):
+    """Route every split-KV decode call inside the block to ``design``; for
+    tests that hold the exact design's bits at shapes the rule sends to sm90
+    ("exact" is the only design every call can take)."""
+    if design != "exact":
+        raise ValueError(f"only the exact design can be forced, not {design!r}")
+    _FORCED_DESIGN.append(design)
+    try:
+        yield
+    finally:
+        _FORCED_DESIGN.pop()
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors if t is not None)
+
+
+def _paged_design(q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_table,
+                  seq_lens, *, fmt, rescale, return_partials=False) -> str:
+    """``decode_design`` of a paged split-KV call, read off its tensors."""
+    return decode_design(fmt=fmt, rescale=rescale, q_rank=q_c8.dim(), d_c=q_c8.shape[-1],
+                         d_r=q_r.shape[-1], page=content_pool.shape[1],
+                         return_partials=return_partials,
+                         aligned=_aligned(q_c8, q_r, sigma_q, content_pool, rope_pool,
+                                          scale_pool, page_table, seq_lens))
+
+
+def sm90_num_splits(batch: int, heads: int, capacity: int, page: int, sms: int) -> int:
+    """The sm90 design's split count (one CUDA block per SM, 64 heads a
+    block): splits of about ``SM90_SPLIT_TOKENS`` tokens of the capacity, so
+    a block's fixed costs (its query, its pipeline's fill, its partial and
+    the merge) stay a few pages' worth and rows of unequal length even out
+    over the blocks; at least enough that ``batch * ceil(heads / 64) *
+    splits`` blocks cover the SMs; and no split of fewer than
+    ``SM90_MIN_PAGES`` pages. A function of the shapes and the SM count only:
+    the live lengths are on the device."""
+    pages = max(1, capacity // page)
+    blocks = batch * -(-heads // SM90_HEADS)
+    want = max(-(-capacity // SM90_SPLIT_TOKENS), -(-sms // blocks))
+    return max(1, min(want, pages // SM90_MIN_PAGES))
+
+
+def design_num_splits(q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_table,
+                      seq_lens, *, fmt, rescale) -> int | None:
+    """The split count of a paged call that sets none, by the rule of the
+    design it takes: ``sm90_num_splits`` for a card call the sm90 design
+    takes (the wrapper's own test), else None: the exact design's plan
+    (``ops.resolve_num_splits``, from the profile it was measured for)."""
+    args = (q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_table, seq_lens)
+    if _on_cpu(*args) or _paged_design(*args, fmt=fmt, rescale=rescale) != "sm90":
+        return None
+    B, P = page_table.shape
+    page = content_pool.shape[1]
+    return sm90_num_splits(B, q_c8.shape[-2], P * page, page,
+                           _lib.sm_count(q_c8.device.index or 0))
 
 
 class _Scratch:
@@ -255,11 +356,9 @@ def _launch_decode(kernel: str, fmt: str, single_pass: bool, rescale: str, q_c8,
     return (o, lse, None) if fold else (o_p, lse_p, sp_p)
 
 
-def _paged_launch(q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_table,
-                  seq_lens, *, softmax_scale, num_splits, fmt, single_pass, rescale,
-                  q_len=1, fold=False):
-    """Check a paged call's tensors and launch A or B on the pool."""
-    launch_plan(raw=sigma_q is None, fmt=fmt, single_pass=single_pass, rescale=rescale)
+def _check_paged(q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_table,
+                 seq_lens, fmt):
+    """Check a paged call's tensors: (B, P, H, d_c, d_r, page)."""
     B, P = page_table.shape
     n_pages, page, _ = content_pool.shape
     d_r = q_r.shape[-1]
@@ -269,11 +368,46 @@ def _paged_launch(q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_
     _lib.check(rope_pool, "rope_pool", torch.bfloat16, (n_pages, page, d_r), dev)
     _lib.check(scale_pool, "scale_pool", torch.float32, (n_pages, page), dev)
     _lib.check(page_table, "page_table", torch.int32, (B, P), dev)
+    return B, P, H, d_c, d_r, page
+
+
+def _paged_launch(q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_table,
+                  seq_lens, *, softmax_scale, num_splits, fmt, single_pass, rescale,
+                  q_len=1, fold=False):
+    """Check a paged call's tensors and launch A or B on the pool."""
+    launch_plan(raw=sigma_q is None, fmt=fmt, single_pass=single_pass, rescale=rescale)
+    B, P, H, d_c, d_r, page = _check_paged(q_c8, q_r, sigma_q, content_pool, rope_pool,
+                                           scale_pool, page_table, seq_lens, fmt)
     return _launch_decode(
         "paged_single_pass_decode" if single_pass else "paged_splitkv_decode", fmt,
         single_pass, rescale, q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool,
         page_table, seq_lens, None, B=B, H=H, d_c=d_c, d_r=d_r, block=page, P=P,
         num_splits=num_splits, softmax_scale=softmax_scale, q_len=q_len, fold=fold)
+
+
+def _paged_sm90(q_c8, q_r, sigma_q, content_pool, rope_pool, scale_pool, page_table,
+                seq_lens, *, softmax_scale, num_splits):
+    """Launch the sm90 design of A with C folded (``decode_design`` chose it):
+    (o [B, H, d_c], lse [B, H])."""
+    launch_plan(raw=sigma_q is None, fmt="fp8_e4m3", single_pass=False, rescale="fma")
+    B, P, H, d_c, _, page = _check_paged(q_c8, q_r, sigma_q, content_pool, rope_pool,
+                                         scale_pool, page_table, seq_lens, "fp8_e4m3")
+    if not 1 <= num_splits <= P:
+        raise ValueError(f"num_splits={num_splits} outside [1, {P}]")
+    dev = q_c8.device
+    o_p, lse_p, _ = _SCRATCH.partials(dev, B, num_splits, H, d_c)
+    tickets = _SCRATCH.tickets(dev, B * H)   # B x head groups
+    o = torch.empty((B, H, d_c), dtype=torch.float32, device=dev)
+    lse = torch.empty((B, H), dtype=torch.float32, device=dev)
+    prepared, raw = ((q_c8, q_r, sigma_q), (None, None)) if sigma_q is not None else \
+        ((None, None, None), (q_c8, q_r))
+    _lib.launch(
+        "paged_splitkv_decode_sm90", "snapmla_decode_sm90", *map(_ptr, prepared),
+        *map(_ptr, raw), content_pool.data_ptr(), rope_pool.data_ptr(), scale_pool.data_ptr(),
+        page_table.data_ptr(), seq_lens.data_ptr(), o_p.data_ptr(), lse_p.data_ptr(),
+        o.data_ptr(), lse.data_ptr(), tickets.data_ptr(), B, H, content_pool.shape[0], page, P,
+        num_splits, -(-P // num_splits), float(softmax_scale))
+    return o, lse
 
 
 def _contiguous_launch(q_c8, q_r, sigma_q, content, rope, scale, seq_lens, *,
@@ -424,6 +558,9 @@ def mla_decode_paged_splitkv_cuda(q_c8, q_r, sigma_q, content_pool, rope_pool,
             *_cpu_query(q_c8, q_r, sigma_q, fmt), *args[3:], softmax_scale=softmax_scale,
             num_splits=num_splits, fmt=fmt, return_partials=return_partials,
             rescale=rescale)
+    if _paged_design(*args, fmt=fmt, rescale=rescale,
+                     return_partials=return_partials) == "sm90":
+        return _paged_sm90(*args, softmax_scale=softmax_scale, num_splits=num_splits)
     return _split_decode(_paged_launch, q_c8, q_r, sigma_q, args[3:], fmt=fmt,
                          rescale=rescale, return_partials=return_partials,
                          softmax_scale=softmax_scale, num_splits=num_splits)

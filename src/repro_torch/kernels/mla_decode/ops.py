@@ -140,11 +140,13 @@ def snapmla_decode_paged(q_c8: torch.Tensor, q_r: torch.Tensor,
     sequence against a paged pool. Returns (o_latent [B, (q_len,) H, d_c]
     f32, lse [B, (q_len,) H])."""
     page = pool.page_size
-    splits = resolve_num_splits(num_splits, pool.capacity, page, q_c8.shape[0], "paged",
-                                rescale)
     args = _query(q_c8, q_r, sigma_q, fmt, use_kernel) + (
         pool.content, pool.rope, pool.scale, pool.page_table, pool.seq_lens)
     kw = dict(softmax_scale=softmax_scale, fmt=fmt, rescale=rescale)
+    if use_kernel and not num_splits:   # the design's own rule, where it has one
+        num_splits = _k.design_num_splits(*args, fmt=fmt, rescale=rescale)
+    splits = resolve_num_splits(num_splits, pool.capacity, page, q_c8.shape[0], "paged",
+                                rescale)
     if use_kernel:
         if splits == 1 and q_c8.dim() == 3:
             return _k.mla_decode_paged_cuda(*args, **kw)

@@ -88,8 +88,9 @@ def test_single_pass_kernel_matches_plain_and_one_split(cuda, fmt, page, H, d_c,
                         dtype=torch.int32, device="cuda")
     args_live = args[:7] + (live,)
     o_b, lse_b = K.mla_decode_paged_cuda(*args_live, softmax_scale=0.1, fmt=fmt)
-    o_a, lse_a = K.mla_decode_paged_splitkv_cuda(*args_live, softmax_scale=0.1,
-                                                 num_splits=1, fmt=fmt)
+    with K.forced_design("exact"):   # A's exact design: B's bits at one split
+        o_a, lse_a = K.mla_decode_paged_splitkv_cuda(*args_live, softmax_scale=0.1,
+                                                     num_splits=1, fmt=fmt)
     assert torch.equal(o_b, o_a) and torch.equal(lse_b, lse_a)
 
 
@@ -636,7 +637,9 @@ def test_folded_launch_bitwise_equal_to_the_launches_it_replaces(cuda, rescale, 
     and contiguous, the contiguous sink guard, and the verify mode at q_len
     4 and 5. fmt "none" folds the merge only (its query is prepare_q's)."""
     kw = dict(softmax_scale=0.1, fmt=fmt, rescale=rescale)
-    with K.forced_head_width(width):
+    # the exact design's folded bits (the sm90 design takes the fp8 FMA q_len 1
+    # folded calls at d_c 512: tests/test_torch_sm90_cuda.py)
+    with K.forced_head_width(width), K.forced_design("exact"):
         for q_len in (1, 4, 5):
             raw, paged, contig = _folded_case(fmt, page, H, d_c, d_r, P, q_len, seed=q_len)
             query = _unfolded(raw, fmt)
